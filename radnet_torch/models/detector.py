@@ -1,0 +1,105 @@
+"""The two-stage detector as one module with three entry points.
+
+* :meth:`FasterRCNN.features`  - the shared trunk;
+* :meth:`FasterRCNN.rpn`       - the RPN heads on a feature map;
+* :meth:`FasterRCNN.roi_heads` - RoI pooling + the stage-5 head.
+
+Layouts at these entry points follow the JAX package: images ``(B, S, S, 3)``,
+RoIs ``(B, R, 4)`` xywh in feature units, RPN outputs ``(B, H, W, A)``.
+The feature map itself is NCHW in channels-last memory format.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from radnet_torch.config import Config
+from radnet_torch.models import resnet
+from radnet_torch.models.layers import Conv
+from radnet_torch.models.rpn import RPNHead
+from radnet_torch.ops.roi_align import batched_roi_pool
+
+
+class FasterRCNN(nn.Module):
+    def __init__(self, network: str, n_classes: int, num_anchors: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if network != "resnet50":
+            raise NotImplementedError(
+                f"network {network!r} is not ported yet (ROADMAP Queue 1 item 10)"
+            )
+        self.network = network
+        self.dtype = dtype
+        self.trunk = resnet.ResNet50Trunk(dtype=dtype)
+        # 7x7 pool on the even centres of the 14x14 grid, feeding the
+        # pre-strided head.
+        self.head = resnet.ResNet50RoIHead(n_classes, dtype=dtype)
+        self.pool_size = resnet.POOL_SIZE // 2
+        self.pool_center_stride = 2
+        self.rpn_head = RPNHead(resnet.FEATURE_CHANNELS, num_anchors, dtype=dtype)
+
+    def features(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) centred images -> (B, C, h, w) channels-last features."""
+        return self.trunk(images)
+
+    def rpn(self, fmap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Feature map -> (objectness (B, h, w, A), deltas (B, h, w, 4A))."""
+        return self.rpn_head(fmap)
+
+    def roi_heads(self, fmap: torch.Tensor, rois_xywh: torch.Tensor):
+        """Pool + classify RoIs: (class probs (B, R, n_classes), box deltas
+        (B, R, 4 * (n_classes - 1)))."""
+        b, r = rois_xywh.shape[:2]
+        fmap_nhwc = fmap.permute(0, 2, 3, 1).contiguous()
+        pooled = batched_roi_pool(
+            fmap_nhwc, rois_xywh.float().contiguous(),
+            pool_size=self.pool_size, center_stride=self.pool_center_stride,
+        )
+        pooled = pooled.reshape((b * r,) + pooled.shape[2:]).permute(0, 3, 1, 2)
+        cls, regr = self.head(pooled)
+        return cls.reshape(b, r, -1), regr.reshape(b, r, -1)
+
+
+def build_model(config: Config) -> FasterRCNN:
+    if config.infer_quantize:
+        raise NotImplementedError(
+            "infer_quantize: the int8 RoI head is not ported yet (ROADMAP Queue 1 item 9)"
+        )
+    return FasterRCNN(
+        network=config.network,
+        n_classes=config.n_classes,
+        num_anchors=config.n_anchors,
+        dtype=getattr(torch, config.compute_dtype),
+    )
+
+
+def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Truncated normal with variance 1/fan_in (the JAX package's conv init)."""
+    fan_in = w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_weights(model: FasterRCNN, generator: torch.Generator) -> FasterRCNN:
+    """Seeded init in the JAX package's manner: lecun-normal convs with zero
+    bias, frozen BN at identity, RPN conv N(0, 0.05), objectness
+    U(-0.05, 0.05), zero regression and dense heads."""
+    for name, m in model.named_modules():
+        if isinstance(m, Conv):
+            m.bias.zero_()
+            if name.endswith("rpn_conv1"):
+                m.weight.normal_(0.0, 0.05, generator=generator)
+            elif name.endswith("rpn_out_class"):
+                m.weight.uniform_(-0.05, 0.05, generator=generator)
+            elif name.endswith("rpn_out_regress"):
+                m.weight.zero_()
+            else:
+                _lecun_normal_(m.weight, generator)
+        elif isinstance(m, nn.Linear):
+            m.weight.zero_()
+            m.bias.zero_()
+    return model

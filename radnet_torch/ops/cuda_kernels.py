@@ -1,0 +1,144 @@
+"""Build, load and launch the hand-written CUDA kernels of ``radnet_torch/csrc``.
+
+Each ``.cu`` source has a plain C interface.  At first use it is compiled by
+``nvcc`` for ``sm_90a`` into a shared library under ``radnet_torch/_build/``,
+named by a hash of its source and flags, and loaded with ``ctypes``.  A C
+entry point takes device pointers and the CUDA stream as ``void*``, launches
+on that stream and returns ``cudaGetLastError()``; the wrapper raises if it
+is not 0.  Nothing here touches CUDA when the module is imported.
+
+Every kernel keeps ``launches``, the number of times its wrapper launched it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+class CudaKernel:
+    """One ``.cu`` source, its C entry point and its launch count."""
+
+    def __init__(self, source: str, symbol: str, argtypes: list, extra_flags: tuple = ()):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]  # the stream last
+        self.flags = ARCH_FLAGS + BASE_FLAGS + list(extra_flags)
+        self.launches = 0
+        self._fn = None
+        self._err_str = None
+
+    @property
+    def name(self) -> str:
+        return Path(self.source).stem
+
+    def lib_path(self) -> Path:
+        digest = hashlib.sha256(
+            (CSRC / self.source).read_bytes() + " ".join(self.flags).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"{self.name}-{digest}.so"
+
+    def compile_command(self, out: Path) -> list[str]:
+        return [_nvcc(), *self.flags, "-o", str(out), str(CSRC / self.source)]
+
+    def _load(self):
+        if self._fn is None:
+            path = self.lib_path()
+            if not path.exists():
+                build([self])
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err_str = lib.radnet_cuda_error_string
+            err_str.argtypes = [ctypes.c_int]
+            err_str.restype = ctypes.c_char_p
+            self._fn, self._err_str = fn, err_str
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Launch on the current stream; raise if the launch failed."""
+        fn = self._load()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            msg = self._err_str(err).decode()
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error {err}: {msg}")
+        self.launches += 1
+
+
+def build(kernels: list[CudaKernel]) -> float:
+    """Compile every kernel whose library is missing, one ``nvcc`` per
+    source, all started together.  Returns the wall seconds spent."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for k in kernels:
+        out = k.lib_path()
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            k.compile_command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((k, proc, tmp, out))
+    failed = []
+    for k, proc, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{k.source}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+NMS_DOMINANCE = CudaKernel(
+    "nms_dominance.cu",
+    "radnet_nms_dominance",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float],
+    extra_flags=("--fmad=false",),
+)
+
+ROI_POOL = CudaKernel(
+    "roi_pool.cu",
+    "radnet_roi_pool",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 8,
+    extra_flags=("--fmad=false",),
+)
+
+KERNELS = [NMS_DOMINANCE, ROI_POOL]
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
