@@ -12,15 +12,33 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 (12, 300), P = 7, center_stride 2 and 1, bf16 and f32:
                 f32 within 1e-5 absolute, bf16 within one bf16 ulp of the
                 plain version computed in f32 from the same bf16 inputs;
-  5. timings    CUDA-event medians of each kernel, its plain version and a
-                library call, beside the kernel's bound on this card;
-  6. main path  the default Config (ResNet50, canvas 608, bf16, 12 tiles a
+  5. kernel 3   the grey stem vs its plain version at (12, 608), (6, 608) and
+                (2, 64), bf16 and f32: f32 within 1e-5 of the largest
+                magnitude; bf16 within one bf16 ulp of the plain version
+                computed in f32 with the same bf16-rounded weights (or 1e-6
+                of the largest magnitude, for values within float32
+                accumulation noise of zero); it also counts the bf16 values
+                beyond one ulp of a plain version with unrounded weights,
+                which the gate does not use; then vs the port's 3-channel
+                cuDNN stem on 3-equal-channel canvases at the criterion of
+                tests/test_pallas_stem.py;
+  6. timings    device time of each kernel, CUDA-event medians of its plain
+                version and of a library call, beside the kernel's bound on
+                this card;
+  7. main path  the default Config (ResNet50, canvas 608, bf16, 12 tiles a
                 batch) with seeded random weights, saved to a model dir and
                 served through radnet_torch.cli.serve: three 4400 x 3000 grey
                 PNG panels, 28 tiles each; every kernel's launch count is
-                read around this run;
-  7. card/CPU   one 2-tile batch of the cascade in float32 (TF32 off) on the
-                card and on the CPU: the detection sets must match.
+                read around this run; then per-stage times of one batch;
+  8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
+                3000 grey panels and a blended map (launch counts read around
+                it), then one panel down each other path through
+                RADNet.predict: host tiles on a shortest-side canvas, host
+                tiles on the square canvas, full-resolution device tiling and
+                include_full_img;
+  9. card/CPU   one 2-tile batch of the cascade in float32 (TF32 off) on the
+                card and on the CPU, grey canvases (the grey stem) and the
+                same canvases as 3 channels: the detection sets must match.
 
 The last lines are the kernels JSON line, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -44,9 +62,15 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PANEL_HW = (3000, 4400)
 N_PANELS = 3
 SEED = 0
+# (B, N, IoU threshold, box extent, unit): the proposal NMS, the per-class
+# NMS, and a ragged N.
+NMS_CASES = [(12, 2048, 0.7, 10, 1.0), (72, 300, 0.2, 8, 16.0), (5, 1000, 0.5, 12, 1.0)]
+# (B, S) of the grey stem: a full batch, a half batch, a small canvas.
+STEM_CASES = [(12, 608), (6, 608), (2, 64)]
 
 
 def emit(obj) -> None:
@@ -129,9 +153,9 @@ def device_busy(fn) -> tuple[float, float]:
     return wall_ms, busy_us / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -167,17 +191,81 @@ def roi_inputs(dtype, seed, device, b=12, hw=38, c=1024, r=300):
     return fmap.to(device=device, dtype=dtype), torch.from_numpy(rois).to(device)
 
 
-def synthetic_grey_panel(seed: int) -> np.ndarray:
+def synthetic_grey_panel(seed: int, hw=None) -> np.ndarray:
     """A grey panel: dark textured rock with bright carved figures."""
     rng = np.random.default_rng(seed)
-    h, w = PANEL_HW
-    img = rng.integers(20, 60, (h // 4, w // 4), dtype=np.uint8)
-    img = np.repeat(np.repeat(img, 4, axis=0), 4, axis=1)
-    for _ in range(120):
-        x, y = rng.integers(0, w - 300), rng.integers(0, h - 300)
+    h, w = hw or PANEL_HW
+    img = rng.integers(20, 60, (-(-h // 4), -(-w // 4)), dtype=np.uint8)
+    img = np.repeat(np.repeat(img, 4, axis=0), 4, axis=1)[:h, :w]
+    n = max(8, 120 * h * w // (PANEL_HW[0] * PANEL_HW[1]))
+    for _ in range(n):
+        x, y = rng.integers(0, max(1, w - 300)), rng.integers(0, max(1, h - 300))
         bw, bh = rng.integers(40, 300, 2)
         img[y : y + bh, x : x + bw] = rng.integers(110, 250)
-    return img
+    return np.ascontiguousarray(img)
+
+
+def bgr(grey: np.ndarray) -> np.ndarray:
+    """A grey panel as the three equal BGR channels a PNG decode gives."""
+    return np.repeat(grey[..., None], 3, axis=-1)
+
+
+def synthetic_colour_panel(seed: int, hw) -> np.ndarray:
+    """The grey panel tinted per channel, with colour noise: BGR uint8."""
+    grey = synthetic_grey_panel(seed, hw).astype(np.int16)
+    rng = np.random.default_rng(seed + 1000)
+    tint = np.array([-12, 0, 14], np.int16)
+    noise = rng.integers(-6, 7, grey.shape + (3,), dtype=np.int16)
+    return np.clip(grey[..., None] + tint + noise, 0, 255).astype(np.uint8)
+
+
+def stem_params(seed: int):
+    """Stem weights in test_pallas_stem.py's distribution: the 3-channel 7x7
+    conv (OIHW), its bias and the frozen batch norm."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(0, 0.05, (64, 3, 7, 7)).astype(np.float32)
+    bias = rng.normal(0, 0.05, (64,)).astype(np.float32)
+    bn = {"gamma": rng.normal(1, 0.1, 64), "beta": rng.normal(0, 0.1, 64),
+          "mean": rng.normal(0, 1.0, 64), "var": rng.uniform(0.5, 2.0, 64)}
+    return w, bias, {k: v.astype(np.float32) for k, v in bn.items()}
+
+
+def grey_canvases(b: int, s: int, seed: int, device):
+    """uint8 (B, S, S) canvases whose content (S - 8 square) leaves a dead
+    band, so the centring map's edge is exercised."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    g = np.zeros((b, s, s), np.uint8)
+    g[:, : s - 8, : s - 8] = rng.integers(0, 255, (b, s - 8, s - 8))
+    return torch.from_numpy(g).to(device)
+
+
+def stem_trunk(w, bias, bn, dtype, device):
+    """The port's ResNet50 trunk with these stem weights (its 3-channel
+    stem is what the grey stem replaces)."""
+    import torch
+
+    from radnet_torch.models.resnet import ResNet50Trunk
+
+    trunk = ResNet50Trunk(dtype=dtype)
+    with torch.no_grad():
+        trunk.conv1.weight.copy_(torch.from_numpy(w))
+        trunk.conv1.bias.copy_(torch.from_numpy(bias))
+        for k, v in bn.items():
+            getattr(trunk.bn_conv1, k).copy_(torch.from_numpy(v))
+    return trunk.to(device).eval()
+
+
+def stem_consts(w, bias, bn, s, device):
+    """The grey stem's ``(k7, b0, scale)`` on the card, ``k7`` unrounded."""
+    import torch
+
+    from radnet_torch.data.pipeline import IMAGENET_BGR_MEAN
+    from radnet_torch.ops.grey_stem import stem_constants
+
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in stem_constants(w, bias, bn, s, IMAGENET_BGR_MEAN))
 
 
 def grid_sample_centres(rois, p, stride, hw):
@@ -265,43 +353,17 @@ def calibrate_heads(radnet, canvases, gen):
         fit(head.dense_regress, feats, 0.5)
 
 
-def main() -> int:
+def kernel_checks(dev) -> dict:
+    """Phases 3-5: every kernel against its plain version on the card."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
-              file=sys.stderr)
-        return 1
-    from radnet_torch.cli import serve
-    from radnet_torch.config import Config
-    from radnet_torch.data.png import decode_png, write_png
-    from radnet_torch.data.tiling import plan_tiles
-    from radnet_torch.inference import RADNet, load_radnet, save_radnet
-    from radnet_torch.models.detector import build_model, init_weights
-    from radnet_torch.ops import cuda_kernels, nms, roi_align
+    from radnet_torch.data.pipeline import preprocess_on_device
+    from radnet_torch.ops import grey_stem, nms, roi_align
 
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "kind": kind, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
-
-    # 2. build
-    build_s = cuda_kernels.build(cuda_kernels.KERNELS)
-    emit({"phase": "build", "seconds": build_s,
-          "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS]})
-
+    errs = {}
     # 3. kernel 1 vs plain: exact equality.
-    nms_cases = [(12, 2048, 0.7, 10, 1.0), (72, 300, 0.2, 8, 16.0), (5, 1000, 0.5, 12, 1.0)]
     dom_err = 0.0
-    for i, (b, n, thr, extent, unit) in enumerate(nms_cases):
+    for i, (b, n, thr, extent, unit) in enumerate(NMS_CASES):
         boxes, scores = nms_inputs(b, n, SEED + i, extent, unit, dev)
         got = nms.dominates_cuda(boxes, scores, thr)
         want = nms.dominates_plain(boxes, scores, thr)
@@ -311,9 +373,9 @@ def main() -> int:
         emit({"phase": "kernel1", "shape": [b, n], "thresh": thr, "mismatches": mism,
               "true_frac": float(want.float().mean())})
         check(mism == 0, f"nms_dominance disagrees with its plain version at {(b, n)}")
+    errs["nms_dominance"] = dom_err
 
     # 4. kernel 2 vs plain: f32 <= 1e-5 abs; bf16 within one bf16 ulp.
-    roi_err = {}
     for dtype in (torch.bfloat16, torch.float32):
         for stride in (2, 1):
             fmap, rois = roi_inputs(dtype, SEED + stride, dev)
@@ -327,32 +389,94 @@ def main() -> int:
             else:
                 ulps = float((err / bf16_ulp(ref)).max())
                 ok, tol = ulps <= 1.0, f"1 bf16 ulp (max {ulps:.3f} ulp)"
-            roi_err[(str(dtype), stride)] = max_err
+                if stride == 2:
+                    errs["roi_pool"] = max_err
             emit({"phase": "kernel2", "dtype": str(dtype), "center_stride": stride,
                   "max_abs_err": max_err, "tolerance": tol, "exact": bool(err.max() == 0)})
             check(ok, f"roi_pool disagrees with its plain version ({dtype}, stride {stride})")
             del fmap, got, ref, err
 
-    # 5. timings at the main path's shapes.
-    def timed(kernel_fn, symbol, plain_fn, n_bytes, n_ops, shape):
+    # 5. kernel 3 vs plain, then vs the 3-channel stem it replaces.
+    w, bias, bn = stem_params(SEED)
+    for b, s in STEM_CASES:
+        k7, b0, scale = stem_consts(w, bias, bn, s, dev)
+        g = grey_canvases(b, s, SEED + b + s, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            k7d = grey_stem.stem_weights(k7, dtype)
+            got = grey_stem.grey_stem_cuda(g, k7d, b0, scale, dtype)
+            ref = grey_stem.grey_stem_plain(g, k7d, b0, scale, torch.float32)
+            torch.cuda.synchronize()
+            err = (got.float() - ref).abs()
+            max_err, top = float(err.max()), float(ref.abs().max())
+            extra = {}
+            if dtype == torch.float32:
+                ok, tol = max_err <= 1e-5 * top, "1e-5 of the largest magnitude"
+            else:
+                beyond = err > bf16_ulp(ref)
+                ok = bool((err <= torch.clamp(bf16_ulp(ref), min=1e-6 * top)).all())
+                tol = "1 bf16 ulp, at least 1e-6 of the largest magnitude"
+                ref_unrounded = grey_stem.grey_stem_plain(g, k7, b0, scale, torch.float32)
+                extra = {"max_ulps": float((err / bf16_ulp(ref)).max()),
+                         "n_beyond_1_ulp": int(beyond.sum()),
+                         "largest_ref_beyond_1_ulp": float(ref.abs()[beyond].max()) if beyond.any() else None,
+                         "n_values": got.numel(),
+                         "n_beyond_1_ulp_of_plain_with_unrounded_weights": int(
+                             ((got.float() - ref_unrounded).abs() > bf16_ulp(ref_unrounded)).sum())}
+                del ref_unrounded
+            if (b, s) == STEM_CASES[0] and dtype == torch.bfloat16:
+                errs["grey_stem"] = max_err
+            emit({"phase": "kernel3", "shape": [b, s], "dtype": str(dtype), "max_abs_err": max_err,
+                  **extra, "largest": top, "tolerance": tol, "exact": bool(err.max() == 0)})
+            check(ok, f"grey_stem disagrees with its plain version ({dtype}, {(b, s)})")
+            del got, ref, err
+
+    b, s = STEM_CASES[0]
+    k7, b0, scale = stem_consts(w, bias, bn, s, dev)
+    consts = (grey_stem.stem_weights(k7, torch.bfloat16), b0, scale)
+    g = grey_canvases(b, s, SEED, dev)
+    with torch.inference_mode():
+        img = preprocess_on_device(g[..., None].expand(b, s, s, 3))
+        ref32 = stem_trunk(w, bias, bn, torch.float32, dev).stem(img).permute(0, 2, 3, 1).float()
+        ref16 = stem_trunk(w, bias, bn, torch.bfloat16, dev).stem(img).permute(0, 2, 3, 1).float()
+        out = grey_stem.grey_stem_cuda(g, *consts, torch.bfloat16).float()
+        mag = ref32.abs().clamp_min(8.0)
+        rel_kernel = float(((out - ref32).abs() / mag).max())
+        rel_bf16path = float(((ref16 - ref32).abs() / mag).max())
+    emit({"phase": "kernel3_vs_three_channel_stem", "shape": [b, s],
+          "rel_grey_stem_bf16": rel_kernel, "rel_three_channel_bf16": rel_bf16path,
+          "criterion": "rel_grey_stem_bf16 < max(0.02, 2 * rel_three_channel_bf16)"})
+    check(rel_kernel < max(0.02, 2.0 * rel_bf16path),
+          f"grey stem vs 3-channel stem: {rel_kernel} vs bf16 path {rel_bf16path}")
+    return errs
+
+
+def timings(dev, errs: dict) -> dict:
+    """Phase 6: each kernel's time at the main path's shapes beside its bound,
+    its plain version and a library call."""
+    import torch
+
+    from radnet_torch.data.pipeline import preprocess_on_device
+    from radnet_torch.ops import grey_stem, nms, roi_align
+
+    def timed(kernel_fn, symbol, plain_fn, n_bytes, n_ops, shape, ops_per_s=F32_OPS_PER_S):
         call_ms = time_cuda(kernel_fn)
         dev_ms = device_ms(kernel_fn, symbol)
-        bnd, by = bound_ms(n_bytes, n_ops)
+        bnd, by = bound_ms(n_bytes, n_ops, ops_per_s)
         return {"shape": shape, "ms": dev_ms if dev_ms is not None else call_ms,
                 "call_ms": call_ms, "ms_source": "profiler" if dev_ms is not None else "cuda_events",
                 "plain_ms": time_cuda(plain_fn, iters=5), "bound_ms": bnd, "bound_by": by}
 
     dom_times = []
-    for i, (b, n, thr, extent, unit) in enumerate(nms_cases[:2]):  # proposal, per-class
+    for i, (b, n, thr, extent, unit) in enumerate(NMS_CASES[:2]):  # proposal, per-class
         boxes, scores = nms_inputs(b, n, SEED + i, extent, unit, dev)
         dom_times.append(timed(
             lambda: nms.dominates_cuda(boxes, scores, thr), "dominance_kernel",
             lambda: nms.dominates_plain(boxes, scores, thr),
             b * n * 20 + b * n * n, 16.0 * b * n * n, [b, n]))
-    kernels_line = {"nms_dominance": {
+    line = {"nms_dominance": {
         "name": "nms_dominance", "route": "cuda", "source": "radnet_torch/csrc/nms_dominance.cu",
         "replaces": "radnet_tpu/ops/pallas_nms.py:31", **dom_times[0], "library_ms": None,
-        "max_abs_err": dom_err, "per_class_shape": dom_times[1],
+        "max_abs_err": errs["nms_dominance"], "per_class_shape": dom_times[1],
     }}
 
     fmap, rois = roi_inputs(torch.bfloat16, SEED, dev)
@@ -366,7 +490,7 @@ def main() -> int:
             fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
 
     lib_dev_ms = device_ms(library, "grid_sampler")
-    kernels_line["roi_pool"] = {
+    line["roi_pool"] = {
         "name": "roi_pool", "route": "cuda", "source": "radnet_torch/csrc/roi_pool.cu",
         "replaces": "radnet_tpu/ops/pallas_roi.py:37",
         **timed(lambda: roi_align.roi_pool_cuda(fmap, rois, pool_size=p, center_stride=2),
@@ -375,123 +499,202 @@ def main() -> int:
                 b * hw * hw * c * elt + b * r * 16 + b * r * p * p * c * elt,
                 9.0 * b * r * p * p * c, [b, hw, hw, c, r, p]),
         "library_ms": lib_dev_ms if lib_dev_ms is not None else time_cuda(library),
-        "max_abs_err": roi_err[(str(torch.bfloat16), 2)],
+        "max_abs_err": errs["roi_pool"],
     }
     del fmap, rois, grid, fmap_nchw
-    emit({"phase": "timings", "kernels": list(kernels_line.values())})
 
-    # 6. main path through serve, default Config at full width.
-    cfg = Config()
+    # Grey stem at one 12-tile batch of 608 canvases, bf16.  Bytes the
+    # function needs: canvases, output, and its parameters (k7, the
+    # mean-weighted kernel, bias, BN scale and shift, the 7-tap edge vectors
+    # of the centring); the kernel instead reads the centring as a full
+    # float32 map, whose bytes are shown beside the bound.  Operations: 2 per
+    # multiply-add of the single-channel conv over the conv outputs the pool
+    # reads, at the bf16 tensor-core rate.
+    b, s = STEM_CASES[0]
+    ch, ph = grey_stem.stem_geometry(s)
+    cn = 2 * ph + 1  # conv rows and columns the 3x3/2 pool reads
+    w, bias, bn = stem_params(SEED)
+    k7, b0, scale = stem_consts(w, bias, bn, s, dev)
+    consts = (grey_stem.stem_weights(k7, torch.bfloat16), b0, scale)
+    g = grey_canvases(b, s, SEED, dev)
+    param_bytes = 2 * 49 * 64 * 4 + 3 * 64 * 4 + ch * 7 * 4
+    map_bytes = ch * ch * 64 * 4
+    io_bytes = b * s * s + b * ph * ph * 64 * 2
+    line["grey_stem"] = {
+        "name": "grey_stem", "route": "cuda", "source": "radnet_torch/csrc/grey_stem.cu",
+        "replaces": "radnet_tpu/ops/pallas_stem.py:54",
+        **timed(lambda: grey_stem.grey_stem_cuda(g, *consts, torch.bfloat16), "grey_stem_kernel",
+                lambda: grey_stem.grey_stem_plain(g, *consts, torch.bfloat16),
+                io_bytes + param_bytes, 2.0 * 49 * b * cn * cn * 64, [b, s],
+                ops_per_s=BF16_OPS_PER_S),
+        "library_ms": None, "max_abs_err": errs["grey_stem"],
+        "centring_map_bytes": map_bytes,
+        "bound_ms_with_map": bound_ms(io_bytes + param_bytes + map_bytes, 0.0)[0],
+    }
+    trunk16 = stem_trunk(w, bias, bn, torch.bfloat16, dev)
+    canv3 = g[..., None].expand(b, s, s, 3).contiguous()
+    with torch.inference_mode():
+        line["grey_stem"]["replaced_three_channel_stem_ms"] = time_cuda(
+            lambda: trunk16.stem(preprocess_on_device(canv3)))
+    line["grey_stem"]["replaced_three_channel_stem"] = (
+        "centring + pad + cuDNN conv2d + BN + ReLU + max_pool2d on (12, 608, 608, 3) uint8, "
+        "CUDA-event median")
+    del g, canv3, trunk16
+    emit({"phase": "timings", "kernels": list(line.values())})
+    return line
+
+
+class Stamped(io.StringIO):
+    """Keeps the time of every line written; forwards to ``echo``."""
+
+    def __init__(self, echo=None):
+        super().__init__()
+        self.stamps = []
+        self.echo = echo
+
+    def write(self, s):
+        if s.endswith("\n"):
+            self.stamps.append(time.perf_counter())
+        if self.echo is not None:
+            self.echo.write(s)
+        return super().write(s)
+
+
+def launch_counts() -> dict:
+    from radnet_torch.ops import cuda_kernels
+
+    return {k.name: k.launches for k in cuda_kernels.KERNELS}
+
+
+def serve_phase(tmp, cfg, device, kind, smi):
+    """Phase 7: the main path through radnet_torch.cli.serve.  Returns the
+    served RADNet reloaded from its model dir, the prescaled first panel and
+    its window origins, and the launch counts of the run."""
+    import torch
+
+    from radnet_torch.cli import serve
+    from radnet_torch.data.png import decode_png, write_png
+    from radnet_torch.data.tiling import plan_tiles
+    from radnet_torch.inference import RADNet, load_radnet, save_radnet
+    from radnet_torch.models.detector import build_model, init_weights
+    from radnet_torch.ops import cuda_kernels, nms
+
     gen = torch.Generator().manual_seed(SEED)
     model = init_weights(build_model(cfg), gen)
-    radnet = RADNet(cfg, model, device="cuda")
+    radnet = RADNet(cfg, model, device=device)
     panels = [synthetic_grey_panel(SEED + k) for k in range(N_PANELS)]
-    panel3 = np.repeat(panels[0][..., None], 3, axis=-1)
+    panel3 = bgr(panels[0])
     small, scale, sw, sh = radnet._prescale_panel(panel3)
     tiles = plan_tiles(PANEL_HW[1], PANEL_HW[0], cfg.tile_size, cfg.tile_overlap)
     origins = np.round(tiles[:, :2] * scale).astype(np.int64)
     calib = radnet._window_canvases(small, origins[:2])
     calibrate_heads(radnet, calib, gen)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        save_radnet(os.path.join(tmp, "models", "smoke"), cfg, radnet.model)
-        paths = []
-        t0 = time.perf_counter()
-        for k, img in enumerate(panels):
-            path = os.path.join(tmp, f"panel{k}.png")
-            write_png(path, img)
-            paths.append(path)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        decode_png(open(paths[0], "rb").read())
-        decode_s = time.perf_counter() - t0
+    save_radnet(os.path.join(tmp, "models", "smoke"), cfg, radnet.model)
+    paths = []
+    t0 = time.perf_counter()
+    for k, img in enumerate(panels):
+        path = os.path.join(tmp, f"panel{k}.png")
+        write_png(path, img)
+        paths.append(path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decode_png(open(paths[0], "rb").read())
+    decode_s = time.perf_counter() - t0
 
-        cuda_kernels.reset_launch_counts()
-        nms.NMS_STATS.update(calls=0, rounds=0)
+    cuda_kernels.reset_launch_counts()
+    nms.NMS_STATS.update(calls=0, rounds=0)
+    out, err = Stamped(), Stamped(echo=sys.stderr)
+    t0 = time.perf_counter()
+    real_stderr, sys.stderr = sys.stderr, err
+    try:
+        rc = serve.main(
+            ["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
+             "--warmup-size", str(cfg.tile_size), "--device", str(device)],
+            stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out,
+        )
+    finally:
+        sys.stderr = real_stderr
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    nms_stats = dict(nms.NMS_STATS)
+    check(rc == 0, f"serve exited {rc}")
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    check([r.get("path") for r in recs] == paths, f"serve output out of order: {recs}")
+    for rec in recs:
+        check("detections" in rec and len(rec["detections"]) > 0,
+              f"no detections for {rec.get('path')}: {rec}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched on the main path")
+    t_ready = next(t for t, line in zip(err.stamps, err.getvalue().splitlines())
+                   if line == "READY")
+    results_s = [t - t_ready for t in out.stamps]
+    emit({"phase": "serve", "kind": kind, "nvidia_smi": smi, "panels": len(recs),
+          "tiles_per_panel": len(tiles), "batches_per_panel": len(radnet._batch_schedule(len(tiles))),
+          "detections": [len(r["detections"]) for r in recs],
+          "sec_field": [r["sec"] for r in recs],
+          "panels_per_s": len(recs) / results_s[-1],
+          "result_s_after_ready": results_s, "serve_wall_s": serve_s,
+          "launches": launches, "nms_calls": nms_stats["calls"],
+          "nms_rounds": nms_stats["rounds"],
+          "png_write_s": write_s / N_PANELS, "png_decode_filter0_s": decode_s})
+    net = load_radnet(os.path.join(tmp, "models", "smoke"), device=device)
+    return net, panel3, small, origins, launches
 
-        class Stamped(io.StringIO):
-            """Keeps the time of every line written; forwards to ``echo``."""
 
-            def __init__(self, echo=None):
-                super().__init__()
-                self.stamps = []
-                self.echo = echo
+def stages_phase(net, panel3, small, origins, kind, smi):
+    """Per-stage times of one 12-tile grey batch, with the trunk split into
+    the grey stem and stages 2-4; per-batch launch counts."""
+    import torch
 
-            def write(self, s):
-                if s.endswith("\n"):
-                    self.stamps.append(time.perf_counter())
-                if self.echo is not None:
-                    self.echo.write(s)
-                return super().write(s)
+    from radnet_torch.data.png import decode_png
+    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.ops.grey_stem import grey_stem, stem_geometry
 
-        out, err = Stamped(), Stamped(echo=sys.stderr)
-        t0 = time.perf_counter()
-        real_stderr, sys.stderr = sys.stderr, err
-        try:
-            rc = serve.main(
-                ["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
-                 "--warmup-size", str(cfg.tile_size)],
-                stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out,
-            )
-        finally:
-            sys.stderr = real_stderr
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in cuda_kernels.KERNELS}
-        nms_stats = dict(nms.NMS_STATS)
-        check(rc == 0, f"serve exited {rc}")
-        recs = [json.loads(line) for line in out.getvalue().splitlines()]
-        check([r.get("path") for r in recs] == paths, f"serve output out of order: {recs}")
-        for rec in recs:
-            check("detections" in rec and len(rec["detections"]) > 0,
-                  f"no detections for {rec.get('path')}: {rec}")
-        for name, n in launches.items():
-            check(n > 0, f"kernel {name} was never launched on the main path")
-        t_ready = next(t for t, line in zip(err.stamps, err.getvalue().splitlines())
-                       if line == "READY")
-        results_s = [t - t_ready for t in out.stamps]
-        n_batches = len(radnet._batch_schedule(len(tiles)))
-        emit({"phase": "serve", "kind": kind, "nvidia_smi": smi, "panels": len(recs),
-              "tiles_per_panel": len(tiles), "batches_per_panel": n_batches,
-              "detections": [len(r["detections"]) for r in recs],
-              "sec_field": [r["sec"] for r in recs],
-              "panels_per_s": len(recs) / results_s[-1],
-              "result_s_after_ready": results_s, "serve_wall_s": serve_s,
-              "launches": launches, "nms_calls": nms_stats["calls"],
-              "nms_rounds": nms_stats["rounds"],
-              "png_write_s": write_s / N_PANELS, "png_decode_filter0_s": decode_s})
-
-        # Per-stage times of one 12-tile batch, on the same weights.
-        net = load_radnet(os.path.join(tmp, "models", "smoke"), device="cuda")
+    cfg, dev = net.C, net.device
     images = net._window_canvases(small, origins[: cfg.infer_tile_batch])
+    check(images.dim() == 3, f"grey panel canvases are {tuple(images.shape)}, not (T, S, S)")
     valid_wh = torch.full((len(images), 2), float(cfg.img_size), device=dev)
+    names = ["stem", "stages_2_4", "rpn_proposals", "roi_pool_head", "class_nms"]
 
     def stages():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         with torch.inference_mode():
             ev[0].record()
-            fmap = net._features(images)
+            pooled = grey_stem(images, *net._grey_consts, out_dtype=net.model.dtype)
             ev[1].record()
-            props = net._proposals(fmap, valid_wh)
+            fmap = net.model.trunk.stages(pooled.permute(0, 3, 1, 2))
             ev[2].record()
-            head = net._head(fmap, props)
+            props = net._proposals(fmap, valid_wh)
             ev[3].record()
-            net._detections(*head)
+            head = net._head(fmap, props)
             ev[4].record()
-        ev[4].synchronize()
-        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+            net._detections(*head)
+            ev[5].record()
+        ev[-1].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))]
 
     stages()
     runs = [stages() for _ in range(5)]
-    stage_ms = {k: statistics.median(r[i] for r in runs)
-                for i, k in enumerate(["trunk", "rpn_proposals", "roi_pool_head", "class_nms"])}
+    stage_ms = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(names)}
+    stage_ms["trunk"] = stage_ms["stem"] + stage_ms["stages_2_4"]
     batch_ms = time_cuda(lambda: net._predict_tiles_impl(images, valid_wh), iters=5, warmup=1)
+    # The same batch through the 3-channel stem, in turns with the grey one.
+    images3 = images[..., None].expand(*images.shape, 3).contiguous()
+    ab = {"grey_stem": [], "three_channel_stem": []}
+    for name in ("grey_stem", "three_channel_stem", "three_channel_stem", "grey_stem"):
+        canv = images if name == "grey_stem" else images3
+        ab[name].append(time_cuda(lambda: net._predict_tiles_impl(canv, valid_wh), iters=5, warmup=1))
+    saved = launch_counts()
     cuda_kernels.reset_launch_counts()
     with count_flops(net.model) as flops:
         net._predict_tiles_impl(images, valid_wh)
-    per_batch = {k.name: k.launches for k in cuda_kernels.KERNELS}
+    per_batch = launch_counts()
     for k in cuda_kernels.KERNELS:  # the main path's counts stay the reported ones
-        k.launches = launches[k.name]
+        k.launches = saved[k.name]
+    ch, _ = stem_geometry(cfg.canvas_size)
+    flops["stem"] = 2 * 49 * len(images) * ch * ch * 64
     prescale_ms = time_cuda(lambda: net._prescale_panel(panel3), iters=5, warmup=1)
     panel_wall_ms, panel_busy_ms = device_busy(lambda: net.predict([panel3]))
     t0 = time.perf_counter()
@@ -511,49 +714,181 @@ def main() -> int:
     decode_png(paeth)
     paeth_s = time.perf_counter() - t0
     emit({"phase": "stages", "kind": kind, "nvidia_smi": smi, "batch_tiles": len(images),
-          "stage_ms": stage_ms, "batch_ms": batch_ms, "launches_per_batch": per_batch,
+          "stage_ms": stage_ms, "batch_ms": batch_ms, "batch_ms_by_stem": ab,
+          "launches_per_batch": per_batch,
           "tflop_per_batch": {k: v / 1e12 for k, v in flops.items()},
-          "tflop_per_s": {"trunk": flops["trunk"] / stage_ms["trunk"] / 1e9,
+          "tflop_per_s": {"stem": flops["stem"] / stage_ms["stem"] / 1e9,
+                          "stages_2_4": flops["trunk"] / stage_ms["stages_2_4"] / 1e9,
                           "head": flops["head"] / stage_ms["roi_pool_head"] / 1e9},
           "prescale_panel_ms": prescale_ms, "convergence_sync_ms": sync_ms,
           "panel_predict_ms": panel_wall_ms, "panel_device_busy_ms": panel_busy_ms,
           "panel_device_idle_share": 1.0 - panel_busy_ms / panel_wall_ms,
           "panel_host_ms": host_ms,
           "png_decode_paeth_1000x1000_s": paeth_s})
+    return images, per_batch
 
-    # 7. card vs CPU, float32, TF32 off.
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+
+def predict_phase(tmp, net, kind, smi):
+    """Phase 8: radnet_torch.cli.predict on a scan directory at the full
+    config, then one panel down each other path of RADNet.predict."""
+    import torch
+
+    from radnet_torch.cli import predict
+    from radnet_torch.data.png import read_png, write_png
+    from radnet_torch.inference import RADNet
+    from radnet_torch.ops import cuda_kernels
+
+    cfg = net.C
+    scan = os.path.join(tmp, "scan")
+    for k, img_type in enumerate(cfg.img_types + ["blended_map_grey"]):
+        path = predict.resolve_type_path(scan, img_type)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_png(str(path), synthetic_grey_panel(SEED + 10 + k))
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = predict.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
+                           "--scan-data-path", scan, "--device", str(net.device)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(rc == 0, f"predict exited {rc}")
+    with open(os.path.join(scan, "arrays", "predictions.json")) as f:
+        preds = json.load(f)
+    pngs = {}
+    for name in ("all", "boat", "human", "other"):
+        out = os.path.join(scan, "img", "predictions", f"{name}_predictions.png")
+        check(os.path.isfile(out), f"predict wrote no {out}")
+        pngs[name] = list(read_png(out).shape)
+    emit({"phase": "predict_cli", "kind": kind, "nvidia_smi": smi, "img_types": cfg.img_types,
+          "panel_hw": list(PANEL_HW), "detections": len(preds), "wall_s": wall_s,
+          "launches": launches, "prediction_pngs": pngs})
+    check(len(preds) > 0, "predict wrote no detections")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched by the predict CLI")
+
+    # Panels smaller than a tile (1100 x 1500 and 1800 x 1800 at the
+    # default 2000-px tile) take the host paths.
+    ts, cs = cfg.tile_size, cfg.canvas_size
+    cases = [
+        ("host tiles, shortest-side canvas", {},
+         bgr(synthetic_grey_panel(SEED + 20, (ts * 11 // 20, ts * 3 // 4))),
+         lambda shapes: all(len(s) == 4 and s[1:] == [cs, 2 * cs, 3] for s in shapes)),
+        ("host tiles, square canvas", {}, synthetic_colour_panel(SEED + 21, (ts * 9 // 10,) * 2),
+         lambda shapes: all(s[1:] == [cs, cs, 3] for s in shapes)),
+        ("full-resolution device tiling", {"infer_panel_prescale": False},
+         synthetic_colour_panel(SEED + 22, PANEL_HW),
+         lambda shapes: all(s[1:] == [cs, cs, 3] for s in shapes)),
+        ("include_full_img", {"include_full_img": True}, bgr(synthetic_grey_panel(SEED + 23)),
+         lambda shapes: len(shapes[-1]) == 4 and all(len(s) == 3 for s in shapes[:-1])),
+    ]
+    for name, overrides, img, shapes_ok in cases:
+        r = RADNet(dataclasses.replace(cfg, **overrides), net.model, device=net.device)
+        shapes = []
+        features = r._features
+
+        def recording(images, features=features, shapes=shapes):
+            shapes.append(list(images.shape))
+            return features(images)
+
+        r._features = recording
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = r.predict([img])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        emit({"phase": "predict_path", "path": name, "panel_shape": list(img.shape),
+              "overrides": overrides, "batch_shapes": shapes, "detections": len(dets),
+              "wall_s": wall_s})
+        check(shapes and shapes_ok(shapes), f"{name}: unexpected batch shapes {shapes}")
+        check(len(dets) > 0, f"{name}: no detections")
+
+
+def card_vs_cpu_phase(net, images, dev):
+    """Phase 9: one 2-tile float32 batch on the card and on the CPU, grey
+    (through the grey stem) and as 3 channels."""
+    import torch
+
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model
+
+    cfg32 = dataclasses.replace(net.C, compute_dtype="float32")
     state = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
     m_gpu = build_model(cfg32)
     m_gpu.load_state_dict(state)
     m_cpu = copy.deepcopy(m_gpu)
-    gpu = RADNet(cfg32, m_gpu, device="cuda")
+    gpu = RADNet(cfg32, m_gpu, device=dev)
     cpu = RADNet(cfg32, m_cpu, device="cpu")
     torch.set_num_threads(os.cpu_count() or 1)
-    canv = images[2:4]
-    wh = torch.full((2, 2), float(cfg.img_size))
-    t0 = time.perf_counter()
-    got = [t.cpu().numpy() for t in gpu._predict_tiles_impl(canv, wh.to(dev))]
-    want = [t.numpy() for t in cpu._predict_tiles_impl(canv.cpu(), wh)]
-    cmp_s = time.perf_counter() - t0
-    n_g, n_w, unmatched = int(got[2].sum()), int(want[2].sum()), 0
-    for t in range(2):
-        for k in range(cfg.n_classes - 1):
-            g = [(tuple(b), s) for b, s in zip(got[0][t, k][got[2][t, k]], got[1][t, k][got[2][t, k]])]
-            w = [(tuple(b), s) for b, s in zip(want[0][t, k][want[2][t, k]], want[1][t, k][want[2][t, k]])]
-            for box, s in g:
-                hit = next((j for j, (bw, sw_) in enumerate(w) if bw == box and abs(s - sw_) <= 1e-3), None)
-                if hit is None:
-                    unmatched += 1
-                else:
-                    w.pop(hit)
-            unmatched += len(w)
-    pooled = n_g + n_w
-    emit({"phase": "card_vs_cpu", "dtype": "float32", "tf32": False, "tiles": 2,
-          "detections_card": n_g, "detections_cpu": n_w, "unmatched": unmatched,
-          "seconds": cmp_s})
-    check(pooled > 0, "float32 comparison has no detections")
-    check(unmatched <= 0.05 * pooled, f"{unmatched} of {pooled} detections unmatched card vs CPU")
+    grey = images[2:4]
+    wh = torch.full((2, 2), float(cfg32.img_size))
+    for name, canv in (("grey", grey), ("three_channel", grey[..., None].expand(2, *grey.shape[1:], 3))):
+        canv = canv.contiguous()
+        t0 = time.perf_counter()
+        got = [t.cpu().numpy() for t in gpu._predict_tiles_impl(canv, wh.to(dev))]
+        want = [t.numpy() for t in cpu._predict_tiles_impl(canv.cpu(), wh)]
+        cmp_s = time.perf_counter() - t0
+        n_g, n_w, unmatched = int(got[2].sum()), int(want[2].sum()), 0
+        for t in range(2):
+            for k in range(cfg32.n_classes - 1):
+                g = [(tuple(b), s) for b, s in zip(got[0][t, k][got[2][t, k]], got[1][t, k][got[2][t, k]])]
+                w = [(tuple(b), s) for b, s in zip(want[0][t, k][want[2][t, k]], want[1][t, k][want[2][t, k]])]
+                for box, s in g:
+                    hit = next((j for j, (bw, sw_) in enumerate(w) if bw == box and abs(s - sw_) <= 1e-3), None)
+                    if hit is None:
+                        unmatched += 1
+                    else:
+                        w.pop(hit)
+                unmatched += len(w)
+        pooled = n_g + n_w
+        emit({"phase": "card_vs_cpu", "canvases": name, "dtype": "float32", "tf32": False,
+              "tiles": 2, "detections_card": n_g, "detections_cpu": n_w,
+              "unmatched": unmatched, "seconds": cmp_s})
+        check(pooled > 0, f"float32 {name} comparison has no detections")
+        check(unmatched <= 0.05 * pooled, f"{name}: {unmatched} of {pooled} detections unmatched card vs CPU")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from radnet_torch.config import Config
+    from radnet_torch.ops import cuda_kernels
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    # 2. build
+    build_s = cuda_kernels.build(cuda_kernels.KERNELS)
+    emit({"phase": "build", "seconds": build_s,
+          "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS]})
+
+    # 3-6. kernels against their plain versions, then timed.
+    errs = kernel_checks(dev)
+    kernels_line = timings(dev, errs)
+
+    # 7-8. the main path through serve, per-stage times, then predict.
+    cfg = Config()
+    with tempfile.TemporaryDirectory() as tmp:
+        net, panel3, small, origins, launches = serve_phase(tmp, cfg, dev, kind, smi)
+        images, per_batch = stages_phase(net, panel3, small, origins, kind, smi)
+        predict_phase(tmp, net, kind, smi)
+
+    # 9. card vs CPU, float32, TF32 off.
+    card_vs_cpu_phase(net, images, dev)
 
     for k in kernels_line.values():
         k["launches"] = launches[k["name"]]

@@ -1,0 +1,106 @@
+"""Single-panel prediction from the command line.
+
+Reads the panel of every configured image type from a scan directory's
+layout (:func:`resolve_type_path`), predicts across them, and writes
+``arrays/predictions.json`` and ``img/predictions/{all,boat,human,
+other}_predictions.png`` (the detections outlined on the scan's blended map,
+when it has one) under the scan directory.
+
+Example:
+  python -m radnet_torch.cli.predict --models-path models \\
+      --model-name faster_rcnn_resnet50_x --scan-data-path scans/panel_17
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+from radnet_torch.cli.common import draw_detections, draw_rectangle, model_dir
+from radnet_torch.cli.serve import detections_to_json
+from radnet_torch.data.png import read_png, write_png
+
+
+def resolve_type_path(scan_path: str, img_type: str) -> Path:
+    """The file of an image type inside the scan layout."""
+    path = Path(scan_path) / "img"
+    grey = "grey" in img_type
+    if "enhanced_topo" in img_type:
+        path = path / "enhanced_topo_maps"
+        name = ("enhanced_topo_map_object_level_grey.png" if grey
+                else "enhanced_topo_map_object_level.png")
+    elif "blended_map" in img_type:
+        path = path / "blended_maps"
+        name = ("blended_map_object_level_grey.png" if grey
+                else "blended_topo_map_object_level.png")
+    elif "topo" in img_type:
+        path = path / "topo_maps"
+        name = "topo_map_object_level_grey.png" if grey else "topo_map_object_level.png"
+    else:
+        raise ValueError(f"unknown image type {img_type!r}")
+    return path / name
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--models-path", default="models")
+    p.add_argument("--model-name", default="faster_rcnn_resnet50_raod_base")
+    p.add_argument("--scan-data-path", required=True)
+    p.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda; without a card pass --device cpu)",
+    )
+    p.add_argument("--n-devices", type=int, default=None, help="not ported yet")
+    p.add_argument("--model-parallel", type=int, default=None, help="not ported yet")
+    p.add_argument("--quantize", choices=["int8", "none"], default=None, help="not ported yet")
+    return p
+
+
+def main(argv=None) -> int:
+    from radnet_torch.inference import load_radnet
+
+    args = build_argparser().parse_args(argv)
+    if args.n_devices or args.model_parallel:
+        raise NotImplementedError("--n-devices/--model-parallel are not ported yet (ROADMAP Queue 1 item 13)")
+    if args.quantize:
+        raise NotImplementedError("--quantize is not ported yet (ROADMAP Queue 1 item 9)")
+
+    print("\n\nMaking predictions.")
+    radnet = load_radnet(model_dir(args.models_path, args.model_name), device=args.device)
+    images = [read_png(str(resolve_type_path(args.scan_data_path, t))) for t in radnet.C.img_types]
+    detections = radnet.predict(images)
+
+    scan = Path(args.scan_data_path)
+    viz_path = scan / "img" / "blended_maps" / "blended_map_object_level_grey.png"
+    pred_dir = scan / "img" / "predictions"
+    pred_dir.mkdir(parents=True, exist_ok=True)
+    arr_dir = scan / "arrays"
+    arr_dir.mkdir(parents=True, exist_ok=True)
+    with open(arr_dir / "predictions.json", "w") as f:
+        json.dump(detections_to_json(detections), f, indent=4)
+
+    def render(keep, out_name, color):
+        try:
+            img = read_png(str(viz_path))
+        except FileNotFoundError:
+            return
+        chosen = [d for d in detections if keep(d)]
+        if color is None:
+            draw_detections(img, chosen)
+        else:
+            for d in chosen:
+                draw_rectangle(img, d["x1"], d["y1"], d["x2"], d["y2"], color, 8)
+        write_png(str(pred_dir / out_name), img)
+
+    render(lambda d: True, "all_predictions.png", None)
+    render(lambda d: d["class"] == "boat", "boat_predictions.png", (28, 26, 228))
+    render(lambda d: d["class"] == "human", "human_predictions.png", (184, 126, 55))
+    render(lambda d: d["class"] not in ("boat", "human"), "other_predictions.png", (0, 127, 255))
+    print(f"{len(detections)} detections written.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

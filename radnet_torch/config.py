@@ -117,6 +117,8 @@ class Config:
     infer_panel_prescale: bool = True
     infer_shortest_side: bool = True
     infer_canvas_max_mult: int = 4
+    # Kept so JAX-written config.json files load; the port's host tiles
+    # always ship 3-channel canvases (a TPU layout choice, not a function).
     infer_host_s2d: bool = True
     compute_dtype: str = "bfloat16"
     infer_quantize: str | None = None

@@ -1,14 +1,30 @@
 """Inference engine: tiled panel prediction with the cascade on the device.
 
-A panel at least one tile in size, with the uniform tiling, takes the
-prescaled path: the whole panel is downscaled once by ``img_size /
-tile_size`` (bicubic, on the device), every ``img_size`` window is sliced
-from the small panel onto a zero canvas, and batches of canvases run the
-tile cascade (:meth:`RADNet._predict_tiles_impl`): centring, ResNet50 trunk,
-RPN, proposal decode + NMS, RoI pooling, the stage-5 head, class-specific
-decode and per-class NMS.  The host then lifts the boxes to panel
-coordinates and merges them across tiles (cluster-average NMS) and across
-image types.
+Batches of tile canvases run the tile cascade
+(:meth:`RADNet._predict_tiles_impl`): centring, ResNet50 trunk, RPN,
+proposal decode + NMS, RoI pooling, the stage-5 head, class-specific decode
+and per-class NMS.  The host then lifts the boxes to panel coordinates and
+merges them across tiles (cluster-average NMS) and across image types.
+
+A panel's windows reach the cascade by one of four paths
+(:meth:`RADNet._dispatch_tiles`):
+
+* prescaled (the default for a panel at least one tile in size): the panel
+  is downscaled once by ``img_size / tile_size`` on the device and the
+  ``img_size`` windows are sliced onto zero canvases.  A grey panel ships
+  one channel and its ``(T, S, S)`` canvases run the fused grey stem
+  (``ops/grey_stem.py``); a colour panel runs the 3-channel stem;
+* full resolution (``infer_panel_prescale=False``): each ``tile_size``
+  window is sliced from the panel on the device and resized by two matrix
+  products;
+* shortest side (non-square windows: sub-tile panels, the
+  ``include_full_img`` pass): the host resizes the shortest side to
+  ``img_size`` onto a rectangular canvas bucket with its own anchor grid;
+* host tiles (the rest): the host resizes each window onto the square
+  canvas and ships it as 3 channels.  The JAX package ships these
+  space-to-depth'd as 12 channels (``infer_host_s2d``) to fix the TPU's
+  layout; that is the same conv on the same bytes, so the port ignores the
+  field.
 
 Output: a list of ``{'class', 'prob', 'x1', 'y1', 'x2', 'y2'}`` dicts in
 panel coordinates.
@@ -16,21 +32,30 @@ panel coordinates.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from radnet_torch.config import Config, feature_extent
-from radnet_torch.data.pipeline import preprocess_on_device
+from radnet_torch.config import Config, backbone_feat_size, feature_extent
+from radnet_torch.data.dataset import get_image
+from radnet_torch.data.pipeline import (
+    IMAGENET_BGR_MEAN,
+    preprocess_on_device,
+    resize_to_canvas,
+    resize_to_canvas_shortest,
+    shortest_side_dims,
+)
 from radnet_torch.data.tiling import plan_tiles
 from radnet_torch.geometry import decode_boxes, xyxy_to_xywh
 from radnet_torch.models.detector import FasterRCNN, build_model
 from radnet_torch.ops.anchors import feature_anchors_xywh
+from radnet_torch.ops.grey_stem import stem_constants, stem_weights
 from radnet_torch.ops.nms import final_nms_cluster, nms_fixed_point, nms_numpy
 from radnet_torch.ops.proposals import Proposals, decode_proposals
-from radnet_torch.ops.resize import resize_cubic_u8
+from radnet_torch.ops.resize import resize_bicubic, resize_cubic_u8
 
 WEIGHTS_FILE = "model.pt"
 
@@ -57,21 +82,15 @@ class RADNet:
         self.device = resolve_device(device)
         if mesh is not None:
             raise _not_ported("multi-device serving (a mesh)", "Queue 1 item 13")
-        if config.include_full_img:
-            raise _not_ported("include_full_img (shortest-side canvases)", "Queue 1 item 11")
         self.C = config
         self.model = model.to(self.device).eval()
         self.class_mapping = config.inv_class_mapping
         self.bbox_threshold = config.bbox_threshold
         self.tile_batch = config.infer_tile_batch
-        f = config.feat_size
-        anchors = feature_anchors_xywh(
-            f, f,
-            tuple(config.anchor_box_scales),
-            tuple(tuple(r) for r in config.anchor_box_ratios),
-            config.rpn_stride,
-        )
-        self._feat_anchors = torch.from_numpy(np.array(anchors)).to(self.device)
+        # Anchor grids by canvas (H, W): the square canvas, and the buckets
+        # of the shortest-side path.
+        self._anchor_cache: dict[tuple[int, int], torch.Tensor] = {}
+        self._feat_anchors = self._anchors_for_canvas((config.canvas_size, config.canvas_size))
         self._regr_std = torch.tensor(config.classifier_regr_std, dtype=torch.float32,
                                       device=self.device)
 
@@ -114,14 +133,46 @@ class RADNet:
             schedule.append(((n // bs) * bs, half))
         return schedule
 
+    def _anchors_for_canvas(self, canvas_hw: tuple[int, int]) -> torch.Tensor:
+        """The decode anchors of a ``(H, W)`` canvas, cached on the device."""
+        a = self._anchor_cache.get(canvas_hw)
+        if a is None:
+            cfg = self.C
+            grid = feature_anchors_xywh(
+                backbone_feat_size(cfg.network, canvas_hw[0]),
+                backbone_feat_size(cfg.network, canvas_hw[1]),
+                tuple(cfg.anchor_box_scales),
+                tuple(tuple(r) for r in cfg.anchor_box_ratios),
+                cfg.rpn_stride,
+            )
+            a = self._anchor_cache[canvas_hw] = torch.from_numpy(np.array(grid)).to(self.device)
+        return a
+
+    @functools.cached_property
+    def _grey_consts(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The grey stem's ``(k7, b0, scale)`` for the square canvas, folded
+        once from the trunk's stem parameters; ``k7`` already in the values
+        of the compute type."""
+        trunk = self.model.trunk
+        bn = {k: getattr(trunk.bn_conv1, k) for k in ("gamma", "beta", "mean", "var")}
+        consts = stem_constants(trunk.conv1.weight, trunk.conv1.bias, bn, self.C.canvas_size,
+                                IMAGENET_BGR_MEAN, eps=trunk.bn_conv1.eps)
+        k7, b0, scale = (torch.from_numpy(a).to(self.device) for a in consts)
+        return stem_weights(k7, self.model.dtype), b0, scale
+
     # ------------------------------------------------------------------ #
     # The tile cascade, one stage per method so each can be timed alone.
     # ------------------------------------------------------------------ #
     def _features(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 ``(T, S, S, 3)`` canvases -> channels-last feature map."""
+        """Canvases -> channels-last feature map.  ``images`` is one of:
+        uint8 ``(T, S, S)`` grey canvases (the grey stem); uint8 ``(T, H, W,
+        3)`` canvases; float32 ``(T, H, W, 3)`` canvases already centred."""
+        if images.dim() == 3:
+            return self.model.features_grey(images, self._grey_consts)
         return self.model.features(preprocess_on_device(images))
 
-    def _proposals(self, fmap: torch.Tensor, valid_wh: torch.Tensor) -> Proposals:
+    def _proposals(self, fmap: torch.Tensor, valid_wh: torch.Tensor,
+                   anchors: torch.Tensor | None = None) -> Proposals:
         cfg = self.C
         rpn_cls, rpn_regr = self.model.rpn(fmap)
         return decode_proposals(
@@ -129,7 +180,7 @@ class RADNet:
             rpn_regr,
             feature_extent(valid_wh[:, 0], cfg.network),
             feature_extent(valid_wh[:, 1], cfg.network),
-            self._feat_anchors,
+            self._feat_anchors if anchors is None else anchors,
             std_scaling=cfg.std_scaling,
             pre_nms_top_n=cfg.pre_nms_top_n,
             post_nms_top_n=cfg.post_nms_top_n,
@@ -182,13 +233,13 @@ class RADNet:
         )
 
     @torch.inference_mode()
-    def _predict_tiles_impl(self, images: torch.Tensor, valid_wh: torch.Tensor):
-        """uint8 ``(T, S, S, 3)`` canvases + ``(T, 2)`` valid extents ->
-        per-class detections (see :meth:`_detections`)."""
-        if images.shape[-1] != 3 or images.dtype != torch.uint8:
-            raise _not_ported("the host-s2d 12-channel tile branch", "Queue 1 item 7")
+    def _predict_tiles_impl(self, images: torch.Tensor, valid_wh: torch.Tensor,
+                            feat_anchors: torch.Tensor | None = None):
+        """Canvases (any form :meth:`_features` takes) + ``(T, 2)`` valid
+        extents -> per-class detections (see :meth:`_detections`).
+        ``feat_anchors``: the anchor grid of a non-square canvas."""
         fmap = self._features(images)
-        props = self._proposals(fmap, valid_wh)
+        props = self._proposals(fmap, valid_wh, feat_anchors)
         return self._detections(*self._head(fmap, props))
 
     # ------------------------------------------------------------------ #
@@ -207,6 +258,8 @@ class RADNet:
         if cfg.max_n_tiles_train <= 0:
             return
         tiles = plan_tiles(img.shape[1], img.shape[0], cfg.tile_size, cfg.tile_overlap)
+        if len(tiles) == 0:
+            return
         covered = {bs for _, bs in self._batch_schedule(len(tiles))}
         want = {self.tile_batch}
         half = self.tile_batch // 2
@@ -227,6 +280,10 @@ class RADNet:
             if cfg.max_n_tiles_train > 0:
                 tiles = plan_tiles(img.shape[1], img.shape[0], cfg.tile_size, cfg.tile_overlap)
                 self._dispatch_tiles(img, tiles, pending)
+            if cfg.include_full_img:
+                # The whole panel as one more window.
+                full = np.array([[0, 0, img.shape[1], img.shape[0]]], dtype=np.int64)
+                self._dispatch_tiles(img, full, pending)
             per_image_pending.append(pending)
         return per_image_pending
 
@@ -282,14 +339,79 @@ class RADNet:
 
     def _window_canvases(self, small: torch.Tensor, origins: np.ndarray) -> torch.Tensor:
         """``img_size`` windows of the small panel at ``origins`` (x, y), each
-        on the top-left of a zero ``canvas_size`` canvas: (T, S, S, 3) uint8."""
+        on the top-left of a zero ``canvas_size`` canvas: uint8 (T, S, S)
+        for a one-channel panel, else (T, S, S, 3)."""
         cfg = self.C
         s, out = cfg.canvas_size, cfg.img_size
-        canvases = torch.zeros((len(origins), s, s, 3), dtype=torch.uint8, device=self.device)
+        shape = (len(origins), s, s) + tuple(small.shape[2:])
+        canvases = torch.zeros(shape, dtype=torch.uint8, device=self.device)
         for i, (x, y) in enumerate(origins.tolist()):
-            win = small[y : y + out, x : x + out]
-            canvases[i, :out, :out] = win[..., None] if win.dim() == 2 else win
+            canvases[i, :out, :out] = small[y : y + out, x : x + out]
         return canvases
+
+    def _full_res_canvases(self, panel: torch.Tensor, origins: np.ndarray) -> torch.Tensor:
+        """``tile_size`` windows of the full panel at ``origins``, each
+        resized to ``img_size`` by :func:`resize_bicubic`, saturated and
+        rounded as a uint8 resize is, on a zero canvas, centred: float32
+        (T, S, S, 3)."""
+        cfg = self.C
+        ts, s, out = cfg.tile_size, cfg.canvas_size, cfg.img_size
+        tiles = torch.stack([panel[y : y + ts, x : x + ts] for x, y in origins.tolist()])
+        resized = torch.round(resize_bicubic(tiles, out, out).clamp(0.0, 255.0))
+        canvases = torch.zeros((len(origins), s, s, 3), dtype=torch.float32, device=self.device)
+        canvases[:, :out, :out] = resized
+        return canvases - torch.from_numpy(IMAGENET_BGR_MEAN).to(self.device)
+
+    def _canvas_for_window(self, w: int, h: int) -> tuple[int, int]:
+        """Canvas bucket (H, W) of a ``w x h`` window under the shortest-side
+        rule; square windows take the square canvas."""
+        cfg = self.C
+        cs = cfg.canvas_size
+        if w == h or not cfg.infer_shortest_side:
+            return (cs, cs)
+        nw, nh = shortest_side_dims(w, h, cfg.img_size)
+        mult_w = max(1, min(cfg.infer_canvas_max_mult, -(-nw // cs)))
+        mult_h = max(1, min(cfg.infer_canvas_max_mult, -(-nh // cs)))
+        return (cs * mult_h, cs * mult_w)
+
+    def _tile_batches(self, img: np.ndarray, tiles: np.ndarray):
+        """Host tile path: yield (images, valid_wh, scales, tiles, n) batches
+        of the schedule, each window resized onto the square canvas."""
+        cfg = self.C
+        s = cfg.canvas_size
+        for start, bs in self._batch_schedule(len(tiles)):
+            chunk = tiles[start : start + bs]
+            imgs = np.zeros((bs, s, s, 3), np.uint8)
+            wh = np.full((bs, 2), float(s), np.float32)
+            scales = np.ones((bs,), np.float64)
+            for i, tile in enumerate(chunk):
+                imgs[i], scales[i], vw, vh = resize_to_canvas(
+                    img[tile[1] : tile[3], tile[0] : tile[2], :], cfg.img_size, s
+                )
+                wh[i] = (vw, vh)
+            yield imgs, wh, scales, chunk, len(chunk)
+
+    def _rect_window_batches(self, img: np.ndarray, tiles: np.ndarray, canvas_hw):
+        """Shortest-side path: batches of up to ``infer_tile_batch`` windows,
+        unpadded, on a ``canvas_hw`` bucket."""
+        cfg = self.C
+        for pos in range(0, len(tiles), self.tile_batch):
+            chunk = tiles[pos : pos + self.tile_batch]
+            n = len(chunk)
+            imgs = np.zeros((n,) + tuple(canvas_hw) + (3,), np.uint8)
+            wh = np.full((n, 2), float(cfg.img_size), np.float32)
+            scales = np.ones((n,), np.float64)
+            for i, tile in enumerate(chunk):
+                imgs[i], scales[i], vw, vh = resize_to_canvas_shortest(
+                    img[tile[1] : tile[3], tile[0] : tile[2], :], cfg.img_size, canvas_hw
+                )
+                wh[i] = (vw, vh)
+            yield imgs, wh, scales, chunk, n
+
+    def _predict_host(self, imgs: np.ndarray, wh: np.ndarray, anchors=None):
+        return self._predict_tiles_impl(
+            torch.from_numpy(imgs).to(self.device), torch.from_numpy(wh).to(self.device), anchors
+        )
 
     def _dispatch_tiles(self, img: np.ndarray, tiles: np.ndarray, pending: list) -> None:
         """Run every tile batch of one image, appending to ``pending``."""
@@ -304,15 +426,40 @@ class RADNet:
             cfg.infer_device_tiling and uniform_windows and img.shape[0] >= ts and img.shape[1] >= ts
         )
         prescale = device_tiling and cfg.infer_panel_prescale and cfg.img_size < ts
-        if not prescale:
-            if device_tiling:
-                raise _not_ported("full-resolution device tiling", "Queue 1 item 11")
-            if cfg.infer_shortest_side and len(tiles) > 0 and not bool(
-                ((tiles[:, 2] - tiles[:, 0]) == (tiles[:, 3] - tiles[:, 1])).all()
-            ):
-                raise _not_ported("shortest-side rectangular canvases", "Queue 1 item 11")
-            raise _not_ported("the host tile path", "Queue 1 item 7")
+        if prescale:
+            self._dispatch_prescaled(img, tiles, pending)
+        elif device_tiling:
+            panel = self._panel_bucket_pad(torch.from_numpy(img).to(self.device), bucket=512)
+            ratio = float(cfg.img_size) / ts
+            for start, bs in self._batch_schedule(len(tiles)):
+                chunk = tiles[start : start + bs]
+                origins = np.zeros((bs, 2), np.int64)
+                origins[: len(chunk)] = chunk[:, :2]
+                images = self._full_res_canvases(panel, origins)
+                valid_wh = torch.full((bs, 2), float(cfg.img_size), device=self.device)
+                out = self._predict_tiles_impl(images, valid_wh)
+                pending.append((out, np.full(bs, ratio), chunk, len(chunk)))
+        elif cfg.infer_shortest_side and len(tiles) > 0 and not bool(
+            ((tiles[:, 2] - tiles[:, 0]) == (tiles[:, 3] - tiles[:, 1])).all()
+        ):
+            # Non-square windows, grouped by canvas bucket.
+            groups: dict[tuple[int, int], list[int]] = {}
+            for i, t in enumerate(tiles):
+                groups.setdefault(self._canvas_for_window(int(t[2] - t[0]), int(t[3] - t[1])), []).append(i)
+            for canvas_hw, idx in groups.items():
+                anchors = self._anchors_for_canvas(canvas_hw)
+                for imgs, wh, scales, chunk, n in self._rect_window_batches(
+                    img, tiles[np.asarray(idx)], canvas_hw
+                ):
+                    pending.append((self._predict_host(imgs, wh, anchors), scales, chunk, n))
+        else:
+            for imgs, wh, scales, chunk, n in self._tile_batches(img, tiles):
+                pending.append((self._predict_host(imgs, wh), scales, chunk, n))
 
+    def _dispatch_prescaled(self, img: np.ndarray, tiles: np.ndarray, pending: list) -> None:
+        """The prescaled path: one downscale of the whole panel, then the
+        ``img_size`` windows of each batch of the schedule."""
+        cfg = self.C
         small, scale, sw, sh = self._prescale_panel(img)
         valid = float(cfg.img_size)
         for start, bs in self._batch_schedule(len(tiles)):
@@ -354,6 +501,17 @@ class RADNet:
                             [tile[0] + rx1, tile[1] + ry1, tile[0] + rx2, tile[1] + ry2]
                         )
                         probs_total.setdefault(cls_name, []).append(float(p))
+
+
+    def predict_from_path(self, img_path: str) -> list[dict[str, Any]]:
+        """Load the panel of every configured image type (or only the first,
+        unless ``use_img_type``) and predict."""
+        types = self.C.img_types
+        if self.C.use_img_type:
+            images = [get_image(img_path, [t]) for t in types]
+        else:
+            images = [get_image(img_path, types)]
+        return self.predict(images)
 
 
 def save_radnet(model_dir: str, config: Config, model: FasterRCNN) -> None:

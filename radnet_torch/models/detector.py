@@ -1,6 +1,8 @@
 """The two-stage detector as one module with three entry points.
 
 * :meth:`FasterRCNN.features`  - the shared trunk;
+* :meth:`FasterRCNN.features_grey` - the trunk on grey canvases, through
+  the fused grey stem (``ops/grey_stem.py``);
 * :meth:`FasterRCNN.rpn`       - the RPN heads on a feature map;
 * :meth:`FasterRCNN.roi_heads` - RoI pooling + the stage-5 head.
 
@@ -20,6 +22,7 @@ from radnet_torch.config import Config
 from radnet_torch.models import resnet
 from radnet_torch.models.layers import Conv
 from radnet_torch.models.rpn import RPNHead
+from radnet_torch.ops.grey_stem import grey_stem
 from radnet_torch.ops.roi_align import batched_roi_pool
 
 
@@ -44,6 +47,15 @@ class FasterRCNN(nn.Module):
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) centred images -> (B, C, h, w) channels-last features."""
         return self.trunk(images)
+
+    def features_grey(self, grey: torch.Tensor, consts) -> torch.Tensor:
+        """uint8 ``(B, S, S)`` grey canvases, not centred -> features.
+
+        ``consts``: the ``(k7, b0, scale)`` tensors of
+        :func:`radnet_torch.ops.grey_stem.stem_constants` for this canvas,
+        ``k7`` through :func:`~radnet_torch.ops.grey_stem.stem_weights`."""
+        pooled = grey_stem(grey, *consts, out_dtype=self.dtype)
+        return self.trunk.stages(pooled.permute(0, 3, 1, 2))  # channels-last NCHW view
 
     def rpn(self, fmap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Feature map -> (objectness (B, h, w, A), deltas (B, h, w, 4A))."""

@@ -58,7 +58,8 @@ def _stage(cin, filters, n_blocks, stride, prefix, dtype):
 
 class ResNet50Trunk(nn.Module):
     """Stages 1-4: ``(B, S, S, 3)`` centred image -> ``(B, 1024, S', S')``
-    in channels-last memory format."""
+    in channels-last memory format.  :meth:`stem` and :meth:`stages` split
+    it, so a stem computed elsewhere (the grey stem) feeds stage 2."""
 
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -75,12 +76,21 @@ class ResNet50Trunk(nn.Module):
         self.block_names = [name for name, _ in blocks]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x``: centred NHWC image, not yet padded.  Padding after the
+        return self.stages(self.stem(x))
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """7x7/2 conv, frozen BN, ReLU and 3x3/2 max-pool: ``(B, 64, S', S')``
+        channels-last.
+
+        ``x`` is the centred NHWC image, not yet padded: padding after the
         centring keeps the pad ring at true zero."""
         x = F.pad(x.to(self.dtype), (0, 0, 3, 3, 3, 3))  # ZeroPadding2D((3, 3))
-        x = x.permute(0, 3, 1, 2)  # NCHW view with channels-last strides
-        x = F.relu(self.bn_conv1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2)
+        x = self.conv1(x.permute(0, 3, 1, 2))  # NCHW view with channels-last strides
+        x = F.relu(self.bn_conv1(x))
+        return F.max_pool2d(x, 3, stride=2)
+
+    def stages(self, x: torch.Tensor) -> torch.Tensor:
+        """Stages 2-4 on a pooled stem output ``(B, 64, S', S')``."""
         for name in self.block_names:
             x = getattr(self, name)(x)
         return x

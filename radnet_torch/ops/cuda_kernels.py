@@ -136,7 +136,13 @@ ROI_POOL = CudaKernel(
     extra_flags=("--fmad=false",),
 )
 
-KERNELS = [NMS_DOMINANCE, ROI_POOL]
+GREY_STEM = CudaKernel(
+    "grey_stem.cu",
+    "radnet_grey_stem",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+)
+
+KERNELS = [NMS_DOMINANCE, ROI_POOL, GREY_STEM]
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,12 @@
-"""Bicubic resize of a uint8 image, the counterpart of OpenCV's
-``cv2.resize(..., interpolation=cv2.INTER_CUBIC)``.
+"""Bicubic resizes.
+
+:func:`resize_cubic_u8` is the counterpart of OpenCV's
+``cv2.resize(..., interpolation=cv2.INTER_CUBIC)`` on a uint8 image, for
+the prescaled and host tile paths.  :func:`resize_bicubic` is the
+full-resolution tiling path's resize, ``Ry @ img @ Rx^T`` with dense
+float32 interpolation matrices (:func:`resize_matrix`), unrounded.
+
+For :func:`resize_cubic_u8`:
 
 Cubic convolution with a = -0.75, half-pixel centres
 (``src = (dst + 0.5) * in / out - 0.5``), replicate border.  The four tap
@@ -63,3 +70,40 @@ def resize_cubic_u8(img: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
     for k in range(1, 4):
         out = out + tmp[yi[:, k]] * yw[:, k].view(-1, 1, *extra)
     return torch.round(out).clamp(0, 255).to(torch.uint8)
+
+
+def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """The cubic convolution kernel at distances ``x``, in float64."""
+    x = np.abs(x)
+    return np.where(
+        x <= 1.0,
+        (a + 2.0) * x**3 - (a + 3.0) * x**2 + 1.0,
+        np.where(x < 2.0, a * x**3 - 5.0 * a * x**2 + 8.0 * a * x - 4.0 * a, 0.0),
+    )
+
+
+@functools.lru_cache(maxsize=32)
+def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) float32 bicubic interpolation matrix of the
+    full-resolution tiling path: the same cubic (a = -0.75) and half-pixel
+    centres, out-of-range taps folded onto the edge sample, rows normalised
+    to sum to 1."""
+    scale = in_size / out_size
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    base = np.floor(src).astype(np.int64)
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    for tap in (-1, 0, 1, 2):
+        idx = base + tap
+        np.add.at(m, (np.arange(out_size), np.clip(idx, 0, in_size - 1)), _cubic_kernel(src - idx))
+    m /= m.sum(axis=1, keepdims=True)
+    return m.astype(np.float32)
+
+
+def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize ``(..., H, W, C)`` by two float32 matrix products (``Ry @ img
+    @ Rx^T``); float32 output, not rounded."""
+    h, w = img.shape[-3:-1]
+    ry = torch.from_numpy(resize_matrix(h, out_h)).to(img.device)
+    rx = torch.from_numpy(resize_matrix(w, out_w)).to(img.device)
+    tmp = torch.einsum("oh,...hwc->...owc", ry, img.float())
+    return torch.einsum("pw,...owc->...opc", rx, tmp)

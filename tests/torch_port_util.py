@@ -46,3 +46,11 @@ def port_model(cfg, params, batch_stats):
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
+
+
+def port_cv2_resize(src, dsize, interpolation=None):
+    """Stands in for ``cv2.resize(..., interpolation=cv2.INTER_CUBIC)`` with
+    the port's bicubic, so both packages resize the same way."""
+    from radnet_torch.ops.resize import resize_cubic_u8
+
+    return resize_cubic_u8(torch.from_numpy(np.ascontiguousarray(src)), *dsize).numpy()
