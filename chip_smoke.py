@@ -9,11 +9,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
   3. kernel 1   NMS dominance vs its plain version at (12, 2048), (72, 300)
                 and a ragged N = 1000: outputs must be equal;
   4. kernel 2   RoI pooling vs its plain version at (12, 38, 38, 1024) x
-                (12, 300), P = 7, center_stride 2 and 1, bf16 and f32:
+                (12, 300), P = 7, center_stride 2 and 1, bf16 and f32, and
+                on four tiles of edge RoIs (near the whole map, so all 14
+                taps distinct; single pixels; zero sizes; 300 identical):
                 f32 within 1e-5 absolute, bf16 within one bf16 ulp of the
                 plain version computed in f32 from the same bf16 inputs;
-  5. kernel 3   the grey stem vs its plain version at (12, 608), (6, 608) and
-                (2, 64), bf16 and f32: f32 within 1e-5 of the largest
+  5. kernel 3   the grey stem vs its plain version at (12, 608), (6, 608),
+                (2, 64) and on two all-255 canvases of 608 (every input
+                at its largest), bf16 and f32: f32 within 1e-5 of the largest
                 magnitude; bf16 within one bf16 ulp of the plain version
                 computed in f32 with the same bf16-rounded weights (or 1e-6
                 of the largest magnitude, for values within float32
@@ -24,7 +27,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 tests/test_pallas_stem.py;
   6. timings    device time of each kernel, CUDA-event medians of its plain
                 version and of a library call, beside the kernel's bound on
-                this card;
+                this card; the earlier designs of the RoI pool and the grey
+                stem (radnet_torch/csrc/earlier/) timed on the same inputs;
   7. main path  the default Config (ResNet50, canvas 608, bf16, 12 tiles a
                 batch) with seeded random weights, saved to a model dir and
                 served through radnet_torch.cli.serve: three 4400 x 3000 grey
@@ -69,8 +73,9 @@ SEED = 0
 # (B, N, IoU threshold, box extent, unit): the proposal NMS, the per-class
 # NMS, and a ragged N.
 NMS_CASES = [(12, 2048, 0.7, 10, 1.0), (72, 300, 0.2, 8, 16.0), (5, 1000, 0.5, 12, 1.0)]
-# (B, S) of the grey stem: a full batch, a half batch, a small canvas.
-STEM_CASES = [(12, 608), (6, 608), (2, 64)]
+# (B, S, canvases) of the grey stem: a full batch, a half batch, a small
+# canvas, and all-255 canvases, every input at its largest.
+STEM_CASES = [(12, 608, "random"), (6, 608, "random"), (2, 64, "random"), (2, 608, "white")]
 
 
 def emit(obj) -> None:
@@ -119,16 +124,19 @@ def device_ms(fn, symbol: str, iters: int = 20) -> float | None:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if symbol in e.key:
-            total_us += getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
-            count += e.count
-    return total_us / count / 1e3 if count else None
+    for _ in range(2):  # a profiler window has once missed the kernel: ask twice
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if symbol in e.key:
+                total_us += getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                count += e.count
+        if count:
+            return total_us / count / 1e3
+    return None
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -191,6 +199,26 @@ def roi_inputs(dtype, seed, device, b=12, hw=38, c=1024, r=300):
     return fmap.to(device=device, dtype=dtype), torch.from_numpy(rois).to(device)
 
 
+def roi_edge_inputs(dtype, seed, device, hw=38, c=1024, r=300):
+    """Four tiles of RoIs at the edges of the kernel's staging: near the
+    whole map (every one of the 2P row and column taps distinct), single
+    pixels, zero sizes, and one RoI repeated 300 times."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    fmap = torch.from_numpy(rng.normal(0, 1, (4, hw, hw, c)).astype(np.float32))
+    rois = np.empty((4, r, 4), np.float32)
+    rois[0, :, :2] = rng.integers(-2, 3, (r, 2))
+    rois[0, :, 2:] = rng.integers(hw - 4, hw + 3, (r, 2))
+    rois[0, 0] = (0, 0, hw, hw)
+    for t, size in ((1, 1), (2, 0)):
+        rois[t, :, :2] = rng.integers(0, hw, (r, 2))
+        rois[t, :, 2:] = size
+    rois[1, :4, :2] = ((0, 0), (hw - 1, 0), (0, hw - 1), (hw - 1, hw - 1))
+    rois[3] = (5, 7, 12, 9)
+    return fmap.to(device=device, dtype=dtype), torch.from_numpy(rois).to(device)
+
+
 def synthetic_grey_panel(seed: int, hw=None) -> np.ndarray:
     """A grey panel: dark textured rock with bright carved figures."""
     rng = np.random.default_rng(seed)
@@ -230,11 +258,13 @@ def stem_params(seed: int):
     return w, bias, {k: v.astype(np.float32) for k, v in bn.items()}
 
 
-def grey_canvases(b: int, s: int, seed: int, device):
-    """uint8 (B, S, S) canvases whose content (S - 8 square) leaves a dead
-    band, so the centring map's edge is exercised."""
+def grey_canvases(b: int, s: int, seed: int, device, kind: str = "random"):
+    """uint8 (B, S, S) canvases: random content (S - 8 square) that leaves a
+    dead band, so the centring map's edge is exercised; or all 255."""
     import torch
 
+    if kind == "white":
+        return torch.full((b, s, s), 255, dtype=torch.uint8, device=device)
     rng = np.random.default_rng(seed)
     g = np.zeros((b, s, s), np.uint8)
     g[:, : s - 8, : s - 8] = rng.integers(0, 255, (b, s - 8, s - 8))
@@ -257,15 +287,16 @@ def stem_trunk(w, bias, bn, dtype, device):
     return trunk.to(device).eval()
 
 
-def stem_consts(w, bias, bn, s, device):
-    """The grey stem's ``(k7, b0, scale)`` on the card, ``k7`` unrounded."""
+def stem_consts(w, bias, bn, s, dtype, device):
+    """The grey stem's StemConsts on the card for an output type, and the
+    unrounded float32 ``k7``."""
     import torch
 
     from radnet_torch.data.pipeline import IMAGENET_BGR_MEAN
-    from radnet_torch.ops.grey_stem import stem_constants
+    from radnet_torch.ops.grey_stem import make_stem_consts, stem_constants
 
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in stem_constants(w, bias, bn, s, IMAGENET_BGR_MEAN))
+    arrays = stem_constants(w, bias, bn, s, IMAGENET_BGR_MEAN)
+    return make_stem_consts(arrays, dtype, device), torch.from_numpy(arrays[0]).to(device)
 
 
 def grid_sample_centres(rois, p, stride, hw):
@@ -378,33 +409,37 @@ def kernel_checks(dev) -> dict:
     # 4. kernel 2 vs plain: f32 <= 1e-5 abs; bf16 within one bf16 ulp.
     for dtype in (torch.bfloat16, torch.float32):
         for stride in (2, 1):
-            fmap, rois = roi_inputs(dtype, SEED + stride, dev)
-            got = roi_align.roi_pool_cuda(fmap, rois, pool_size=7, center_stride=stride)
-            ref = roi_align.roi_pool_plain(fmap.float(), rois, pool_size=7, center_stride=stride)
-            torch.cuda.synchronize()
-            err = (got.float() - ref).abs()
-            max_err = float(err.max())
-            if dtype == torch.float32:
-                ok, tol = max_err <= 1e-5, "1e-5 abs"
-            else:
-                ulps = float((err / bf16_ulp(ref)).max())
-                ok, tol = ulps <= 1.0, f"1 bf16 ulp (max {ulps:.3f} ulp)"
-                if stride == 2:
-                    errs["roi_pool"] = max_err
-            emit({"phase": "kernel2", "dtype": str(dtype), "center_stride": stride,
-                  "max_abs_err": max_err, "tolerance": tol, "exact": bool(err.max() == 0)})
-            check(ok, f"roi_pool disagrees with its plain version ({dtype}, stride {stride})")
-            del fmap, got, ref, err
+            for case, make_inputs in (("random", roi_inputs), ("edges", roi_edge_inputs)):
+                fmap, rois = make_inputs(dtype, SEED + stride, dev)
+                got = roi_align.roi_pool_cuda(fmap, rois, pool_size=7, center_stride=stride)
+                ref = roi_align.roi_pool_plain(fmap.float(), rois, pool_size=7,
+                                               center_stride=stride)
+                torch.cuda.synchronize()
+                err = (got.float() - ref).abs()
+                max_err = float(err.max())
+                if dtype == torch.float32:
+                    ok, tol = max_err <= 1e-5, "1e-5 abs"
+                else:
+                    ulps = float((err / bf16_ulp(ref)).max())
+                    ok, tol = ulps <= 1.0, f"1 bf16 ulp (max {ulps:.3f} ulp)"
+                    if stride == 2 and case == "random":
+                        errs["roi_pool"] = max_err
+                emit({"phase": "kernel2", "rois": case, "shape": list(got.shape),
+                      "dtype": str(dtype), "center_stride": stride, "max_abs_err": max_err,
+                      "tolerance": tol, "exact": bool(err.max() == 0)})
+                check(ok, f"roi_pool disagrees with its plain version ({case}, {dtype}, "
+                          f"stride {stride})")
+                del fmap, got, ref, err
 
     # 5. kernel 3 vs plain, then vs the 3-channel stem it replaces.
     w, bias, bn = stem_params(SEED)
-    for b, s in STEM_CASES:
-        k7, b0, scale = stem_consts(w, bias, bn, s, dev)
-        g = grey_canvases(b, s, SEED + b + s, dev)
+    for b, s, kind in STEM_CASES:
+        g = grey_canvases(b, s, SEED + b + s, dev, kind)
         for dtype in (torch.bfloat16, torch.float32):
-            k7d = grey_stem.stem_weights(k7, dtype)
-            got = grey_stem.grey_stem_cuda(g, k7d, b0, scale, dtype)
-            ref = grey_stem.grey_stem_plain(g, k7d, b0, scale, torch.float32)
+            consts, k7 = stem_consts(w, bias, bn, s, dtype, dev)
+            b0, scale = consts.centring_map(), consts.scale  # the full map, for the plain version
+            got = grey_stem.grey_stem_cuda(g, consts, dtype)
+            ref = grey_stem.grey_stem_plain(g, consts.k7, b0, scale, torch.float32)
             torch.cuda.synchronize()
             err = (got.float() - ref).abs()
             max_err, top = float(err.max()), float(ref.abs().max())
@@ -423,22 +458,22 @@ def kernel_checks(dev) -> dict:
                          "n_beyond_1_ulp_of_plain_with_unrounded_weights": int(
                              ((got.float() - ref_unrounded).abs() > bf16_ulp(ref_unrounded)).sum())}
                 del ref_unrounded
-            if (b, s) == STEM_CASES[0] and dtype == torch.bfloat16:
+            if (b, s, kind) == STEM_CASES[0] and dtype == torch.bfloat16:
                 errs["grey_stem"] = max_err
-            emit({"phase": "kernel3", "shape": [b, s], "dtype": str(dtype), "max_abs_err": max_err,
-                  **extra, "largest": top, "tolerance": tol, "exact": bool(err.max() == 0)})
-            check(ok, f"grey_stem disagrees with its plain version ({dtype}, {(b, s)})")
-            del got, ref, err
+            emit({"phase": "kernel3", "shape": [b, s], "canvases": kind, "dtype": str(dtype),
+                  "weight_pieces": consts.pieces.shape[0], "max_abs_err": max_err, **extra,
+                  "largest": top, "tolerance": tol, "exact": bool(err.max() == 0)})
+            check(ok, f"grey_stem disagrees with its plain version ({dtype}, {(b, s, kind)})")
+            del got, ref, err, b0
 
-    b, s = STEM_CASES[0]
-    k7, b0, scale = stem_consts(w, bias, bn, s, dev)
-    consts = (grey_stem.stem_weights(k7, torch.bfloat16), b0, scale)
+    b, s, _ = STEM_CASES[0]
+    consts, _ = stem_consts(w, bias, bn, s, torch.bfloat16, dev)
     g = grey_canvases(b, s, SEED, dev)
     with torch.inference_mode():
         img = preprocess_on_device(g[..., None].expand(b, s, s, 3))
         ref32 = stem_trunk(w, bias, bn, torch.float32, dev).stem(img).permute(0, 2, 3, 1).float()
         ref16 = stem_trunk(w, bias, bn, torch.bfloat16, dev).stem(img).permute(0, 2, 3, 1).float()
-        out = grey_stem.grey_stem_cuda(g, *consts, torch.bfloat16).float()
+        out = grey_stem.grey_stem_cuda(g, consts, torch.bfloat16).float()
         mag = ref32.abs().clamp_min(8.0)
         rel_kernel = float(((out - ref32).abs() / mag).max())
         rel_bf16path = float(((ref16 - ref32).abs() / mag).max())
@@ -450,13 +485,32 @@ def kernel_checks(dev) -> dict:
     return errs
 
 
-def timings(dev, errs: dict) -> dict:
+def earlier_kernels() -> dict:
+    """The earlier designs of the RoI pool (one block per output cell) and the
+    grey stem (float32 products on the CUDA cores, a full centring map), kept
+    in radnet_torch/csrc/earlier/ to be timed beside the current kernels."""
+    import ctypes
+
+    from radnet_torch.ops.cuda_kernels import CudaKernel
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    return {
+        "roi_pool": CudaKernel("earlier/roi_pool_per_cell.cu", "radnet_earlier_roi_pool",
+                               [ptr] * 3 + [i32] * 8, extra_flags=("--fmad=false",)),
+        "grey_stem": CudaKernel("earlier/grey_stem_scalar.cu", "radnet_earlier_grey_stem",
+                                [ptr] * 5 + [i32] * 3),
+    }
+
+
+def timings(dev, errs: dict, earlier: dict) -> dict:
     """Phase 6: each kernel's time at the main path's shapes beside its bound,
-    its plain version and a library call."""
+    its plain version, a library call and, for the RoI pool and the grey
+    stem, the earlier design on the same inputs."""
     import torch
 
     from radnet_torch.data.pipeline import preprocess_on_device
     from radnet_torch.ops import grey_stem, nms, roi_align
+    from radnet_torch.ops.cuda_kernels import ptr
 
     def timed(kernel_fn, symbol, plain_fn, n_bytes, n_ops, shape, ops_per_s=F32_OPS_PER_S):
         call_ms = time_cuda(kernel_fn)
@@ -489,7 +543,14 @@ def timings(dev, errs: dict) -> dict:
         return torch.nn.functional.grid_sample(
             fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
 
+    def earlier_roi():
+        out = torch.empty((b, r, p, p, c), dtype=fmap.dtype, device=dev)
+        earlier["roi_pool"].launch(ptr(fmap), ptr(rois), ptr(out), b, hw, hw, c, r, p, 2, 1)
+        return out
+
     lib_dev_ms = device_ms(library, "grid_sampler")
+    earlier_equal = bool(torch.equal(
+        earlier_roi(), roi_align.roi_pool_cuda(fmap, rois, pool_size=p, center_stride=2)))
     line["roi_pool"] = {
         "name": "roi_pool", "route": "cuda", "source": "radnet_torch/csrc/roi_pool.cu",
         "replaces": "radnet_tpu/ops/pallas_roi.py:37",
@@ -500,36 +561,47 @@ def timings(dev, errs: dict) -> dict:
                 9.0 * b * r * p * p * c, [b, hw, hw, c, r, p]),
         "library_ms": lib_dev_ms if lib_dev_ms is not None else time_cuda(library),
         "max_abs_err": errs["roi_pool"],
+        "earlier_ms": device_ms(earlier_roi, "roi_pool_kernel"),
+        "earlier_design": "one block per output cell (radnet_torch/csrc/earlier/roi_pool_per_cell.cu)",
+        "earlier_output_equal": earlier_equal,
     }
     del fmap, rois, grid, fmap_nchw
 
     # Grey stem at one 12-tile batch of 608 canvases, bf16.  Bytes the
     # function needs: canvases, output, and its parameters (k7, the
     # mean-weighted kernel, bias, BN scale and shift, the 7-tap edge vectors
-    # of the centring); the kernel instead reads the centring as a full
-    # float32 map, whose bytes are shown beside the bound.  Operations: 2 per
-    # multiply-add of the single-channel conv over the conv outputs the pool
-    # reads, at the bf16 tensor-core rate.
-    b, s = STEM_CASES[0]
+    # of the centring).  Operations: 2 per multiply-add of the single-channel
+    # conv over the conv outputs the pool reads, at the bf16 tensor-core rate.
+    b, s, _ = STEM_CASES[0]
     ch, ph = grey_stem.stem_geometry(s)
     cn = 2 * ph + 1  # conv rows and columns the 3x3/2 pool reads
     w, bias, bn = stem_params(SEED)
-    k7, b0, scale = stem_consts(w, bias, bn, s, dev)
-    consts = (grey_stem.stem_weights(k7, torch.bfloat16), b0, scale)
+    consts, _ = stem_consts(w, bias, bn, s, torch.bfloat16, dev)
+    b0 = consts.centring_map()  # for the plain version and the earlier design only
     g = grey_canvases(b, s, SEED, dev)
     param_bytes = 2 * 49 * 64 * 4 + 3 * 64 * 4 + ch * 7 * 4
-    map_bytes = ch * ch * 64 * 4
     io_bytes = b * s * s + b * ph * ph * 64 * 2
+
+    def earlier_stem():
+        out = torch.empty((b, ph, ph, 64), dtype=torch.bfloat16, device=dev)
+        earlier["grey_stem"].launch(ptr(g), ptr(consts.k7), ptr(b0), ptr(consts.scale), ptr(out),
+                                    b, s, 1)
+        return out
+
+    earlier_err = float((earlier_stem().float()
+                         - grey_stem.grey_stem_cuda(g, consts, torch.bfloat16).float()).abs().max())
     line["grey_stem"] = {
         "name": "grey_stem", "route": "cuda", "source": "radnet_torch/csrc/grey_stem.cu",
         "replaces": "radnet_tpu/ops/pallas_stem.py:54",
-        **timed(lambda: grey_stem.grey_stem_cuda(g, *consts, torch.bfloat16), "grey_stem_kernel",
-                lambda: grey_stem.grey_stem_plain(g, *consts, torch.bfloat16),
+        **timed(lambda: grey_stem.grey_stem_cuda(g, consts, torch.bfloat16), "grey_stem_kernel",
+                lambda: grey_stem.grey_stem_plain(g, consts.k7, b0, consts.scale, torch.bfloat16),
                 io_bytes + param_bytes, 2.0 * 49 * b * cn * cn * 64, [b, s],
                 ops_per_s=BF16_OPS_PER_S),
         "library_ms": None, "max_abs_err": errs["grey_stem"],
-        "centring_map_bytes": map_bytes,
-        "bound_ms_with_map": bound_ms(io_bytes + param_bytes + map_bytes, 0.0)[0],
+        "earlier_ms": device_ms(earlier_stem, "grey_stem_kernel"),
+        "earlier_design": ("float32 products on the CUDA cores, full float32 centring map "
+                           "(radnet_torch/csrc/earlier/grey_stem_scalar.cu)"),
+        "earlier_max_abs_diff": earlier_err,
     }
     trunk16 = stem_trunk(w, bias, bn, torch.bfloat16, dev)
     canv3 = g[..., None].expand(b, s, s, 3).contiguous()
@@ -539,7 +611,7 @@ def timings(dev, errs: dict) -> dict:
     line["grey_stem"]["replaced_three_channel_stem"] = (
         "centring + pad + cuDNN conv2d + BN + ReLU + max_pool2d on (12, 608, 608, 3) uint8, "
         "CUDA-event median")
-    del g, canv3, trunk16
+    del g, canv3, trunk16, b0
     emit({"phase": "timings", "kernels": list(line.values())})
     return line
 
@@ -662,7 +734,7 @@ def stages_phase(net, panel3, small, origins, kind, smi):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         with torch.inference_mode():
             ev[0].record()
-            pooled = grey_stem(images, *net._grey_consts, out_dtype=net.model.dtype)
+            pooled = grey_stem(images, net._grey_consts, out_dtype=net.model.dtype)
             ev[1].record()
             fmap = net.model.trunk.stages(pooled.permute(0, 3, 1, 2))
             ev[2].record()
@@ -872,13 +944,14 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
     # 2. build
-    build_s = cuda_kernels.build(cuda_kernels.KERNELS)
+    earlier = earlier_kernels()
+    build_s = cuda_kernels.build(cuda_kernels.KERNELS + list(earlier.values()))
     emit({"phase": "build", "seconds": build_s,
-          "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS]})
+          "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS + list(earlier.values())]})
 
     # 3-6. kernels against their plain versions, then timed.
     errs = kernel_checks(dev)
-    kernels_line = timings(dev, errs)
+    kernels_line = timings(dev, errs, earlier)
 
     # 7-8. the main path through serve, per-stage times, then predict.
     cfg = Config()

@@ -52,7 +52,7 @@ from radnet_torch.data.tiling import plan_tiles
 from radnet_torch.geometry import decode_boxes, xyxy_to_xywh
 from radnet_torch.models.detector import FasterRCNN, build_model
 from radnet_torch.ops.anchors import feature_anchors_xywh
-from radnet_torch.ops.grey_stem import stem_constants, stem_weights
+from radnet_torch.ops.grey_stem import StemConsts, make_stem_consts, stem_constants
 from radnet_torch.ops.nms import final_nms_cluster, nms_fixed_point, nms_numpy
 from radnet_torch.ops.proposals import Proposals, decode_proposals
 from radnet_torch.ops.resize import resize_bicubic, resize_cubic_u8
@@ -149,16 +149,15 @@ class RADNet:
         return a
 
     @functools.cached_property
-    def _grey_consts(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The grey stem's ``(k7, b0, scale)`` for the square canvas, folded
-        once from the trunk's stem parameters; ``k7`` already in the values
-        of the compute type."""
+    def _grey_consts(self) -> StemConsts:
+        """The grey stem's constants for the square canvas, folded once from
+        the trunk's stem parameters: ``k7`` in the values of the compute
+        type, and the centring as its compact table."""
         trunk = self.model.trunk
         bn = {k: getattr(trunk.bn_conv1, k) for k in ("gamma", "beta", "mean", "var")}
         consts = stem_constants(trunk.conv1.weight, trunk.conv1.bias, bn, self.C.canvas_size,
                                 IMAGENET_BGR_MEAN, eps=trunk.bn_conv1.eps)
-        k7, b0, scale = (torch.from_numpy(a).to(self.device) for a in consts)
-        return stem_weights(k7, self.model.dtype), b0, scale
+        return make_stem_consts(consts, self.model.dtype, self.device)
 
     # ------------------------------------------------------------------ #
     # The tile cascade, one stage per method so each can be timed alone.

@@ -51,10 +51,10 @@ class FasterRCNN(nn.Module):
     def features_grey(self, grey: torch.Tensor, consts) -> torch.Tensor:
         """uint8 ``(B, S, S)`` grey canvases, not centred -> features.
 
-        ``consts``: the ``(k7, b0, scale)`` tensors of
-        :func:`radnet_torch.ops.grey_stem.stem_constants` for this canvas,
-        ``k7`` through :func:`~radnet_torch.ops.grey_stem.stem_weights`."""
-        pooled = grey_stem(grey, *consts, out_dtype=self.dtype)
+        ``consts``: the :class:`~radnet_torch.ops.grey_stem.StemConsts` of
+        this canvas and of ``self.dtype``
+        (:func:`~radnet_torch.ops.grey_stem.make_stem_consts`)."""
+        pooled = grey_stem(grey, consts, out_dtype=self.dtype)
         return self.trunk.stages(pooled.permute(0, 3, 1, 2))  # channels-last NCHW view
 
     def rpn(self, fmap: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -139,7 +139,7 @@ ROI_POOL = CudaKernel(
 GREY_STEM = CudaKernel(
     "grey_stem.cu",
     "radnet_grey_stem",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
 )
 
 KERNELS = [NMS_DOMINANCE, ROI_POOL, GREY_STEM]

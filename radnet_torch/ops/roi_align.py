@@ -73,6 +73,7 @@ def roi_pool_plain(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: in
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_POOL_SIZE = 32  # csrc/roi_pool.cu computes an axis' taps on one warp
 
 
 def roi_pool_cuda(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: int,
@@ -93,6 +94,11 @@ def roi_pool_cuda(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: int
     if fmap.data_ptr() % 16:
         raise ValueError("roi_pool_cuda needs a 16-byte aligned feature map")
     b, h, w, c = fmap.shape
+    if (c * fmap.element_size()) % 16:
+        raise ValueError(f"roi_pool_cuda needs channels in whole 16-byte vectors, not C = {c} "
+                         f"of {fmap.dtype}")
+    if not 1 <= pool_size <= MAX_POOL_SIZE:
+        raise ValueError(f"roi_pool_cuda pools 1 to {MAX_POOL_SIZE} cells a side, not {pool_size}")
     r = rois_xywh.shape[1]
     out = torch.empty((b, r, pool_size, pool_size, c), dtype=fmap.dtype, device=fmap.device)
     cuda_kernels.ROI_POOL.launch(

@@ -4,7 +4,9 @@ radnet_tpu's ``GreyStem`` and ``stem_constants`` and against the port's own
 
 Tolerances:
 * ``stem_constants``: 1e-6 relative.  The port folds in float64, the JAX
-  package in float32, so the two differ by float32 rounding.
+  package in float32, so the two differ by float32 rounding.  The port's
+  compact centring table, expanded, equals its own full float64 fold
+  exactly.
 * bf16 against the Pallas kernel (interpret mode): one bf16 ulp.  Both
   convolve the same integer grey values with the same bf16-rounded weights,
   exactly in float32, and differ only in the order of the 49-term sum.
@@ -52,10 +54,14 @@ def _grey(canvas, b=2, seed=0):
 
 
 def _port_consts(kernel, bias, bn, canvas, dtype=torch.float32):
-    """The port's ``(k7, b0, scale)``, ``k7`` in the values of ``dtype``."""
+    """The port's :class:`StemConsts`, ``k7`` in the values of ``dtype``."""
     consts = gs.stem_constants(kernel.transpose(3, 2, 0, 1), bias, bn, canvas, IMAGENET_BGR_MEAN)
-    k7, b0, scale = (torch.from_numpy(a) for a in consts)
-    return gs.stem_weights(k7, dtype), b0, scale
+    return gs.make_stem_consts(consts, dtype, "cpu")
+
+
+def _plain(grey, consts, out_dtype):
+    """grey_stem_plain on the full centring map of ``consts``."""
+    return gs.grey_stem_plain(grey, consts.k7, consts.centring_map(), consts.scale, out_dtype)
 
 
 def _port_trunk(kernel, bias, bn, dtype):
@@ -76,7 +82,8 @@ def _bf16_ulp(x):
 @pytest.mark.parametrize("canvas", [64, 128, 608])
 def test_stem_constants_match_jax(canvas):
     kernel, bias, bn = _params(1)
-    k7, b0, scale = (a.numpy() for a in _port_consts(kernel, bias, bn, canvas))
+    consts = _port_consts(kernel, bias, bn, canvas)
+    k7, b0, scale = (a.numpy() for a in (consts.k7, consts.centring_map(), consts.scale))
     jk7, jb0p, jscale = (np.asarray(a) for a in pallas_stem.stem_constants(
         kernel, bias, bn, canvas, IMAGENET_BGR_MEAN))
     ch, _ = gs.stem_geometry(canvas)
@@ -90,8 +97,8 @@ def test_stem_constants_match_jax(canvas):
 def test_plain_bf16_matches_pallas_kernel(canvas):
     kernel, bias, bn = _params(0)
     grey = _grey(canvas)
-    got = gs.grey_stem_plain(torch.from_numpy(grey),
-                             *_port_consts(kernel, bias, bn, canvas, torch.bfloat16), torch.bfloat16)
+    got = _plain(torch.from_numpy(grey), _port_consts(kernel, bias, bn, canvas, torch.bfloat16),
+                 torch.bfloat16)
     k7, b0p, scale = pallas_stem.stem_constants(kernel, bias, bn, canvas, IMAGENET_BGR_MEAN)
     stem = pallas_stem.GreyStem(canvas, grey.shape[0], interpret=True)
     want = np.asarray(stem(pallas_stem.pad_grey_canvas(jnp.asarray(grey), canvas), k7, b0p, scale),
@@ -107,8 +114,8 @@ def test_plain_f32_matches_three_channel_stem():
     canvas = 64
     kernel, bias, bn = _params(2)
     grey = _grey(canvas, seed=2)
-    got = gs.grey_stem_plain(torch.from_numpy(grey), *_port_consts(kernel, bias, bn, canvas),
-                             torch.float32).numpy()
+    got = _plain(torch.from_numpy(grey), _port_consts(kernel, bias, bn, canvas),
+                 torch.float32).numpy()
     trunk = _port_trunk(kernel, bias, bn, torch.float32)
     img = torch.from_numpy(np.repeat(grey[..., None], 3, axis=-1))
     with torch.no_grad():
@@ -130,7 +137,7 @@ def test_against_jax_reference_stem(which):
                        np.float32)
     if which == "grey_stem_bf16":
         out = gs.grey_stem(torch.from_numpy(grey),
-                           *_port_consts(kernel, bias, bn, canvas, torch.bfloat16), torch.bfloat16)
+                           _port_consts(kernel, bias, bn, canvas, torch.bfloat16), torch.bfloat16)
     else:
         trunk = _port_trunk(kernel, bias, bn, torch.bfloat16)
         img = torch.from_numpy(np.repeat(grey[..., None], 3, axis=-1))
@@ -153,8 +160,8 @@ def test_radnet_rounds_weights_once_to_the_compute_type():
     cfg = Config(canvas_size=64, img_size=60, tile_size=120)
     net = RADNet(cfg, init_weights(build_model(cfg), torch.Generator().manual_seed(0)),
                  device="cpu")
-    k7, b0, scale = net._grey_consts
-    assert net._grey_consts[0] is k7  # folded once
+    k7 = net._grey_consts.k7
+    assert net._grey_consts.k7 is k7  # folded once
     assert k7.dtype == torch.float32 and k7.abs().max() > 0
     torch.testing.assert_close(k7, k7.to(torch.bfloat16).float(), rtol=0, atol=0)
     assert not torch.equal(k7, torch.from_numpy(gs.stem_constants(
@@ -168,7 +175,104 @@ def test_dispatch_plain_on_cpu_and_cuda_wrapper_refuses_cpu_tensors():
     kernel, bias, bn = _params(0)
     consts = _port_consts(kernel, bias, bn, canvas)
     grey = torch.from_numpy(_grey(canvas))
-    torch.testing.assert_close(gs.grey_stem(grey, *consts, torch.float32),
-                               gs.grey_stem_plain(grey, *consts, torch.float32), rtol=0, atol=0)
+    torch.testing.assert_close(gs.grey_stem(grey, consts, torch.float32),
+                               _plain(grey, consts, torch.float32), rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
-        gs.grey_stem_cuda(grey, *consts, torch.float32)
+        gs.grey_stem_cuda(grey, consts, torch.float32)
+
+
+@pytest.mark.parametrize("canvas", [64, 65, 128, 608])
+def test_centring_table_expands_to_the_full_fold(canvas):
+    """The compact table, expanded, equals the full ``b0`` map folded by a
+    float64 einsum over every conv row and column, rounded to float32:
+    exactly, on even and odd canvases."""
+    kernel, bias, bn = _params(3)
+    w = kernel.transpose(3, 2, 0, 1)
+    _, table, cls, _ = gs.stem_constants(w, bias, bn, canvas, IMAGENET_BGR_MEAN)
+    ch, _ = gs.stem_geometry(canvas)
+    assert cls.shape == (ch,) and cls.dtype == np.int32
+    assert table.shape[0] <= 5 and table.shape == (table.shape[0],) * 2 + (64,)
+
+    f64 = lambda a: np.asarray(a, np.float64)  # noqa: E731
+    scale = f64(bn["gamma"]) / np.sqrt(f64(bn["var"]) + 1e-3)
+    shift = f64(bn["beta"]) - f64(bn["mean"]) * scale
+    m = np.zeros(canvas + 6)
+    m[3 : 3 + canvas] = 1.0
+    taps = m[2 * np.arange(ch)[:, None] + np.arange(7)[None, :]]
+    km = np.einsum("yxco,c->yxo", f64(kernel), f64(IMAGENET_BGR_MEAN))
+    full = (f64(bias) - np.einsum("iy,jx,yxo->ijo", taps, taps, km)) * scale + shift
+    np.testing.assert_array_equal(gs.expand_centring(table, cls), full.astype(np.float32))
+
+
+@pytest.mark.parametrize("canvas", [7, 8, 9, 64, 65, 607, 608])
+def test_tap_patterns_are_few_and_index_every_row(canvas):
+    """Only the edge rows differ from the interior: at most 5 patterns (4
+    on an even canvas of 8 or more), each one used, rows 2 .. CH - 3 all in
+    the interior's class."""
+    patterns, cls = gs.tap_patterns(canvas)
+    ch, _ = gs.stem_geometry(canvas)
+    assert len(patterns) <= (4 if canvas % 2 == 0 and canvas >= 8 else 5)
+    assert sorted(set(cls.tolist())) == list(range(len(patterns)))
+    if ch > 5:
+        assert len(set(cls[2 : ch - 2].tolist())) == 1
+        assert patterns[cls[ch // 2]].tolist() == [1.0] * 7
+
+
+@pytest.mark.parametrize("scale", [0.05, 3.0])
+def test_bf16_pieces_sum_exactly_to_k7(scale):
+    rng = np.random.default_rng(4)
+    k7 = torch.from_numpy(rng.normal(0, scale, (49, 64)).astype(np.float32))
+    pieces = gs.split_bf16(k7)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (3, 49, 64)
+    hi, mid, lo = pieces.float()
+    assert torch.equal(hi + mid + lo, k7)
+    assert not torch.equal(hi, k7)  # the float32 weights need the low pieces
+
+
+def test_plain_with_the_pieces_sum_equals_plain_with_k7():
+    canvas = 64
+    kernel, bias, bn = _params(5)
+    consts = _port_consts(kernel, bias, bn, canvas)
+    grey = torch.from_numpy(_grey(canvas, seed=5))
+    summed = gs.split_bf16(consts.k7).float().sum(0)
+    b0 = consts.centring_map()
+    torch.testing.assert_close(gs.grey_stem_plain(grey, summed, b0, consts.scale, torch.float32),
+                               gs.grey_stem_plain(grey, consts.k7, b0, consts.scale, torch.float32),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_weight_layout(dtype):
+    """``pieces[n, o, dy * 8 + dx]`` holds piece n of ``k7[dy * 7 + dx, o]``,
+    zero at dx == 7 and dy == 7; one piece for bf16, three for float32, and
+    they sum to ``k7``."""
+    kernel, bias, bn = _params(6)
+    consts = _port_consts(kernel, bias, bn, 64, dtype)
+    n = 1 if dtype == torch.bfloat16 else 3
+    assert consts.pieces.shape == (n, 64, 64) and consts.pieces.dtype == torch.bfloat16
+    w = consts.pieces.float().reshape(n, 64, 8, 8)
+    assert not w[:, :, 7, :].any() and not w[:, :, :, 7].any()
+    k7 = w[:, :, :7, :7].sum(0).reshape(64, 49).t()
+    torch.testing.assert_close(k7, consts.k7, rtol=0, atol=0)
+
+
+def test_radnet_holds_the_compact_centring_once():
+    """``RADNet._grey_consts`` holds the table and class index, not the full
+    map, folded once; expanded, it is the plain version's ``b0``."""
+    from radnet_torch.config import Config
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model, init_weights
+
+    cfg = Config(canvas_size=64, img_size=60, tile_size=120)
+    net = RADNet(cfg, init_weights(build_model(cfg), torch.Generator().manual_seed(0)),
+                 device="cpu")
+    consts = net._grey_consts
+    assert net._grey_consts is consts
+    ch, _ = gs.stem_geometry(64)
+    assert consts.table.shape == (4, 4, 64) and consts.cls.shape == (ch,)
+    assert consts.pieces.shape[0] == 1  # bf16 compute type
+    trunk = net.model.trunk
+    bn = {k: getattr(trunk.bn_conv1, k) for k in ("gamma", "beta", "mean", "var")}
+    full = gs.stem_constants(trunk.conv1.weight, trunk.conv1.bias, bn, 64, IMAGENET_BGR_MEAN)
+    np.testing.assert_array_equal(consts.centring_map().numpy(),
+                                  gs.expand_centring(full[1], full[2]))
