@@ -6,8 +6,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device     card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build      nvcc builds every kernel of radnet_torch/csrc for sm_90a;
-  3. kernel 1   NMS dominance vs its plain version at (12, 2048), (72, 300)
-                and a ragged N = 1000: outputs must be equal;
+  3. kernel 1   the fused NMS (relation + Jacobi rounds in one launch) vs its
+                plain version at (12, 2048), (72, 300), a ragged N = 1000, and
+                on a suppression chain of 2048, all-tied scores, all-invalid
+                sets, N = 1 and N = MAX_N: kept sets, round counts and the
+                packed relation (on pairs of valid candidates) must be equal;
   4. kernel 2   RoI pooling vs its plain version at (12, 38, 38, 1024) x
                 (12, 300), P = 7, center_stride 2 and 1, bf16 and f32, and
                 on four tiles of edge RoIs (near the whole map, so all 14
@@ -27,13 +30,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 tests/test_pallas_stem.py;
   6. timings    device time of each kernel, CUDA-event medians of its plain
                 version and of a library call, beside the kernel's bound on
-                this card; the earlier designs of the RoI pool and the grey
-                stem (radnet_torch/csrc/earlier/) timed on the same inputs;
+                this card; the earlier designs (radnet_torch/csrc/earlier/)
+                timed on the same inputs: the RoI pool, the grey stem, and the
+                whole earlier NMS call (byte relation + host-synced rounds);
   7. main path  the default Config (ResNet50, canvas 608, bf16, 12 tiles a
                 batch) with seeded random weights, saved to a model dir and
                 served through radnet_torch.cli.serve: three 4400 x 3000 grey
                 PNG panels, 28 tiles each; every kernel's launch count is
-                read around this run; then per-stage times of one batch;
+                read around this run, and the NMS round counts the kernel
+                left on the card; then per-stage times of one batch, host
+                dispatch beside device busy time; the fused NMS on the
+                proposal and per-class sets of one batch, beside the whole
+                earlier call on the same sets; then one batch and one
+                panel's dispatch under torch.cuda.set_sync_debug_mode("error"):
+                any operation that waits for the card fails the run;
   8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
                 3000 grey panels and a blended map (launch counts read around
                 it), then one panel down each other path through
@@ -70,9 +80,14 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PANEL_HW = (3000, 4400)
 N_PANELS = 3
 SEED = 0
-# (B, N, IoU threshold, box extent, unit): the proposal NMS, the per-class
-# NMS, and a ragged N.
-NMS_CASES = [(12, 2048, 0.7, 10, 1.0), (72, 300, 0.2, 8, 16.0), (5, 1000, 0.5, 12, 1.0)]
+# (B, N, IoU threshold, box extent, unit, kind): the proposal NMS, the
+# per-class NMS, a ragged N, then the adversarial sets: a suppression chain as
+# long as N (one box settles a round, so the N-round cap is reached), all
+# scores tied (the index decides), all invalid, N = 1, and the largest N.
+NMS_CASES = [(12, 2048, 0.7, 10, 1.0, "random"), (72, 300, 0.2, 8, 16.0, "random"),
+             (5, 1000, 0.5, 12, 1.0, "random"), (1, 2048, 0.7, 0, 1.0, "chain"),
+             (4, 2048, 0.7, 10, 1.0, "tied"), (3, 300, 0.2, 8, 16.0, "invalid"),
+             (8, 1, 0.7, 10, 1.0, "random"), (2, None, 0.5, 40, 1.0, "random")]
 # (B, S, canvases) of the grey stem: a full batch, a half batch, a small
 # canvas, and all-255 canvases, every input at its largest.
 STEM_CASES = [(12, 608, "random"), (6, 608, "random"), (2, 64, "random"), (2, 608, "white")]
@@ -170,19 +185,34 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> 
 # --------------------------------------------------------------------------- #
 # Inputs made from a seed.
 # --------------------------------------------------------------------------- #
-def nms_inputs(b, n, seed, extent, unit, device):
-    """Integer-valued boxes (some degenerate), tied scores, -inf invalids."""
+def nms_inputs(b, n, seed, extent, unit, device, kind="random"):
+    """Integer-valued boxes (some degenerate), tied scores, 15% invalid
+    (scored -inf, as nms_fixed_point scores them); or one of the adversarial
+    sets of NMS_CASES.  Returns boxes, scores, valid on ``device``."""
     import torch
 
     rng = np.random.default_rng(seed)
-    x1 = rng.integers(0, extent, (b, n))
-    y1 = rng.integers(0, extent, (b, n))
-    w = rng.integers(0, 8, (b, n))  # w == 0: degenerate
-    h = rng.integers(0, 8, (b, n))
-    boxes = (np.stack([x1, y1, x1 + w, y1 + h], -1) * unit).astype(np.float32)
-    scores = rng.choice(np.linspace(0.05, 1.0, 40), (b, n)).astype(np.float32)
-    scores[rng.random((b, n)) < 0.15] = -np.inf
-    return torch.from_numpy(boxes).to(device), torch.from_numpy(scores).to(device)
+    if kind == "chain":  # box k overlaps k + 1 at IoU 9/11, k + 2 at 8/12
+        x = np.arange(n * b, dtype=np.float32).reshape(b, n)
+        boxes = np.stack([x, 0 * x, x + 10, 0 * x + 10], -1).astype(np.float32)
+        scores = (1.0 - x / (2 * n)).astype(np.float32)
+        valid = np.ones((b, n), bool)
+    else:
+        x1 = rng.integers(0, extent, (b, n))
+        y1 = rng.integers(0, extent, (b, n))
+        w = rng.integers(0, 8, (b, n))  # w == 0: degenerate
+        h = rng.integers(0, 8, (b, n))
+        boxes = (np.stack([x1, y1, x1 + w, y1 + h], -1) * unit).astype(np.float32)
+        scores = rng.choice(np.linspace(0.05, 1.0, 40), (b, n)).astype(np.float32)
+        valid = rng.random((b, n)) >= 0.15
+        if kind == "tied":
+            scores[:] = np.float32(0.5)
+            valid[:] = True
+        elif kind == "invalid":
+            valid[:] = False
+        scores[~valid] = -np.inf
+    return (torch.from_numpy(boxes).to(device), torch.from_numpy(scores).to(device),
+            torch.from_numpy(valid).to(device))
 
 
 def roi_inputs(dtype, seed, device, b=12, hw=38, c=1024, r=300):
@@ -384,27 +414,46 @@ def calibrate_heads(radnet, canvases, gen):
         fit(head.dense_regress, feats, 0.5)
 
 
+def nms_checks(dev) -> float:
+    """Phase 3: the fused NMS against its plain version on the card: kept
+    sets, round counts and the packed relation all equal.  Returns the
+    largest kept-set difference (0)."""
+    import torch
+
+    from radnet_torch.ops import nms
+
+    nms_err = 0.0
+    for i, (b, n, thr, extent, unit, kind) in enumerate(NMS_CASES):
+        n = nms.MAX_N if n is None else n
+        boxes, scores, valid = nms_inputs(b, n, SEED + i, extent, unit, dev, kind)
+        kept, rounds, words = nms.nms_kept_cuda(boxes, scores, valid, thr, with_relation=True)
+        want_kept, want_rounds = nms.nms_kept_plain(boxes, scores, valid, thr)
+        dom = nms.dominates_plain(boxes, scores, thr) & valid[:, :, None] & valid[:, None, :]
+        want_words = nms.pack_relation(dom)
+        torch.cuda.synchronize()
+        kept_mism = int((kept != want_kept).sum())
+        rel_mism = int((words != want_words).sum())
+        nms_err = max(nms_err, float((kept.float() - want_kept.float()).abs().max()))
+        emit({"phase": "kernel1", "kind": kind, "shape": [b, n], "thresh": thr,
+              "kept_mismatches": kept_mism, "relation_word_mismatches": rel_mism,
+              "rounds": rounds.tolist(), "plain_rounds": want_rounds.tolist(),
+              "kept": int(kept.sum()), "valid": int(valid.sum()),
+              "relation_true_frac": float(dom.float().mean())})
+        check(kept_mism == 0, f"nms_fused kept set disagrees with its plain version ({kind}, {(b, n)})")
+        check(rel_mism == 0, f"nms_fused relation disagrees with dominates_plain ({kind}, {(b, n)})")
+        check(torch.equal(rounds, want_rounds), f"nms_fused rounds differ ({kind}, {(b, n)})")
+        del dom, want_words, words
+    return nms_err
+
+
 def kernel_checks(dev) -> dict:
     """Phases 3-5: every kernel against its plain version on the card."""
     import torch
 
     from radnet_torch.data.pipeline import preprocess_on_device
-    from radnet_torch.ops import grey_stem, nms, roi_align
+    from radnet_torch.ops import grey_stem, roi_align
 
-    errs = {}
-    # 3. kernel 1 vs plain: exact equality.
-    dom_err = 0.0
-    for i, (b, n, thr, extent, unit) in enumerate(NMS_CASES):
-        boxes, scores = nms_inputs(b, n, SEED + i, extent, unit, dev)
-        got = nms.dominates_cuda(boxes, scores, thr)
-        want = nms.dominates_plain(boxes, scores, thr)
-        torch.cuda.synchronize()
-        mism = int((got != want).sum())
-        dom_err = max(dom_err, float((got.float() - want.float()).abs().max()))
-        emit({"phase": "kernel1", "shape": [b, n], "thresh": thr, "mismatches": mism,
-              "true_frac": float(want.float().mean())})
-        check(mism == 0, f"nms_dominance disagrees with its plain version at {(b, n)}")
-    errs["nms_dominance"] = dom_err
+    errs = {"nms_fused": nms_checks(dev)}
 
     # 4. kernel 2 vs plain: f32 <= 1e-5 abs; bf16 within one bf16 ulp.
     for dtype in (torch.bfloat16, torch.float32):
@@ -486,15 +535,19 @@ def kernel_checks(dev) -> dict:
 
 
 def earlier_kernels() -> dict:
-    """The earlier designs of the RoI pool (one block per output cell) and the
-    grey stem (float32 products on the CUDA cores, a full centring map), kept
-    in radnet_torch/csrc/earlier/ to be timed beside the current kernels."""
+    """The earlier designs of the NMS (a byte relation in device memory), the
+    RoI pool (one block per output cell) and the grey stem (float32 products
+    on the CUDA cores, a full centring map), kept in radnet_torch/csrc/earlier/
+    to be timed beside the current kernels."""
     import ctypes
 
     from radnet_torch.ops.cuda_kernels import CudaKernel
 
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     return {
+        "nms_dominance": CudaKernel("earlier/nms_dominance.cu", "radnet_nms_dominance",
+                                    [ptr] * 3 + [i32, i32, ctypes.c_float],
+                                    extra_flags=("--fmad=false",)),
         "roi_pool": CudaKernel("earlier/roi_pool_per_cell.cu", "radnet_earlier_roi_pool",
                                [ptr] * 3 + [i32] * 8, extra_flags=("--fmad=false",)),
         "grey_stem": CudaKernel("earlier/grey_stem_scalar.cu", "radnet_earlier_grey_stem",
@@ -502,36 +555,148 @@ def earlier_kernels() -> dict:
     }
 
 
+def earlier_nms_kept(kernel, boxes, scores, valid, thresh):
+    """The whole earlier NMS call: the byte relation from the earlier kernel,
+    then Jacobi rounds on the host's loop, each ending in a device -> host
+    read of the convergence test."""
+    import ctypes
+
+    import torch
+
+    from radnet_torch.ops.cuda_kernels import ptr
+
+    b, n = scores.shape
+    dom = torch.empty((b, n, n), dtype=torch.uint8, device=boxes.device)
+    kernel.launch(ptr(boxes), ptr(scores), ptr(dom), b, n, ctypes.c_float(thresh))
+    dom = dom.view(torch.bool)
+    kept, rounds = valid, 0
+    while rounds < n:
+        new_kept = valid & ~(dom & kept[:, None, :]).any(dim=-1)
+        rounds += 1
+        changed = bool((new_kept != kept).any())  # device -> host sync
+        kept = new_kept
+        if not changed:
+            break
+    return kept
+
+
+def versus_earlier(kernel, boxes, scores, valid, thresh, kept) -> dict:
+    """The whole earlier NMS call on the same inputs: its time, its kernel's
+    device time, and whether its kept set equals ``kept``."""
+    import torch
+
+    def call():
+        return earlier_nms_kept(kernel, boxes, scores, valid, thresh)
+
+    return {"earlier_call_ms": time_cuda(call, iters=10),
+            "earlier_kernel_ms": device_ms(call, "dominance_kernel", iters=5),
+            "earlier_equal": bool(torch.equal(call(), kept))}
+
+
+def nms_work(boxes, scores, valid, rounds) -> tuple[float, float]:
+    """(bytes, operations) the NMS function needs on these inputs: it reads 21
+    bytes and writes one a candidate, and 4 a set; it tests every pair of
+    live candidates (valid, non-degenerate, a score that is not NaN) once, in
+    the direction of the higher score, at ~16 float operations, and each
+    round ANDs and ORs every row's N / 32 words."""
+    import torch
+
+    b, n = scores.shape
+    live = (valid & (boxes[..., 2] > boxes[..., 0]) & (boxes[..., 3] > boxes[..., 1])
+            & ~torch.isnan(scores)).sum(-1).double()
+    pairs = float((live * (live - 1) / 2).sum())
+    ops = 16.0 * pairs + 2.0 * float(rounds.double().sum()) * n * -(-n // 32)
+    return b * n * 22 + 4 * b, ops
+
+
+def timed(kernel_fn, symbol, plain_fn, n_bytes, n_ops, shape, ops_per_s=F32_OPS_PER_S) -> dict:
+    """A kernel's device time (profiler) and call time (CUDA events), its
+    plain version's time, and its bound on this card."""
+    call_ms = time_cuda(kernel_fn)
+    dev_ms = device_ms(kernel_fn, symbol)
+    bnd, by = bound_ms(n_bytes, n_ops, ops_per_s)
+    return {"shape": shape, "ms": dev_ms if dev_ms is not None else call_ms,
+            "call_ms": call_ms, "ms_source": "profiler" if dev_ms is not None else "cuda_events",
+            "plain_ms": time_cuda(plain_fn, iters=5), "bound_ms": bnd, "bound_by": by}
+
+
+def nms_timings(dev, err: float, earlier: dict) -> dict:
+    """Phase 6, kernel 1: the fused NMS at the proposal and per-class shapes,
+    beside the whole earlier call on the same inputs."""
+    from radnet_torch.ops import nms
+
+    nms_times = []
+    for i, (b, n, thr, extent, unit, kind) in enumerate(NMS_CASES[:2]):  # proposal, per-class
+        boxes, scores, valid = nms_inputs(b, n, SEED + i, extent, unit, dev, kind)
+        kept, rounds = nms.nms_kept_cuda(boxes, scores, valid, thr)
+        t = timed(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel",
+                  lambda: nms.nms_kept_plain(boxes, scores, valid, thr),
+                  *nms_work(boxes, scores, valid, rounds), [b, n])
+        t["rounds"] = rounds.tolist()
+        t.update(versus_earlier(earlier["nms_dominance"], boxes, scores, valid, thr, kept))
+        nms_times.append(t)
+        check(t["earlier_equal"], f"the earlier NMS call disagrees with nms_fused at {(b, n)}")
+    line = {"nms_fused": {
+        "name": "nms_fused", "route": "cuda", "source": "radnet_torch/csrc/nms_fused.cu",
+        "replaces": "radnet_tpu/ops/pallas_nms.py:31",
+        "replaces_also": "the Jacobi loop of radnet_tpu/ops/nms.py:151-162",
+        **nms_times[0], "library_ms": None, "max_abs_err": err,
+        "per_class_shape": nms_times[1],
+        "earlier_design": ("byte relation in device memory (radnet_torch/csrc/earlier/"
+                           "nms_dominance.cu) + Jacobi rounds on the host, each synced"),
+    }}
+    return line
+
+
+def nms_main_path(net, images, earlier: dict) -> dict:
+    """The fused NMS on the inputs the main path gives it: the proposal and
+    per-class NMS sets of one 12-tile batch, captured as the cascade calls
+    it, timed beside the whole earlier call on the same sets."""
+    import torch
+
+    from radnet_torch.ops import nms
+
+    captured, real = [], nms.nms_kept
+
+    def capture(boxes, scores, valid, thresh):
+        captured.append((boxes.clone(), scores.clone(), valid.clone(), thresh))
+        return real(boxes, scores, valid, thresh)
+
+    valid_wh = torch.full((len(images), 2), float(net.C.img_size), device=net.device)
+    nms.nms_kept = capture
+    try:
+        net._predict_tiles_impl(images, valid_wh)
+    finally:
+        nms.nms_kept = real
+    check(len(captured) == 2, f"one batch made {len(captured)} NMS calls, not 2")
+    out = {}
+    for site, (boxes, scores, valid, thr) in zip(("proposal", "per_class"), captured):
+        kept, rounds = nms.nms_kept_cuda(boxes, scores, valid, thr)
+        bnd, by = bound_ms(*nms_work(boxes, scores, valid, rounds))
+        out[site] = {
+            "shape": list(scores.shape), "thresh": thr, "valid": int(valid.sum()),
+            "kept": int(kept.sum()), "rounds_max": int(rounds.max()),
+            "ms": device_ms(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel"),
+            "call_ms": time_cuda(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr)),
+            "bound_ms": bnd, "bound_by": by,
+            **versus_earlier(earlier["nms_dominance"], boxes, scores, valid, thr, kept),
+        }
+        check(out[site]["earlier_equal"], f"the earlier NMS call disagrees on the main path's {site} sets")
+    emit({"phase": "nms_main_path", **out})
+    return out
+
+
 def timings(dev, errs: dict, earlier: dict) -> dict:
     """Phase 6: each kernel's time at the main path's shapes beside its bound,
-    its plain version, a library call and, for the RoI pool and the grey
-    stem, the earlier design on the same inputs."""
+    its plain version, a library call and the earlier design on the same
+    inputs."""
     import torch
 
     from radnet_torch.data.pipeline import preprocess_on_device
-    from radnet_torch.ops import grey_stem, nms, roi_align
+    from radnet_torch.ops import grey_stem, roi_align
     from radnet_torch.ops.cuda_kernels import ptr
 
-    def timed(kernel_fn, symbol, plain_fn, n_bytes, n_ops, shape, ops_per_s=F32_OPS_PER_S):
-        call_ms = time_cuda(kernel_fn)
-        dev_ms = device_ms(kernel_fn, symbol)
-        bnd, by = bound_ms(n_bytes, n_ops, ops_per_s)
-        return {"shape": shape, "ms": dev_ms if dev_ms is not None else call_ms,
-                "call_ms": call_ms, "ms_source": "profiler" if dev_ms is not None else "cuda_events",
-                "plain_ms": time_cuda(plain_fn, iters=5), "bound_ms": bnd, "bound_by": by}
-
-    dom_times = []
-    for i, (b, n, thr, extent, unit) in enumerate(NMS_CASES[:2]):  # proposal, per-class
-        boxes, scores = nms_inputs(b, n, SEED + i, extent, unit, dev)
-        dom_times.append(timed(
-            lambda: nms.dominates_cuda(boxes, scores, thr), "dominance_kernel",
-            lambda: nms.dominates_plain(boxes, scores, thr),
-            b * n * 20 + b * n * n, 16.0 * b * n * n, [b, n]))
-    line = {"nms_dominance": {
-        "name": "nms_dominance", "route": "cuda", "source": "radnet_torch/csrc/nms_dominance.cu",
-        "replaces": "radnet_tpu/ops/pallas_nms.py:31", **dom_times[0], "library_ms": None,
-        "max_abs_err": errs["nms_dominance"], "per_class_shape": dom_times[1],
-    }}
+    line = nms_timings(dev, errs["nms_fused"], earlier)
 
     fmap, rois = roi_inputs(torch.bfloat16, SEED, dev)
     b, hw, _, c = fmap.shape
@@ -632,6 +797,22 @@ class Stamped(io.StringIO):
         return super().write(s)
 
 
+def nms_round_counts() -> dict:
+    """The NMS calls since the last reset and their Jacobi rounds, read from
+    the round counts the kernel left on the card, after a synchronise:
+    ``nms_rounds`` sums the largest count of each call (the rounds a batched
+    host loop would have run), ``nms_set_rounds`` every set's own count."""
+    import torch
+
+    from radnet_torch.ops import nms
+
+    torch.cuda.synchronize()
+    calls, recent = nms.NMS_STATS["calls"], [r.cpu() for r in nms.RECENT_ROUNDS]
+    check(len(recent) == calls, f"{calls} NMS calls but {len(recent)} round counts kept")
+    return {"nms_calls": calls, "nms_rounds": sum(int(r.max()) for r in recent if len(r)),
+            "nms_set_rounds": sum(int(r.sum()) for r in recent)}
+
+
 def launch_counts() -> dict:
     from radnet_torch.ops import cuda_kernels
 
@@ -675,7 +856,8 @@ def serve_phase(tmp, cfg, device, kind, smi):
     decode_s = time.perf_counter() - t0
 
     cuda_kernels.reset_launch_counts()
-    nms.NMS_STATS.update(calls=0, rounds=0)
+    nms.NMS_STATS.update(calls=0)
+    nms.RECENT_ROUNDS.clear()
     out, err = Stamped(), Stamped(echo=sys.stderr)
     t0 = time.perf_counter()
     real_stderr, sys.stderr = sys.stderr, err
@@ -690,7 +872,7 @@ def serve_phase(tmp, cfg, device, kind, smi):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = launch_counts()
-    nms_stats = dict(nms.NMS_STATS)
+    nms_rounds = nms_round_counts()
     check(rc == 0, f"serve exited {rc}")
     recs = [json.loads(line) for line in out.getvalue().splitlines()]
     check([r.get("path") for r in recs] == paths, f"serve output out of order: {recs}")
@@ -708,8 +890,7 @@ def serve_phase(tmp, cfg, device, kind, smi):
           "sec_field": [r["sec"] for r in recs],
           "panels_per_s": len(recs) / results_s[-1],
           "result_s_after_ready": results_s, "serve_wall_s": serve_s,
-          "launches": launches, "nms_calls": nms_stats["calls"],
-          "nms_rounds": nms_stats["rounds"],
+          "launches": launches, **nms_rounds,
           "png_write_s": write_s / N_PANELS, "png_decode_filter0_s": decode_s})
     net = load_radnet(os.path.join(tmp, "models", "smoke"), device=device)
     return net, panel3, small, origins, launches
@@ -721,7 +902,7 @@ def stages_phase(net, panel3, small, origins, kind, smi):
     import torch
 
     from radnet_torch.data.png import decode_png
-    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.ops import cuda_kernels, nms
     from radnet_torch.ops.grey_stem import grey_stem, stem_geometry
 
     cfg, dev = net.C, net.device
@@ -760,27 +941,32 @@ def stages_phase(net, panel3, small, origins, kind, smi):
         ab[name].append(time_cuda(lambda: net._predict_tiles_impl(canv, valid_wh), iters=5, warmup=1))
     saved = launch_counts()
     cuda_kernels.reset_launch_counts()
+    nms.NMS_STATS.update(calls=0)
+    nms.RECENT_ROUNDS.clear()
     with count_flops(net.model) as flops:
         net._predict_tiles_impl(images, valid_wh)
     per_batch = launch_counts()
+    rounds_per_batch = nms_round_counts()
     for k in cuda_kernels.KERNELS:  # the main path's counts stay the reported ones
         k.launches = saved[k.name]
     ch, _ = stem_geometry(cfg.canvas_size)
     flops["stem"] = 2 * 49 * len(images) * ch * ch * 64
     prescale_ms = time_cuda(lambda: net._prescale_panel(panel3), iters=5, warmup=1)
     panel_wall_ms, panel_busy_ms = device_busy(lambda: net.predict([panel3]))
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     net._grey_channel(panel3)
     t1 = time.perf_counter()
     pending = net.predict_dispatch([panel3])
-    torch.cuda.synchronize()
     t2 = time.perf_counter()
-    net.predict_collect(pending)
+    torch.cuda.synchronize()
     t3 = time.perf_counter()
+    net.predict_collect(pending)
+    t4 = time.perf_counter()
+    # "dispatch" is the host's time to queue the panel; the card is still
+    # busy after it returns until "dispatch_until_card_done".
     host_ms = {"grey_check": (t1 - t0) * 1e3, "dispatch": (t2 - t1) * 1e3,
-               "collect": (t3 - t2) * 1e3}
-    flag = torch.zeros((12, 2048), dtype=torch.bool, device=dev)
-    sync_ms = time_cuda(lambda: bool((flag != flag).any()), iters=50)
+               "dispatch_until_card_done": (t3 - t1) * 1e3, "collect": (t4 - t3) * 1e3}
     paeth = paeth_png(1000, 1000)
     t0 = time.perf_counter()
     decode_png(paeth)
@@ -792,12 +978,41 @@ def stages_phase(net, panel3, small, origins, kind, smi):
           "tflop_per_s": {"stem": flops["stem"] / stage_ms["stem"] / 1e9,
                           "stages_2_4": flops["trunk"] / stage_ms["stages_2_4"] / 1e9,
                           "head": flops["head"] / stage_ms["roi_pool_head"] / 1e9},
-          "prescale_panel_ms": prescale_ms, "convergence_sync_ms": sync_ms,
+          "nms_per_batch": rounds_per_batch, "prescale_panel_ms": prescale_ms,
           "panel_predict_ms": panel_wall_ms, "panel_device_busy_ms": panel_busy_ms,
           "panel_device_idle_share": 1.0 - panel_busy_ms / panel_wall_ms,
           "panel_host_ms": host_ms,
           "png_decode_paeth_1000x1000_s": paeth_s})
     return images, per_batch
+
+
+def sync_free_phase(net, images, panel3):
+    """One 12-tile batch of the cascade, then one panel's predict_dispatch,
+    under torch.cuda.set_sync_debug_mode("error"): any operation that waits
+    for the card raises.  Each runs once before, so first-use constants
+    (kernel libraries, cached plans, pinned buffers) are built."""
+    import torch
+
+    valid_wh = torch.full((len(images), 2), float(net.C.img_size), device=net.device)
+    net._predict_tiles_impl(images, valid_wh)
+    net.predict_collect(net.predict_dispatch([panel3]))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        out = net._predict_tiles_impl(images, valid_wh)
+        t1 = time.perf_counter()
+        pending = net.predict_dispatch([panel3])
+        t2 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    dets = net.predict_collect(pending)
+    emit({"phase": "sync_free", "batch_queue_ms": (t1 - t0) * 1e3,
+          "panel_dispatch_queue_ms": (t2 - t1) * 1e3, "card_done_after_ms": (t3 - t0) * 1e3,
+          "batch_detections": int(out[2].sum()), "panel_detections": len(dets)})
+    check(len(dets) > 0, "the panel dispatched under the sync check found nothing")
 
 
 def predict_phase(tmp, net, kind, smi):
@@ -958,6 +1173,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         net, panel3, small, origins, launches = serve_phase(tmp, cfg, dev, kind, smi)
         images, per_batch = stages_phase(net, panel3, small, origins, kind, smi)
+        kernels_line["nms_fused"]["main_path_inputs"] = nms_main_path(net, images, earlier)
+        sync_free_phase(net, images, panel3)
         predict_phase(tmp, net, kind, smi)
 
     # 9. card vs CPU, float32, TF32 off.

@@ -1,3 +1,8 @@
+// The earlier design of the NMS (csrc/nms_fused.cu now): the (B, N, N) byte
+// relation in device memory, iterated by a host loop that synchronises every
+// round.  Not on any path of the package: chip_smoke.py builds it and times
+// the whole call it served beside the fused kernel on the same inputs.
+//
 // NMS dominance relation for the fixed-point NMS, written for Hopper (sm_90a).
 //
 // Replaces: radnet_tpu/ops/pallas_nms.py, _dominates_kernel / dominates_matrix.
@@ -24,7 +29,7 @@
 // (full 32-byte sectors).  The rounded division, the costliest step, runs
 // only for a pair that outranks and overlaps; any other pair's IoU is
 // exactly 0 or irrelevant.  Rows and columns past N are masked, so any N
-// works.  A bit-packed output and the Jacobi loop fused in are later work.
+// works.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

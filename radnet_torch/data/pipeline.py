@@ -11,6 +11,8 @@ OpenCV-``INTER_CUBIC`` bicubic (``ops/resize.py::resize_cubic_u8``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,8 +31,13 @@ def preprocess_on_device(images: torch.Tensor) -> torch.Tensor:
     canvases are taken as already centred."""
     if images.dtype != torch.uint8:
         return images.float()
-    mean = torch.from_numpy(IMAGENET_BGR_MEAN).to(images.device)
-    return images.float() - mean
+    return images.float() - _mean_on(images.device)
+
+
+@functools.lru_cache(maxsize=8)
+def _mean_on(device: torch.device) -> torch.Tensor:
+    """The BGR means, uploaded once per device (an upload waits for the card)."""
+    return torch.from_numpy(IMAGENET_BGR_MEAN).to(device)
 
 
 def _resize(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:

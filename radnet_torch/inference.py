@@ -91,8 +91,12 @@ class RADNet:
         # of the shortest-side path.
         self._anchor_cache: dict[tuple[int, int], torch.Tensor] = {}
         self._feat_anchors = self._anchors_for_canvas((config.canvas_size, config.canvas_size))
+        # Device constants of the cascade, uploaded once: an upload from
+        # pageable memory waits for the card, and the cascade never does.
         self._regr_std = torch.tensor(config.classifier_regr_std, dtype=torch.float32,
                                       device=self.device)
+        self._std_scaling = torch.tensor(config.std_scaling, dtype=torch.float32,
+                                         device=self.device)
 
     # ------------------------------------------------------------------ #
     # Host helpers.
@@ -180,7 +184,7 @@ class RADNet:
             feature_extent(valid_wh[:, 0], cfg.network),
             feature_extent(valid_wh[:, 1], cfg.network),
             self._feat_anchors if anchors is None else anchors,
-            std_scaling=cfg.std_scaling,
+            std_scaling=self._std_scaling,
             pre_nms_top_n=cfg.pre_nms_top_n,
             post_nms_top_n=cfg.post_nms_top_n,
             nms_thresh=cfg.rpn_nms_thresh,
@@ -333,6 +337,10 @@ class RADNet:
         sh = max(cfg.img_size, int(round(img.shape[0] * scale)))
         grey = self._grey_channel(img)
         src = torch.from_numpy(grey if grey is not None else np.ascontiguousarray(img))
+        if self.device.type == "cuda":
+            # Through pinned memory, so the upload does not wait for the card
+            # to finish the work queued before it.
+            src = src.pin_memory().to(self.device, non_blocking=True)
         small = resize_cubic_u8(src.to(self.device), sw, sh)
         return self._panel_bucket_pad(small, bucket=128), scale, sw, sh
 

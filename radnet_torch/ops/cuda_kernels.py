@@ -121,10 +121,10 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-NMS_DOMINANCE = CudaKernel(
-    "nms_dominance.cu",
-    "radnet_nms_dominance",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float],
+NMS_FUSED = CudaKernel(
+    "nms_fused.cu",
+    "radnet_nms_fused",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float],
     extra_flags=("--fmad=false",),
 )
 
@@ -142,7 +142,7 @@ GREY_STEM = CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
 )
 
-KERNELS = [NMS_DOMINANCE, ROI_POOL, GREY_STEM]
+KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
 
 
 def reset_launch_counts() -> None:

@@ -1,14 +1,17 @@
 """Fixed-point non-maximum suppression on the device, and the host merges.
 
 :func:`nms_fixed_point` computes greedy NMS (strict ``iou > thresh``) over a
-batch of candidate sets as a Jacobi iteration of
+batch of candidate sets from the kept set :func:`nms_kept` gives, the
+unique fixed point of
 
     kept[i] = valid[i] and no j with dominates[i, j] and kept[j]
 
-where ``dominates[i, j]`` says that candidate ``j`` outscores ``i`` (index
-as the tie-break) and overlaps it.  :func:`dominates` builds that relation:
-its plain version on CPU tensors, the hand-written kernel
-``csrc/nms_dominance.cu`` on CUDA tensors.
+where ``dominates[i, j]`` (:func:`dominates_plain`) says that candidate
+``j`` outscores ``i`` (index as the tie-break) and overlaps it.  On CPU
+tensors :func:`nms_kept_plain` builds the relation and Jacobi-iterates it
+from ``kept = valid``, at most ``N`` rounds, as the JAX package does; on
+CUDA tensors the hand-written kernel ``csrc/nms_fused.cu`` does both in one
+launch, with no device -> host sync.
 
 Score order follows ``jax.lax.top_k``: descending, ties by ascending index.
 ``torch.topk`` promises no tie order, so the port sorts stably instead.
@@ -19,6 +22,7 @@ the few hundred boxes of one panel.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -28,10 +32,14 @@ from radnet_torch.geometry import iou_matrix
 from radnet_torch.ops import cuda_kernels
 
 NEG_INF = float("-inf")
+MAX_N = 3584  # csrc/nms_fused.cu kMaxN: a set's relation fills a cluster of 8 blocks
 
-# Jacobi rounds of nms_fixed_point: every round ends in a device -> host
-# sync (the convergence test).  Reset and read by measurement scripts.
-NMS_STATS = {"calls": 0, "rounds": 0}
+# Measurement only: the NMS calls made, and the (B,) int32 round counts of the
+# last calls, left on their device.  Nothing on the main path reads them (a
+# read of a CUDA tensor would wait for the card); chip_smoke.py sums them
+# after its own synchronise.
+NMS_STATS = {"calls": 0}
+RECENT_ROUNDS: collections.deque = collections.deque(maxlen=256)
 
 
 def dominates_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float) -> torch.Tensor:
@@ -47,32 +55,90 @@ def dominates_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float
     return higher & overlap
 
 
-def dominates_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """Launch ``csrc/nms_dominance.cu``; same contract as :func:`dominates_plain`."""
-    if not (boxes.is_cuda and scores.is_cuda and boxes.device == scores.device):
-        raise ValueError("dominates_cuda needs both tensors on one CUDA device")
-    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
-        raise TypeError(f"dominates_cuda takes float32, not {boxes.dtype}/{scores.dtype}")
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
-        raise ValueError(f"shapes {tuple(boxes.shape)}, {tuple(scores.shape)}")
-    if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError("dominates_cuda needs contiguous (B, N, 4) boxes and (B, N) scores")
-    if boxes.data_ptr() % 16:
-        raise ValueError("dominates_cuda needs 16-byte aligned boxes")
+def nms_kept_plain(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                   iou_thresh: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kept set: ``(B, N, 4)`` boxes, ``(B, N)`` scores
+    and validity -> (kept ``(B, N)`` bool, Jacobi rounds ``(B,)`` int32).  A
+    set's rounds end at the first that changes nothing, or at ``N``."""
     b, n = scores.shape
-    out = torch.empty((b, n, n), dtype=torch.uint8, device=boxes.device)
-    cuda_kernels.NMS_DOMINANCE.launch(
-        cuda_kernels.ptr(boxes), cuda_kernels.ptr(scores), cuda_kernels.ptr(out),
-        b, n, ctypes.c_float(iou_thresh),
-    )
-    return out.view(torch.bool)
+    dom = dominates_plain(boxes, scores, iou_thresh)
+    kept = valid
+    rounds = torch.zeros(b, dtype=torch.int32, device=valid.device)
+    active = torch.ones(b, dtype=torch.bool, device=valid.device)
+    for _ in range(n):
+        new_kept = valid & ~(dom & kept[:, None, :]).any(dim=-1)
+        rounds += active
+        active &= (new_kept != kept).any(dim=-1)
+        kept = new_kept
+        if not bool(active.any()):
+            break
+    return kept, rounds
 
 
-def dominates(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """The dominance relation: plain version on CPU tensors, kernel on CUDA."""
+def nms_kept_cuda(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                  iou_thresh: float, *, with_relation: bool = False):
+    """Launch ``csrc/nms_fused.cu``; same contract as :func:`nms_kept_plain`.
+    ``with_relation`` also returns the relation as the kernel packed it,
+    ``(B, N, ceil(N / 32))`` int32 words (:func:`pack_relation`), on the
+    pairs of valid candidates (other rows and columns are zero)."""
+    tensors = (boxes, scores, valid)
+    if not all(t.is_cuda and t.device == boxes.device for t in tensors):
+        raise ValueError("nms_kept_cuda needs every tensor on one CUDA device")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"nms_kept_cuda takes float32, not {boxes.dtype}/{scores.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"valid must be bool, not {valid.dtype}")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2] \
+            or valid.shape != scores.shape:
+        raise ValueError(f"shapes {tuple(boxes.shape)}, {tuple(scores.shape)}, {tuple(valid.shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("nms_kept_cuda needs contiguous (B, N, 4) boxes and (B, N) scores, valid")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_kept_cuda needs 16-byte aligned boxes")
+    if not iou_thresh >= 0.0:
+        raise ValueError(f"nms_kept_cuda takes an IoU threshold >= 0, not {iou_thresh}")
+    b, n = scores.shape
+    if n > MAX_N or b > 65535:
+        raise ValueError(f"nms_kept_cuda takes up to {MAX_N} candidates a set and 65535 sets, "
+                         f"not {n} and {b}")
+    kept = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    rounds = torch.empty((b,), dtype=torch.int32, device=boxes.device)
+    relation = None
+    if with_relation:
+        relation = torch.zeros((b, n, -(-n // 32)), dtype=torch.int32, device=boxes.device)
+    if b and n:
+        cuda_kernels.NMS_FUSED.launch(
+            *(cuda_kernels.ptr(t) for t in (boxes, scores, valid, kept, rounds)),
+            ctypes.c_void_p(None if relation is None else relation.data_ptr()),
+            b, n, ctypes.c_float(iou_thresh),
+        )
+    return (kept, rounds, relation) if with_relation else (kept, rounds)
+
+
+def nms_kept(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_thresh: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kept set: plain version on CPU tensors, the kernel on CUDA."""
     if boxes.device.type == "cpu":
-        return dominates_plain(boxes, scores, iou_thresh)
-    return dominates_cuda(boxes, scores, iou_thresh)
+        return nms_kept_plain(boxes, scores, valid, iou_thresh)
+    return nms_kept_cuda(boxes, scores, valid, iou_thresh)
+
+
+def pack_relation(dom: torch.Tensor) -> torch.Tensor:
+    """``(B, N, N)`` bool -> ``(B, N, ceil(N / 32))`` int32 words: bit ``j %
+    32`` of word ``j // 32`` of row ``i`` is ``dom[b, i, j]``."""
+    b, n, _ = dom.shape
+    w = -(-n // 32)
+    bits = torch.zeros((b, n, w * 32), dtype=torch.int64, device=dom.device)
+    bits[..., :n] = dom.long()
+    words = (bits.view(b, n, w, 32) << torch.arange(32, device=dom.device)).sum(-1)
+    return (words - (words >= 2**31).long() * 2**32).int()
+
+
+def unpack_relation(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_relation`: ``(B, N, W)`` words -> ``(B, N, N)`` bool."""
+    shifts = torch.arange(32, device=words.device)
+    bits = (words.long()[..., None] >> shifts) & 1
+    return bits.flatten(-2)[..., :n].bool()
 
 
 def _sorted_desc(scores: torch.Tensor, k: int):
@@ -98,20 +164,9 @@ def nms_fixed_point(
     boxes = boxes.float().contiguous()
     s = torch.where(valid, scores.float(), torch.full_like(scores, NEG_INF, dtype=torch.float32))
     s = s.contiguous()
-    dom = dominates(boxes, s, iou_thresh)
-
-    kept = valid
-    rounds = 0
-    while rounds < n:
-        suppressed = (dom & kept[:, None, :]).any(dim=-1)
-        new_kept = valid & ~suppressed
-        rounds += 1
-        changed = bool((new_kept != kept).any())  # device -> host sync
-        kept = new_kept
-        if not changed:
-            break
+    kept, rounds = nms_kept(boxes, s, valid.contiguous(), iou_thresh)
     NMS_STATS["calls"] += 1
-    NMS_STATS["rounds"] += rounds
+    RECENT_ROUNDS.append(rounds)
 
     kept_scores = torch.where(kept, s, torch.full_like(s, NEG_INF))
     k = min(max_out, n)

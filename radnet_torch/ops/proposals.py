@@ -30,7 +30,7 @@ def decode_proposals(
     valid_fh: torch.Tensor,
     anchors_xywh: torch.Tensor,
     *,
-    std_scaling: float = 4.0,
+    std_scaling: float | torch.Tensor = 4.0,
     pre_nms_top_n: int = 1024,
     post_nms_top_n: int = 300,
     nms_thresh: float = 0.7,
@@ -43,12 +43,15 @@ def decode_proposals(
       valid_fw / valid_fh: ``(B,)`` int feature extent of the real image
         inside the padded canvas.
       anchors_xywh: ``(H, W, A, 4)`` anchor grid in feature units.
+      std_scaling: the regression divisor; the cascade passes a float32
+        tensor on the device, since a Python float is uploaded on every call
+        and the upload waits for the card.
     """
     b, feat_h, feat_w, num_anchors = rpn_cls.shape
     deltas = rpn_regr.float().reshape(b, feat_h, feat_w, num_anchors, 4)
     # A device tensor divisor: CUDA turns division by a Python scalar into a
     # multiply by its reciprocal, which rounds differently.
-    deltas = deltas / torch.tensor(std_scaling, dtype=torch.float32, device=deltas.device)
+    deltas = deltas / torch.as_tensor(std_scaling, dtype=torch.float32, device=deltas.device)
     boxes_xywh = decode_boxes(anchors_xywh, deltas, round_outputs=True)
 
     x, y, w, h = boxes_xywh.unbind(-1)

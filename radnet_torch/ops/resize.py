@@ -52,15 +52,21 @@ def _axis_plan(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
     return idx, _cubic_coeffs(frac)
 
 
+@functools.lru_cache(maxsize=32)
+def _device_plan(in_size: int, out_size: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_axis_plan` uploaded once per device: an upload from pageable
+    memory would wait for the card on every resize."""
+    return tuple(torch.from_numpy(a).to(device) for a in _axis_plan(in_size, out_size))
+
+
 def resize_cubic_u8(img: torch.Tensor, out_w: int, out_h: int) -> torch.Tensor:
     """Resize a uint8 ``(H, W)`` or ``(H, W, C)`` tensor to ``(out_h, out_w[,
     C])`` on the tensor's device."""
     if img.dtype != torch.uint8:
         raise TypeError(f"resize_cubic_u8 takes uint8, not {img.dtype}")
     h, w = img.shape[:2]
-    dev = img.device
-    xi, xw = (torch.from_numpy(a).to(dev) for a in _axis_plan(w, out_w))
-    yi, yw = (torch.from_numpy(a).to(dev) for a in _axis_plan(h, out_h))
+    xi, xw = _device_plan(w, out_w, img.device)
+    yi, yw = _device_plan(h, out_h, img.device)
     x = img.float()
     extra = (1,) * (img.dim() - 2)
     tmp = x[:, xi[:, 0]] * xw[:, 0].view(1, -1, *extra)

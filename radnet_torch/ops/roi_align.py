@@ -16,21 +16,30 @@ and the kernel (``csrc/roi_pool.cu``) on CUDA tensors.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from radnet_torch.ops import cuda_kernels
 
 
+@functools.lru_cache(maxsize=16)
+def _sample_grid(pool_size: int, center_stride: int, device: torch.device) -> torch.Tensor:
+    """The ``(P,)`` sample grid of the crop, uploaded once per device: an
+    upload from pageable memory would wait for the card on every call."""
+    # Divided on the host: on a CUDA tensor, division by a Python scalar is a
+    # multiply by its reciprocal, which rounds differently.
+    virtual = np.float32(pool_size * center_stride)
+    grid = (np.arange(pool_size, dtype=np.float32) * np.float32(center_stride) + np.float32(0.5)) / virtual
+    return torch.from_numpy(grid).to(device)
+
+
 def _sample_centers(origin: torch.Tensor, size: torch.Tensor, pool_size: int,
                     extent: int, center_stride: int = 1) -> torch.Tensor:
     """Clamped half-pixel sample centres along one axis: ``(..., P)``."""
     s = size.clamp_min(1.0)
-    # The grid is divided on the host: on a CUDA tensor, division by a
-    # Python scalar is a multiply by its reciprocal, which rounds differently.
-    virtual = np.float32(pool_size * center_stride)
-    grid = (np.arange(pool_size, dtype=np.float32) * np.float32(center_stride) + np.float32(0.5)) / virtual
-    grid = torch.from_numpy(grid).to(origin.device)
+    grid = _sample_grid(pool_size, center_stride, origin.device)
     c = origin[..., None] + (grid * s[..., None] - 0.5).clamp_min(0.0)
     c = torch.minimum(c, (origin + s - 1.0)[..., None])
     return c.clamp(0.0, extent - 1.0)

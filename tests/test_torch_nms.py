@@ -49,7 +49,7 @@ def test_dominates_plain_equals_jax_relation(n, thresh):
     s = np.where(valid, scores, -np.inf).astype(np.float32)
     want = np.stack([np.asarray(_jax_relation(jnp.asarray(b), jnp.asarray(x), thresh))
                      for b, x in zip(boxes, s)])
-    got = tnms.dominates(torch.from_numpy(boxes), torch.from_numpy(s), thresh).numpy()
+    got = tnms.dominates_plain(torch.from_numpy(boxes), torch.from_numpy(s), thresh).numpy()
     assert got.dtype == np.bool_ and got.shape == (3, n, n)
     np.testing.assert_array_equal(got, want)
 
