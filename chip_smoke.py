@@ -53,9 +53,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
   9. card/CPU   one 2-tile batch of the cascade in float32 (TF32 off) on the
                 card and on the CPU, grey canvases (the grey stem) and the
                 same canvases as 3 channels: the detection sets must match.
+ 10. kernel 4   (phase kernel2_backward, run beside kernels 1-3) the RoI-pool
+                backward kernel vs roi_pool_backward_plain at (8, 20) and
+                (12, 300) RoIs on a 38 x 38 x 1024 map, random and edge RoIs,
+                bf16 and f32, both strides: f32 within 1e-5 of the largest
+                magnitude (atomics reorder the sums), bf16 within one bf16
+                ulp of the float32 result (or 1e-6 of the largest); and
+                torch.autograd.gradcheck of the plain pool in float64;
+ 11. train      six synthetic 2400 x 2400 grey panels with train.csv and
+                val.csv; radnet_torch.cli.train at the default config (2
+                epochs of 16 steps, validation, --allow-random-init), then
+                cli.cont_train (1 epoch of 8 steps, trunk trainable), then
+                load_radnet(...).predict on a panel: record.csv has 3 rows,
+                the checkpoints and model.pt exist, and each run launched one
+                NMS and one RoI forward per step or validation batch, and the
+                backward once per trainable step (never when frozen);
+ 12. train_step ms per step and the card's busy share over 10 steps, frozen
+                and trainable, peak memory, the host's samples/s, and each
+                kernel at the train step's shapes (library: F.grid_sample and
+                its backward);
+ 13. train_sync_free  one train step under set_sync_debug_mode("error");
+ 14. learning   60 steps on one fixed batch, photometric augmentation off:
+                the mean loss of the last 10 below that of the first 5;
+ 15. train_card_vs_cpu  one float32 step (TF32 off, batch 2, trunk
+                trainable) on the card and the CPU with the same weights and
+                draws: losses within 1e-4 relative, updates within 1e-4 of
+                the largest.
 
-The last lines are the kernels JSON line, the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+The last lines are the kernels JSON line (four kernels; launches over each
+kernel's main path: the served run, or cont_train for the backward), the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -110,6 +137,38 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def roi_forward_error(got, ref, dtype) -> tuple[bool, float, str]:
+    """(within tolerance, max abs error, tolerance) of the RoI-pool kernel's
+    output against its plain version's float32 ``ref``: f32 1e-5 abs, bf16
+    one ulp."""
+    import torch
+
+    err = (got.float() - ref).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if dtype == torch.float32:
+        return max_err <= 1e-5, max_err, "1e-5 abs"
+    ulps = float((err / bf16_ulp(ref)).max()) if err.numel() else 0.0
+    return ulps <= 1.0, max_err, f"1 bf16 ulp (max {ulps:.3f} ulp)"
+
+
+def roi_backward_error(got, ref, dtype) -> tuple[bool, float, float, float, str]:
+    """(within tolerance, max abs error, max abs error of the float32 sums,
+    largest magnitude, tolerance) of the backward kernel's float32 map
+    gradient ``got`` against the plain version's ``ref``: f32 1e-5 of the
+    largest magnitude (atomics reorder the sums); bf16 one ulp of the float32
+    result after the one cast autograd makes."""
+    import torch
+
+    top = float(ref.abs().max())
+    err32 = float((got - ref).abs().max())
+    if dtype == torch.float32:
+        return err32 <= 1e-5 * top, err32, err32, top, "1e-5 of the largest magnitude"
+    e = (got.to(dtype).float() - ref).abs()
+    ok = bool((e <= torch.clamp(bf16_ulp(ref), min=1e-6 * top)).all())
+    return (ok, float(e.max()), err32, top,
+            "1 bf16 ulp of the float32 result (at least 1e-6 of the largest)")
+
+
 def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of ``fn()`` over ``iters`` CUDA-event pairs."""
     import torch
@@ -152,6 +211,24 @@ def device_ms(fn, symbol: str, iters: int = 20) -> float | None:
         if count:
             return total_us / count / 1e3
     return None
+
+
+def call_device_ms(fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: every kernel it launches (a
+    library call's fills included), summed from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / iters / 1e3
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -464,21 +541,15 @@ def kernel_checks(dev) -> dict:
                 ref = roi_align.roi_pool_plain(fmap.float(), rois, pool_size=7,
                                                center_stride=stride)
                 torch.cuda.synchronize()
-                err = (got.float() - ref).abs()
-                max_err = float(err.max())
-                if dtype == torch.float32:
-                    ok, tol = max_err <= 1e-5, "1e-5 abs"
-                else:
-                    ulps = float((err / bf16_ulp(ref)).max())
-                    ok, tol = ulps <= 1.0, f"1 bf16 ulp (max {ulps:.3f} ulp)"
-                    if stride == 2 and case == "random":
-                        errs["roi_pool"] = max_err
+                ok, max_err, tol = roi_forward_error(got, ref, dtype)
+                if dtype == torch.bfloat16 and stride == 2 and case == "random":
+                    errs["roi_pool"] = max_err
                 emit({"phase": "kernel2", "rois": case, "shape": list(got.shape),
                       "dtype": str(dtype), "center_stride": stride, "max_abs_err": max_err,
-                      "tolerance": tol, "exact": bool(err.max() == 0)})
+                      "tolerance": tol, "exact": max_err == 0})
                 check(ok, f"roi_pool disagrees with its plain version ({case}, {dtype}, "
                           f"stride {stride})")
-                del fmap, got, ref, err
+                del fmap, got, ref
 
     # 5. kernel 3 vs plain, then vs the 3-channel stem it replaces.
     w, bias, bn = stem_params(SEED)
@@ -813,10 +884,10 @@ def nms_round_counts() -> dict:
             "nms_set_rounds": sum(int(r.sum()) for r in recent)}
 
 
-def launch_counts() -> dict:
+def launch_counts(kernels=None) -> dict:
     from radnet_torch.ops import cuda_kernels
 
-    return {k.name: k.launches for k in cuda_kernels.KERNELS}
+    return {k.name: k.launches for k in (kernels or cuda_kernels.KERNELS)}
 
 
 def serve_phase(tmp, cfg, device, kind, smi):
@@ -871,7 +942,7 @@ def serve_phase(tmp, cfg, device, kind, smi):
         sys.stderr = real_stderr
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts(cuda_kernels.SERVING_KERNELS)
     nms_rounds = nms_round_counts()
     check(rc == 0, f"serve exited {rc}")
     recs = [json.loads(line) for line in out.getvalue().splitlines()]
@@ -945,7 +1016,7 @@ def stages_phase(net, panel3, small, origins, kind, smi):
     nms.RECENT_ROUNDS.clear()
     with count_flops(net.model) as flops:
         net._predict_tiles_impl(images, valid_wh)
-    per_batch = launch_counts()
+    per_batch = launch_counts(cuda_kernels.SERVING_KERNELS)
     rounds_per_batch = nms_round_counts()
     for k in cuda_kernels.KERNELS:  # the main path's counts stay the reported ones
         k.launches = saved[k.name]
@@ -1038,7 +1109,7 @@ def predict_phase(tmp, net, kind, smi):
                            "--scan-data-path", scan, "--device", str(net.device)])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = launch_counts(cuda_kernels.SERVING_KERNELS)
     check(rc == 0, f"predict exited {rc}")
     with open(os.path.join(scan, "arrays", "predictions.json")) as f:
         preds = json.load(f)
@@ -1135,6 +1206,492 @@ def card_vs_cpu_phase(net, images, dev):
         check(unmatched <= 0.05 * pooled, f"{name}: {unmatched} of {pooled} detections unmatched card vs CPU")
 
 
+# --------------------------------------------------------------------------- #
+# Training: the backward kernel, the CLIs, per-step numbers, learning.
+# --------------------------------------------------------------------------- #
+TRAIN_PANEL = 2400
+FG_CLASSES = ["boat", "human", "other", "animal", "circle", "wheel"]
+# (B, R) of the backward checks: the train step's RoI sample, the cascade's.
+BACKWARD_CASES = [(8, 20), (12, 300)]
+
+
+def roi_backward_inputs(dtype, seed, device, b, r, kind, hw=38, c=1024):
+    """A pooled-cell gradient and RoIs, random or at the edges (tile 0 of the
+    edge set: near the whole map; 1: single pixels; 2: zero sizes; 3: one
+    RoI repeated, so every cell's taps collide)."""
+    import torch
+
+    _, rois = roi_inputs(dtype, seed, device, b=b, hw=hw, c=8, r=r)
+    if kind == "edges":
+        _, edge = roi_edge_inputs(dtype, seed, device, hw=hw, c=8, r=r)
+        rois = edge.repeat((b + 3) // 4, 1, 1)[:b].contiguous()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randn((b, r, 7, 7, c), generator=gen, device=device)
+    return g.to(dtype), rois
+
+
+def roi_backward_checks(dev) -> float:
+    """Phase kernel2_backward: csrc/roi_pool_backward.cu against
+    roi_pool_backward_plain, and gradcheck of the plain pool in float64.
+    Returns the largest error at the train step's shape, bf16."""
+    import torch
+
+    from radnet_torch.ops import roi_align
+
+    err_main = 0.0
+    for b, r in BACKWARD_CASES:
+        for kind, seed in (("random", 2), ("edges", 3)):
+            for dtype in (torch.bfloat16, torch.float32):
+                g, rois = roi_backward_inputs(dtype, SEED + seed, dev, b, r, kind)
+                for stride in (2, 1):
+                    got = roi_align.roi_pool_backward_cuda(g, rois, (38, 38), pool_size=7,
+                                                           center_stride=stride)
+                    ref = roi_align.roi_pool_backward_plain(g.float(), rois, (38, 38), pool_size=7,
+                                                            center_stride=stride)
+                    torch.cuda.synchronize()
+                    ok, err, err32, top, tol = roi_backward_error(got, ref, dtype)
+                    if (b, r, kind, dtype, stride) == (8, 20, "random", torch.bfloat16, 2):
+                        err_main = err
+                    emit({"phase": "kernel2_backward", "shape": [b, 38, 38, 1024, r, 7],
+                          "rois": kind, "dtype": str(dtype), "center_stride": stride,
+                          "max_abs_err": err, "max_abs_err_float32_sums": err32, "largest": top,
+                          "tolerance": tol})
+                    check(ok, f"roi_pool_backward disagrees with its plain version "
+                              f"({b}, {r}, {kind}, {dtype}, stride {stride})")
+                    del got, ref
+    fm = torch.randn(2, 6, 6, 3, dtype=torch.float64, device=dev, requires_grad=True)
+    rois = torch.tensor([[[0, 0, 6, 6], [1, 2, 3, 1], [5, 5, 0, 0]],
+                         [[2, 1, 4, 4], [0, 3, 6, 2], [1, 1, 1, 1]]], dtype=torch.float32, device=dev)
+    ok = torch.autograd.gradcheck(
+        lambda x: roi_align.roi_pool_plain(x, rois, pool_size=3, center_stride=2), (fm,),
+        eps=1e-6, atol=1e-7)
+    emit({"phase": "kernel2_backward_gradcheck", "dtype": "float64", "rois": 6, "ok": bool(ok)})
+    check(ok, "gradcheck of roi_pool_plain failed")
+    return err_main
+
+
+def synthetic_training_panel(seed: int, n_figures: int = 7):
+    """A 2400 x 2400 grey panel of dark rock with filled figures of 300-1200
+    px (90-360 px at the 0.3 tile scale, where the 64-512 anchors are), and
+    their boxes, one class each in turn."""
+    rng = np.random.default_rng(seed)
+    s = TRAIN_PANEL
+    img = rng.integers(20, 60, (s // 4, s // 4), dtype=np.uint8)
+    img = np.repeat(np.repeat(img, 4, axis=0), 4, axis=1)
+    yy, xx = np.mgrid[0:s, 0:s]
+    boxes = []
+    for k in range(n_figures):
+        bw, bh = rng.integers(300, 1200, 2)
+        x, y = int(rng.integers(0, s - bw)), int(rng.integers(0, s - bh))
+        level = int(rng.integers(110, 250))
+        if k % 2:  # an ellipse filling its box
+            inside = (((xx[y:y + bh, x:x + bw] - x - bw / 2) / (bw / 2)) ** 2
+                      + ((yy[y:y + bh, x:x + bw] - y - bh / 2) / (bh / 2)) ** 2) <= 1.0
+            img[y:y + bh, x:x + bw][inside] = level
+        else:
+            img[y:y + bh, x:x + bw] = level
+        boxes.append((x, y, x + int(bw), y + int(bh), FG_CLASSES[(seed + k) % len(FG_CLASSES)]))
+    return img, boxes
+
+
+def write_training_set(root: str, n_train: int = 4, n_val: int = 2) -> None:
+    """data/{train,val}/<img type>/panel*.png and data/{train,val}.csv."""
+    import csv
+
+    from radnet_torch.data.png import write_png
+
+    for split, n, base in (("train", n_train, 100), ("val", n_val, 200)):
+        folder = os.path.join(root, "data", split, "enhanced_topo_grey")
+        os.makedirs(folder, exist_ok=True)
+        rows = []
+        for k in range(n):
+            img, boxes = synthetic_training_panel(SEED + base + k)
+            write_png(os.path.join(folder, f"panel{k}.png"), img)
+            rows += [[f"panel{k}.png", cls, x1, y1, x2, y2] for x1, y1, x2, y2, cls in boxes]
+        with open(os.path.join(root, "data", f"{split}.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["img_path", "label", "xmin", "ymin", "xmax", "ymax"])
+            w.writerows(rows)
+
+
+def train_phase(tmp: str, dev, smi) -> dict:
+    """Phase train: radnet_torch.cli.train (2 epochs of 16 steps, with
+    validation) and cli.cont_train (1 epoch of 8 steps, trunk trainable) at
+    the default config, then load_radnet on the directory they wrote."""
+    import csv
+
+    import torch
+
+    from radnet_torch.cli import cont_train, train
+    from radnet_torch.data.png import read_png
+    from radnet_torch.engine import steps as engine_steps
+    from radnet_torch.inference import load_radnet
+    from radnet_torch.ops import cuda_kernels, nms
+
+    t0 = time.perf_counter()
+    write_training_set(tmp)
+    write_s = time.perf_counter() - t0
+    d = os.path.join(tmp, "data")
+    common = ["--device", str(dev), "--models-path", os.path.join(tmp, "train_models"),
+              "--train-annot", os.path.join(d, "train.csv"), "--train-data", os.path.join(d, "train"),
+              "--val-annot", os.path.join(d, "val.csv"), "--val-data", os.path.join(d, "val")]
+    # The CLIs import the step factories when they run: wrap them to count
+    # the train and validation batches that fit drives.
+    calls = {"train_step": 0, "eval_step": 0}
+    real = (engine_steps.make_train_step, engine_steps.make_eval_step)
+
+    def counting(make, key):
+        def made(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def step(*a, **kw):
+                calls[key] += 1
+                return fn(*a, **kw)
+            return step
+        return made
+
+    out = {}
+    for name, fn, argv, steps, epochs in (
+            ("train", train.main, ["--model-name", "smoke", "--allow-random-init",
+                                   "--epoch-length", "16", "--n-epochs", "2"], 32, 2),
+            ("cont_train", cont_train.main, ["--model-name", "faster_rcnn_resnet50_smoke",
+                                             "--epoch-length", "8", "--n-epochs", "1"], 8, 1)):
+        cuda_kernels.reset_launch_counts()
+        nms.NMS_STATS.update(calls=0)
+        calls.update(train_step=0, eval_step=0)
+        engine_steps.make_train_step = counting(real[0], "train_step")
+        engine_steps.make_eval_step = counting(real[1], "eval_step")
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                rc = fn(common + argv)
+        finally:
+            engine_steps.make_train_step, engine_steps.make_eval_step = real
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0, "steps": steps, "epochs": epochs, "rc": rc,
+                     "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
+                     "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"]}
+        check(rc == 0, f"{name} exited {rc}")
+    model_dir = os.path.join(tmp, "train_models", "faster_rcnn_resnet50_smoke")
+    with open(os.path.join(model_dir, "record.csv"), newline="") as f:
+        record = list(csv.DictReader(f))
+    files = {n: os.path.exists(os.path.join(model_dir, n))
+             for n in ("ckpt_best/train_state.pt", "ckpt_last/train_state.pt", "model.pt",
+                       "config.json", "metrics.jsonl")}
+    net = load_radnet(model_dir, device=dev)
+    panel = read_png(os.path.join(d, "val", "enhanced_topo_grey", "panel0.png"))
+    dets = net.predict([panel])
+    emit({"phase": "train", "nvidia_smi": smi, "panel": TRAIN_PANEL, "write_s": write_s,
+          **out, "record_rows": len(record),
+          "record_total_loss": [r["total_loss"] for r in record],
+          "record_val_total_loss": [r["val_total_loss"] for r in record],
+          "files": files, "predict_detections": len(dets)})
+    check(len(record) == 3, f"record.csv has {len(record)} rows, not 3")
+    check(all(files.values()), f"missing outputs: {files}")
+    for name in ("train", "cont_train"):
+        o, launches = out[name], out[name]["launches"]
+        val = o["val_batches_run"]
+        check(o["train_steps_run"] == o["steps"],
+              f"{name}: fit ran {o['train_steps_run']} train steps, not {o['steps']}")
+        check(val >= o["epochs"] and val % o["epochs"] == 0,
+              f"{name}: {val} validation batches over {o['epochs']} epochs")
+        # Exactly one proposal NMS and one RoI-pool forward a step, train or eval.
+        want = o["steps"] + val
+        check(o["nms_calls"] == want and launches["nms_fused"] == want,
+              f"{name}: {o['nms_calls']} NMS calls, {launches['nms_fused']} launches for "
+              f"{o['steps']} steps + {val} validation batches")
+        check(launches["roi_pool"] == want,
+              f"{name}: {launches['roi_pool']} RoI-pool launches for {o['steps']} steps + "
+              f"{val} validation batches")
+    check(out["train"]["launches"]["roi_pool_backward"] == 0,
+          "the frozen-trunk run launched the backward kernel")
+    check(out["cont_train"]["launches"]["roi_pool_backward"] == 8,
+          f"cont_train launched the backward kernel "
+          f"{out['cont_train']['launches']['roi_pool_backward']} times in 8 steps")
+    return out
+
+
+def training_batch(tmp: str, cfg, dev, n_samples: int = 64):
+    """The host's samples/s from parallel_sample_generator alone (warm tile
+    caches), and one batch of ``cfg.batch_size`` on ``dev``."""
+    from radnet_torch.data.dataset import get_data
+    from radnet_torch.data.pipeline import batch_samples, parallel_sample_generator, upload_batch
+
+    d = os.path.join(tmp, "data")
+    data, class_count, _ = get_data(os.path.join(d, "train.csv"), os.path.join(d, "train"),
+                                    cfg.img_types)
+    gen = parallel_sample_generator(data, cfg, class_count, cfg.class_mapping, num_workers=4, seed=5)
+    for _ in range(16):
+        next(gen)
+    t0 = time.perf_counter()
+    for _ in range(n_samples):
+        next(gen)
+    samples_per_s = n_samples / (time.perf_counter() - t0)
+    batch = upload_batch(batch_samples([next(gen) for _ in range(cfg.batch_size)]), dev)
+    gen.close()
+    return batch, samples_per_s
+
+
+def captured_kernel_inputs(step, batch, draws):
+    """One train step with the kernels' wrappers wrapped: the NMS, RoI-pool
+    forward and backward inputs the main path gives them."""
+    from radnet_torch.ops import nms, roi_align
+
+    got = {}
+    real = (nms.nms_kept, roi_align.roi_pool_cuda, roi_align.roi_pool_backward_cuda)
+
+    def nms_kept(boxes, scores, valid, thresh):
+        got["nms"] = (boxes.clone(), scores.clone(), valid.clone(), thresh)
+        return real[0](boxes, scores, valid, thresh)
+
+    def fwd(fmap, rois, **kw):
+        got["fwd"] = (fmap.clone(), rois.clone(), kw)
+        return real[1](fmap, rois, **kw)
+
+    def bwd(g, rois, hw, **kw):
+        got["bwd"] = (g.clone(), rois.clone(), hw, kw)
+        return real[2](g, rois, hw, **kw)
+
+    nms.nms_kept, roi_align.roi_pool_cuda, roi_align.roi_pool_backward_cuda = nms_kept, fwd, bwd
+    try:
+        step(batch, draws)
+    finally:
+        nms.nms_kept, roi_align.roi_pool_cuda, roi_align.roi_pool_backward_cuda = real
+    return got
+
+
+def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs) -> dict:
+    """Phase train_step: ms per step and the card's busy share over 10
+    steps, frozen and trainable trunk; peak memory; the host's samples/s;
+    each kernel on the inputs one train step gave it, held against its plain
+    version (NMS kept sets and rounds equal, the RoI pool and its backward
+    within their kernel2 / kernel2_backward tolerances) and timed beside its
+    bound, its plain version and a library call.  Returns kernel-line
+    entries."""
+    import torch
+
+    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.ops import nms, roi_align
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    per_trunk, captured = {}, None
+    for trainable in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(cfg, torch.Generator().manual_seed(SEED), dev,
+                                   base_net_trainable=trainable)
+        step = make_train_step(state, cfg, trunk_trainable=trainable)
+        draws = [draw_step(gen, cfg, cfg.batch_size, dev) for _ in range(10)]
+        count = [0]
+
+        def one():
+            count[0] += 1
+            return step(batch, draws[count[0] % 10])
+
+        ms = time_cuda(one, iters=10, warmup=2)
+        wall_ms, busy_ms = device_busy(lambda: [one() for _ in range(10)])
+        per_trunk["trainable" if trainable else "frozen"] = {
+            "ms_per_step": ms, "steps_per_s": 1e3 / ms, "samples_per_s": cfg.batch_size * 1e3 / ms,
+            "wall_ms_10_steps": wall_ms, "busy_ms_10_steps": busy_ms,
+            "busy_share": busy_ms / wall_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        if trainable:
+            captured = captured_kernel_inputs(step, batch, draws[0])
+        del state, step, draws
+    emit({"phase": "train_step", "nvidia_smi": smi, "batch": cfg.batch_size,
+          "canvas": cfg.canvas_size, "dtype": cfg.compute_dtype, **per_trunk,
+          "host_samples_per_s": samples_per_s,
+          "host_vs_card": ("host" if samples_per_s < per_trunk["frozen"]["samples_per_s"]
+                           else "card") + " sets the pace (frozen trunk)"})
+
+    # Each kernel against its plain version on the inputs the train step gave it.
+    boxes, scores, valid, thr = captured["nms"]
+    kept, rounds = nms.nms_kept_cuda(boxes, scores, valid, thr)
+    want_kept, want_rounds = nms.nms_kept_plain(boxes, scores, valid, thr)
+    kept_mism = int((kept != want_kept).sum())
+    bnd, by = bound_ms(*nms_work(boxes, scores, valid, rounds))
+    nms_train = {"shape": list(scores.shape), "thresh": thr, "valid": int(valid.sum()),
+                 "kept": int(kept.sum()), "rounds_max": int(rounds.max()),
+                 "kept_mismatches": kept_mism, "rounds_equal": bool(torch.equal(rounds, want_rounds)),
+                 "max_abs_err": float((kept.float() - want_kept.float()).abs().max()),
+                 "ms": device_ms(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel"),
+                 "plain_ms": time_cuda(lambda: nms.nms_kept_plain(boxes, scores, valid, thr), iters=3),
+                 "bound_ms": bnd, "bound_by": by}
+
+    fmap, rois, kw = captured["fwd"]
+    ok_fwd, fwd_err, fwd_tol = roi_forward_error(
+        roi_align.roi_pool_cuda(fmap, rois, **kw),
+        roi_align.roi_pool_plain(fmap.float(), rois, **kw), fmap.dtype)
+    b, hw, _, c = fmap.shape
+    r, p, elt = rois.shape[1], kw["pool_size"], fmap.element_size()
+    grid = grid_sample_centres(rois, p, kw["center_stride"], hw).to(fmap.dtype)
+    fmap_nchw = fmap.permute(0, 3, 1, 2)
+    bnd, by = bound_ms(b * hw * hw * c * elt + b * r * 16 + b * r * p * p * c * elt,
+                       9.0 * b * r * p * p * c)
+    fwd_train = {"shape": [b, hw, hw, c, r, p], "dtype": str(fmap.dtype),
+                 "max_abs_err": fwd_err, "tolerance": fwd_tol,
+                 "ms": device_ms(lambda: roi_align.roi_pool_cuda(fmap, rois, **kw), "roi_pool_kernel"),
+                 "plain_ms": time_cuda(lambda: roi_align.roi_pool_plain(fmap, rois, **kw), iters=5),
+                 "library_ms": call_device_ms(lambda: torch.nn.functional.grid_sample(
+                     fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+                 "bound_ms": bnd, "bound_by": by}
+
+    g, brois, map_hw, bkw = captured["bwd"]
+    ok_bwd, bwd_err, _, _, bwd_tol = roi_backward_error(
+        roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw),
+        roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw), g.dtype)
+    gb = g.permute(0, 4, 1, 2, 3).reshape(b, c, r * p, p).contiguous()  # grid_sample's layout
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(gb, fmap_nchw, grid, 0, 1, True, [True, False])
+
+    bnd, by = bound_ms(g.numel() * g.element_size() + b * r * 16 + b * hw * hw * c * elt,
+                       10.0 * b * r * p * p * c)
+    bwd = {
+        "name": "roi_pool_backward", "route": "cuda", "source": "radnet_torch/csrc/roi_pool_backward.cu",
+        "replaces": "radnet_tpu/ops/roi_align.py:121 (XLA autodiff of roi_pool_matmul; no Pallas kernel)",
+        "shape": [b, hw, hw, c, r, p],
+        "ms": device_ms(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw),
+                        "roi_pool_backward_kernel"),
+        "call_ms": time_cuda(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw)),
+        "call_device_ms": call_device_ms(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw)),
+        "plain_ms": time_cuda(lambda: roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw), iters=5),
+        "library_ms": call_device_ms(library),
+        "library": ("torch.ops.aten.grid_sampler_2d_backward (F.grid_sample's backward), same "
+                    "shape; device ms of every kernel it launches"),
+        "bound_ms": bnd, "bound_by": by, "max_abs_err": errs["roi_pool_backward"],
+        "max_abs_err_train_step_inputs": bwd_err, "tolerance": bwd_tol,
+        "bound_bytes_note": "reads the bf16 cell gradient once, writes the map's gradient once in bf16",
+        "bound_ms_float32_accumulator": bound_ms(g.numel() * g.element_size() + b * r * 16
+                                                 + b * hw * hw * c * 4, 0)[0],
+    }
+    emit({"phase": "train_kernels", "nms_fused": nms_train, "roi_pool": fwd_train,
+          "roi_pool_backward": bwd})
+    check(kept_mism == 0 and nms_train["rounds_equal"],
+          f"nms_fused disagrees with its plain version on the train step's sets "
+          f"({kept_mism} kept mismatches, rounds equal: {nms_train['rounds_equal']})")
+    check(ok_fwd, f"roi_pool disagrees with its plain version on the train step's inputs "
+                  f"({fwd_err}, {fwd_tol})")
+    check(ok_bwd, f"roi_pool_backward disagrees with its plain version on the train step's "
+                  f"inputs ({bwd_err}, {bwd_tol})")
+    return {"nms_fused": nms_train, "roi_pool": fwd_train, "roi_pool_backward": bwd,
+            "train_step": per_trunk}
+
+
+def train_sync_free_phase(batch, cfg, dev) -> None:
+    """Phase train_sync_free: one train step (draws, augmentation, targets,
+    both losses, backward, Adam) queued under set_sync_debug_mode("error"),
+    trunk trainable, after one step that builds the first-use constants."""
+    import torch
+
+    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.train_state import create_train_state
+
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), dev, base_net_trainable=True)
+    step = make_train_step(state, cfg, trunk_trainable=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    step(batch, draw_step(gen, cfg, cfg.batch_size, dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        metrics = step(batch, draw_step(gen, cfg, cfg.batch_size, dev))
+        t1 = time.perf_counter()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    total = float(metrics["total_loss"])
+    emit({"phase": "train_sync_free", "queue_ms": (t1 - t0) * 1e3, "card_done_after_ms": (t2 - t0) * 1e3,
+          "total_loss": total})
+    check(np.isfinite(total), "the sync-free step's loss is not finite")
+
+
+def learning_phase(batch, cfg, dev, n_steps: int = 60, lr: float = 1e-5) -> dict:
+    """Phase learning: one fixed batch, photometric augmentation off, trunk
+    frozen, ``n_steps`` Adam steps from the seeded init with calibrated
+    output layers; the mean total loss of the last 10 steps must be below
+    the mean of the first 5."""
+    import torch
+
+    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model, init_weights
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = init_weights(build_model(cfg), gen)
+    calibrate_heads(RADNet(cfg, model, device=dev), batch["image"][:2], gen)
+    state = create_train_state(cfg, gen, dev, learning_rate=lr, model=model)
+    step = make_train_step(state, cfg)
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+    totals = torch.stack([step(batch, draw_step(dgen, cfg, batch["image"].shape[0], dev,
+                                                photometric=False))["total_loss"]
+                          for _ in range(n_steps)]).cpu().tolist()
+    first, last = float(np.mean(totals[:5])), float(np.mean(totals[-10:]))
+    emit({"phase": "learning", "steps": n_steps, "lr": lr, "total_loss": totals,
+          "mean_first_5": first, "mean_last_10": last, "ratio": last / first})
+    check(last < first, f"no learning on a fixed batch: {first} -> {last}")
+    return {"mean_first_5": first, "mean_last_10": last}
+
+
+def train_card_vs_cpu_phase(batch, base, dev) -> dict:
+    """Phase train_card_vs_cpu: one float32 train step (TF32 off, trunk
+    trainable, brightness only) on the card and on the CPU from the same
+    weights and the same StepDraws: the four losses within 1e-4 relative,
+    and the parameter updates within 1e-4 of the largest update.  The step
+    updates with plain SGD here, so an update is lr times the gradient:
+    Adam's first update is lr * sign(g) for any gradient above 1e-8, which
+    would turn elements whose gradient is float32 noise into full-size
+    differences (Adam itself is held against optax on the CPU,
+    tests/test_torch_train_step.py)."""
+    import torch
+
+    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model, init_weights
+
+    cfg = dataclasses.replace(base, compute_dtype="float32", batch_size=2, use_noise=False)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = init_weights(build_model(cfg), gen)
+    small = {k: v[:2] for k, v in batch.items()}
+    calibrate_heads(RADNet(cfg, model.to(dev), device=dev), small["image"], gen)
+    weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    draws = draw_step(torch.Generator().manual_seed(SEED + 2), cfg, 2, "cpu")
+    torch.set_num_threads(os.cpu_count() or 1)
+    out = []
+    for where in (torch.device(dev), torch.device("cpu")):
+        m = build_model(cfg)
+        m.load_state_dict(weights)
+        state = create_train_state(cfg, gen, where, base_net_trainable=True, model=m)
+        state.optimizer = torch.optim.SGD([p for p in m.parameters() if p.requires_grad], lr=1e-3)
+        step = make_train_step(state, cfg, trunk_trainable=True)
+        t0 = time.perf_counter()
+        metrics = step({k: v.to(where) for k, v in small.items()}, draws.to(where))
+        after = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
+        out.append(({k: float(v) for k, v in metrics.items()}, after, time.perf_counter() - t0))
+    (m_gpu, p_gpu, s_gpu), (m_cpu, p_cpu, s_cpu) = out
+    loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                for k in ("loss_rpn_cls", "loss_rpn_regr", "loss_detector_cls", "loss_detector_regr")}
+    upd_gpu = {k: p_gpu[k] - weights[k] for k in p_gpu}
+    upd_cpu = {k: p_cpu[k] - weights[k] for k in p_cpu}
+    largest = max(float(u.abs().max()) for u in upd_cpu.values())
+    worst = max(float((upd_gpu[k] - upd_cpu[k]).abs().max()) for k in upd_cpu)
+    n_beyond = sum(int(((upd_gpu[k] - upd_cpu[k]).abs() > 1e-4 * largest).sum()) for k in upd_cpu)
+    n_params = sum(u.numel() for u in upd_cpu.values())
+    emit({"phase": "train_card_vs_cpu", "dtype": "float32", "tf32": False, "batch": 2,
+          "losses_card": m_gpu, "losses_cpu": m_cpu, "loss_rel_err": loss_rel,
+          "largest_update": largest, "max_update_diff": worst,
+          "max_update_diff_over_largest": worst / largest,
+          "n_beyond_1e-4_of_largest": n_beyond, "n_params": n_params,
+          "card_s": s_gpu, "cpu_s": s_cpu})
+    check(max(loss_rel.values()) <= 1e-4, f"card vs CPU losses differ: {loss_rel}")
+    check(worst <= 1e-4 * largest, f"card vs CPU updates differ by {worst} (largest {largest})")
+    return {"loss_rel_err": loss_rel, "max_update_diff_over_largest": worst / largest}
+
+
 def main() -> int:
     import torch
 
@@ -1166,6 +1723,7 @@ def main() -> int:
 
     # 3-6. kernels against their plain versions, then timed.
     errs = kernel_checks(dev)
+    errs["roi_pool_backward"] = roi_backward_checks(dev)
     kernels_line = timings(dev, errs, earlier)
 
     # 7-8. the main path through serve, per-stage times, then predict.
@@ -1179,10 +1737,29 @@ def main() -> int:
 
     # 9. card vs CPU, float32, TF32 off.
     card_vs_cpu_phase(net, images, dev)
+    del net, images
 
+    # 10-14. training: the CLIs, per-step numbers, sync-free, learning, card vs CPU.
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_phase(tmp, dev, smi)
+        batch, samples_per_s = training_batch(tmp, cfg, dev)
+    train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs)
+    train_sync_free_phase(batch, cfg, dev)
+    learning_phase(batch, cfg, dev)
+    train_card_vs_cpu_phase(batch, cfg, dev)
+
+    kernels_line["roi_pool_backward"] = train_k["roi_pool_backward"]
+    kernels_line["nms_fused"]["train_step_shape"] = train_k["nms_fused"]
+    kernels_line["roi_pool"]["train_step_shape"] = train_k["roi_pool"]
     for k in kernels_line.values():
-        k["launches"] = launches[k["name"]]
-        k["launches_per_batch"] = per_batch[k["name"]]
+        name = k["name"]
+        k["launches_train"] = trained["train"]["launches"][name]
+        k["launches_cont_train"] = trained["cont_train"]["launches"][name]
+        if name in launches:  # the served run is the serving kernels' main path
+            k["launches"] = launches[name]
+            k["launches_per_batch"] = per_batch[name]
+    # The backward's main path is the trainable-trunk run of cont_train.
+    kernels_line["roi_pool_backward"]["launches"] = trained["cont_train"]["launches"]["roi_pool_backward"]
     print(json.dumps({"kernels": list(kernels_line.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,11 @@
-"""Shared CLI helpers: the model directory and detection drawing."""
+"""Shared CLI helpers: the model directory, detection drawing, and the
+training CLIs' shared flags, data and pipelines."""
 
 from __future__ import annotations
 
+import argparse
 import os
+import random
 
 import numpy as np
 
@@ -41,3 +44,74 @@ def draw_detections(img: np.ndarray, detections, color=(255, 255, 255)) -> np.nd
     for d in detections:
         draw_rectangle(img, d["x1"], d["y1"], d["x2"], d["y2"], color, 8)
     return img
+
+
+_NAME_WORDS = [
+    "Aurora", "Basalt", "Cairn", "Dolmen", "Ember", "Fjord", "Granite",
+    "Heather", "Inlet", "Juniper", "Kelp", "Lichen", "Menhir", "Njord",
+    "Ochre", "Petroglyph", "Quartz", "Runestone", "Skerry", "Tanum",
+    "Umber", "Vitlycke", "Wheel", "Yarrow", "Zephyr",
+]
+
+
+def silly_name_gen(rng: random.Random | None = None) -> str:
+    rng = rng or random.Random()
+    return "_".join(rng.choice(_NAME_WORDS) for _ in range(2))
+
+
+def add_training_args(p: argparse.ArgumentParser, *, seed: int, n_epochs: int, lr: float) -> None:
+    """The flags ``cli.train`` and ``cli.cont_train`` share."""
+    p.add_argument("--seed", type=int, default=seed)
+    p.add_argument("--models-path", default="models")
+    p.add_argument("--train-annot", default="data/train.csv")
+    p.add_argument("--train-data", default="data/train")
+    p.add_argument("--val-annot", default="data/val.csv")
+    p.add_argument("--val-data", default="data/val")
+    p.add_argument("--epoch-length", type=int, default=173, help="steps per epoch")
+    p.add_argument("--n-epochs", type=int, default=n_epochs)
+    p.add_argument("--no-validation", action="store_true")
+    p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--lr", type=float, default=lr)
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="not ported: multi-device training (ROADMAP Queue 1 item 13)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="not ported: multi-device training (ROADMAP Queue 1 item 13)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; without a card pass --device cpu)")
+
+
+def refuse_unported(args) -> None:
+    if args.n_devices not in (None, 1) or args.model_parallel != 1:
+        raise SystemExit("--n-devices / --model-parallel: multi-device training is not ported "
+                         "yet (ROADMAP Queue 1 item 13)")
+
+
+def training_data(args, config):
+    """(train data, class counts, val data or None) from the annotation CSVs."""
+    from radnet_torch.data.dataset import get_data
+
+    data_train, class_count, _ = get_data(args.train_annot, args.train_data, config.img_types)
+    data_val = None
+    if not args.no_validation:
+        data_val, _, _ = get_data(args.val_annot, args.val_data, config.img_types)
+    return data_train, class_count, data_val
+
+
+def training_pipelines(args, config, data_train, class_count, data_val, device):
+    """(train batches on ``device``, a factory of one validation pass or None)."""
+    from radnet_torch.data.pipeline import (batched, parallel_sample_generator,
+                                            prefetch_to_device, tile_sample_generator)
+
+    samples = parallel_sample_generator(data_train, config, class_count, config.class_mapping,
+                                        num_workers=args.num_workers, seed=args.seed)
+    train_batches = prefetch_to_device(
+        batched(samples, config.batch_size, config, drop_remainder=True), device)
+    if data_val is None:
+        return train_batches, None
+
+    def val_factory():
+        val = tile_sample_generator(data_val, config, class_count, config.class_mapping,
+                                    train_mode=False, seed=args.seed)
+        return prefetch_to_device(batched(val, config.batch_size, config), device)
+
+    return train_batches, val_factory

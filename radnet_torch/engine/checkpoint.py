@@ -1,0 +1,98 @@
+"""Checkpoints of the whole training state, written with ``torch.save``.
+
+A checkpoint directory (``ckpt_best`` or ``ckpt_last``) holds one file,
+``train_state.pt``: the step, the model's state_dict (parameters and frozen
+statistics), the Adam state and the best-loss watermark, so ``cont_train``
+resumes exactly.  The file is written beside and renamed into place, so a
+crash mid-save keeps the previous checkpoint.  Every save of ``ckpt_best``
+also writes the model directory's ``model.pt`` (float32 state_dict), which
+``load_radnet`` and the serve and predict CLIs read.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import torch
+
+from radnet_torch.engine.train_state import TrainState
+
+STATE_FILE = "train_state.pt"
+
+
+def _clone(obj):
+    """A copy of every tensor in a nested dict/list, on its device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(v) for v in obj)
+    return obj
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def snapshot(state: TrainState, best_total_loss: float) -> dict[str, Any]:
+    """The checkpoint tree, copied on the device: training may go on
+    updating ``state`` while the copy is written."""
+    return {
+        "step": state.step,
+        "model": _clone(state.model.state_dict()),
+        "optimizer": _clone(state.optimizer.state_dict()),
+        "best_total_loss": float(best_total_loss),
+    }
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = path + ".new"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_checkpoint_tree(path: str, tree: dict[str, Any], model_pt: str | None = None) -> None:
+    """Write a :func:`snapshot` under the directory ``path`` (and the model's
+    float32 weights to ``model_pt``)."""
+    tree = _to_cpu(tree)
+    os.makedirs(path, exist_ok=True)
+    _atomic_save(tree, os.path.join(path, STATE_FILE))
+    if model_pt is not None:
+        _atomic_save({k: v.float() for k, v in tree["model"].items()}, model_pt)
+
+
+def _load(path: str) -> dict[str, Any]:
+    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+
+
+def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, float]:
+    """Load a checkpoint into ``state`` (same model and trainable set);
+    raises ``ValueError`` when the optimizer's partition differs."""
+    tree = _load(path)
+    saved = tree["optimizer"]["param_groups"][0]["params"]
+    ours = state.optimizer.state_dict()["param_groups"][0]["params"]
+    if len(saved) != len(ours):
+        raise ValueError(f"checkpoint optimizer holds {len(saved)} parameters, "
+                         f"this partition {len(ours)}")
+    state.model.load_state_dict(tree["model"])
+    lrs = [g["lr"] for g in state.optimizer.param_groups]
+    state.optimizer.load_state_dict(tree["optimizer"])
+    for g, lr in zip(state.optimizer.param_groups, lrs):  # the moments resume, not the rate
+        g["lr"] = lr
+    state.step = int(tree["step"])
+    return state, float(tree["best_total_loss"])
+
+
+def restore_params_only(path: str, state: TrainState) -> TrainState:
+    """Load the model's parameters and statistics, keeping the fresh
+    optimizer: the resume for a changed trainability partition."""
+    state.model.load_state_dict(_load(path)["model"])
+    return state

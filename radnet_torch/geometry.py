@@ -60,6 +60,31 @@ def decode_boxes(
     return out.float()
 
 
+def encode_boxes(anchors_xyxy: torch.Tensor, gt_xyxy: torch.Tensor) -> torch.Tensor:
+    """Regression targets ``(tx, ty, tw, th)`` of ``gt`` against ``anchors``:
+    centre offset over the anchor size, log of the size ratio.  Shapes
+    broadcast; a non-positive anchor size divides by 1 and a ground-truth
+    size is floored at ``1e-6`` (callers mask those rows)."""
+    a = anchors_xyxy.float()
+    g = gt_xyxy.float()
+    aw = a[..., 2] - a[..., 0]
+    ah = a[..., 3] - a[..., 1]
+    acx = (a[..., 0] + a[..., 2]) / 2.0
+    acy = (a[..., 1] + a[..., 3]) / 2.0
+    gw = g[..., 2] - g[..., 0]
+    gh = g[..., 3] - g[..., 1]
+    gcx = (g[..., 0] + g[..., 2]) / 2.0
+    gcy = (g[..., 1] + g[..., 3]) / 2.0
+    one = torch.ones((), device=a.device)
+    aw_safe = torch.where(aw > 0, aw, one)
+    ah_safe = torch.where(ah > 0, ah, one)
+    tx = (gcx - acx) / aw_safe
+    ty = (gcy - acy) / ah_safe
+    tw = torch.log(gw.clamp_min(EPS) / aw_safe)
+    th = torch.log(gh.clamp_min(EPS) / ah_safe)
+    return torch.stack([tx, ty, tw, th], dim=-1)
+
+
 def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
     x1, y1, x2, y2 = boxes.unbind(-1)
     return torch.stack([x1, y1, x2 - x1, y2 - y1], dim=-1)

@@ -1,0 +1,74 @@
+"""Detection losses, with the masks and packing of the training targets.
+
+* ``y_rpn_cls``  = cat([is_valid (A), overlap (A)]) on the channel axis;
+* ``y_rpn_regr`` = cat([overlap repeated 4 times (4A), targets * std (4A)]);
+* ``y_det_cls``  = one-hot over ``n_classes`` (background last);
+* ``y_det_regr`` = cat([labels (4K), coords * std (4K)]), K = n_classes - 1.
+
+Every loss is a masked sum over the mask's sum plus ``1e-4`` per element,
+with weights 1.0, in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+EPSILON = 1e-4
+
+
+def _smooth_l1(x: torch.Tensor) -> torch.Tensor:
+    """0.5 x^2 for |x| <= 1, else |x| - 0.5."""
+    x_abs = x.abs()
+    return torch.where(x_abs <= 1.0, 0.5 * x * x, x_abs - 0.5)
+
+
+def _masked_mean(num: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return num.sum() / (EPSILON + mask).sum()
+
+
+def rpn_loss_regr(y_true: torch.Tensor, y_pred: torch.Tensor, num_anchors: int) -> torch.Tensor:
+    """Masked smooth-L1 over the RPN regression channels: ``y_true`` (B, H,
+    W, 8A), ``y_pred`` (B, H, W, 4A)."""
+    mask = y_true[..., : 4 * num_anchors]
+    target = y_true[..., 4 * num_anchors:]
+    return _masked_mean(mask * _smooth_l1(target - y_pred.float()), mask)
+
+
+def rpn_loss_cls(y_true: torch.Tensor, y_pred: torch.Tensor, num_anchors: int) -> torch.Tensor:
+    """Masked binary cross-entropy over RPN objectness: ``y_true`` (B, H, W,
+    2A), ``y_pred`` (B, H, W, A) after the sigmoid."""
+    valid = y_true[..., :num_anchors]
+    label = y_true[..., num_anchors:]
+    p = y_pred.float().clamp(1e-7, 1.0 - 1e-7)
+    bce = -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
+    return _masked_mean(valid * bce, valid)
+
+
+def class_loss_regr(y_true: torch.Tensor, y_pred: torch.Tensor, num_classes: int,
+                    roi_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked smooth-L1 over the per-class detector regression: ``y_true``
+    (B, R, 8K), K = ``num_classes`` foreground classes; ``roi_mask`` (B, R)."""
+    mask = y_true[..., : 4 * num_classes]
+    target = y_true[..., 4 * num_classes:]
+    if roi_mask is not None:
+        mask = mask * roi_mask[..., None]
+    return _masked_mean(mask * _smooth_l1(target - y_pred.float()), mask)
+
+
+def class_loss_cls(y_true: torch.Tensor, y_pred: torch.Tensor,
+                   roi_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Categorical cross-entropy over RoIs, ``y_pred`` after the softmax."""
+    p = y_pred.float().clamp(1e-7, 1.0)
+    ce = -(y_true * torch.log(p)).sum(-1)  # (B, R)
+    if roi_mask is None:
+        return ce.mean()
+    return (ce * roi_mask).sum() / (roi_mask.sum() + EPSILON)
+
+
+def detector_accuracy(y_true: torch.Tensor, y_pred: torch.Tensor,
+                      roi_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Share of RoIs whose most probable class is the labelled one."""
+    hit = (torch.argmax(y_pred, dim=-1) == torch.argmax(y_true, dim=-1)).float()
+    if roi_mask is None:
+        return hit.mean()
+    return (hit * roi_mask).sum() / (roi_mask.sum() + EPSILON)

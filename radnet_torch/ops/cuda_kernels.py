@@ -42,8 +42,10 @@ def _nvcc() -> str:
 class CudaKernel:
     """One ``.cu`` source, its C entry point and its launch count."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list, extra_flags: tuple = ()):
+    def __init__(self, source: str, symbol: str, argtypes: list, extra_flags: tuple = (),
+                 headers: tuple = ()):
         self.source = source
+        self.headers = tuple(headers)  # files of csrc/ the source includes
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # the stream last
         self.flags = ARCH_FLAGS + BASE_FLAGS + list(extra_flags)
@@ -57,7 +59,8 @@ class CudaKernel:
 
     def lib_path(self) -> Path:
         digest = hashlib.sha256(
-            (CSRC / self.source).read_bytes() + " ".join(self.flags).encode()
+            b"".join((CSRC / f).read_bytes() for f in (self.source, *self.headers))
+            + " ".join(self.flags).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"{self.name}-{digest}.so"
 
@@ -134,6 +137,7 @@ ROI_POOL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_int] * 8,
     extra_flags=("--fmad=false",),
+    headers=("roi_taps.cuh",),
 )
 
 GREY_STEM = CudaKernel(
@@ -142,7 +146,18 @@ GREY_STEM = CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
 )
 
-KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
+ROI_POOL_BACKWARD = CudaKernel(
+    "roi_pool_backward.cu",
+    "radnet_roi_pool_backward",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 8,
+    extra_flags=("--fmad=false",),
+    headers=("roi_taps.cuh",),
+)
+
+KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD]
+# The kernels the serving cascade launches; training adds the backward.
+SERVING_KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
 
 
 def reset_launch_counts() -> None:

@@ -11,7 +11,11 @@ The weight of feature row ``h`` for centre ``c`` is ``relu(1 - |c - h|)``,
 the profile of the matmul form ``Ry @ F @ Rx^T``; it is nonzero on at most
 two rows and two columns, so both the plain version and the CUDA kernel read
 four taps.  :func:`batched_roi_pool` runs the plain version on CPU tensors
-and the kernel (``csrc/roi_pool.cu``) on CUDA tensors.
+(native autograd) and, on CUDA tensors, :class:`RoIPoolFunction`: the
+forward kernel (``csrc/roi_pool.cu``) and, for the gradient, the backward
+kernel (``csrc/roi_pool_backward.cu``), which scatters each pooled cell's
+gradient to its four taps with the same weights.  The RoIs get no gradient:
+they come from proposals that carry none.
 """
 
 from __future__ import annotations
@@ -56,17 +60,15 @@ def _taps(c: torch.Tensor, extent: int):
 
 def roi_pool_plain(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: int,
                    center_stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch RoI pooling, float32 arithmetic, output in fmap's type."""
+    """Plain PyTorch RoI pooling, float32 arithmetic (float64 for a float64
+    map), output in fmap's type."""
     b, h_map, w_map, c = fmap.shape
     r = rois_xywh.shape[1]
     p = pool_size
-    rois = rois_xywh.float()
-    sy = _sample_centers(rois[..., 1], rois[..., 3], p, h_map, center_stride)  # (B, R, P)
-    sx = _sample_centers(rois[..., 0], rois[..., 2], p, w_map, center_stride)
-    y0, y1, wy0, wy1 = _taps(sy, h_map)
-    x0, x1, wx0, wx1 = _taps(sx, w_map)
+    (y0, y1, wy0, wy1), (x0, x1, wx0, wx1) = _tap_weights(rois_xywh, h_map, w_map, p,
+                                                           center_stride)  # each (B, R, P)
 
-    flat = fmap.reshape(b, h_map * w_map, c).float()
+    flat = fmap.reshape(b, h_map * w_map, c).to(torch.promote_types(fmap.dtype, torch.float32))
     bidx = torch.arange(b, device=fmap.device)[:, None, None, None]
 
     def gather(yi, xi):  # (B, R, P) rows x (B, R, P) cols -> (B, R, P, P, C)
@@ -117,9 +119,94 @@ def roi_pool_cuda(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: int
     return out
 
 
+def _tap_weights(rois_xywh: torch.Tensor, h_map: int, w_map: int, pool_size: int,
+                 center_stride: int):
+    rois = rois_xywh.float()
+    sy = _sample_centers(rois[..., 1], rois[..., 3], pool_size, h_map, center_stride)
+    sx = _sample_centers(rois[..., 0], rois[..., 2], pool_size, w_map, center_stride)
+    return _taps(sy, h_map), _taps(sx, w_map)
+
+
+def roi_pool_backward_plain(grad_out: torch.Tensor, rois_xywh: torch.Tensor,
+                            map_hw: tuple[int, int], *, pool_size: int,
+                            center_stride: int = 1) -> torch.Tensor:
+    """Gradient of RoI pooling with respect to the map: ``(B, R, P, P, C)``
+    -> float32 ``(B, H, W, C)``, an ``index_add_`` of each cell's gradient
+    times its tap weights into the cell's four taps.  Per cell ``g``:
+    ``wy0 * (wx0 * g)`` goes to (y0, x0), ``wy1 * (wx0 * g)`` to (y1, x0),
+    ``wy0 * (wx1 * g)`` to (y0, x1) and ``wy1 * (wx1 * g)`` to (y1, x1)."""
+    b, r, p, _, c = grad_out.shape
+    h_map, w_map = map_hw
+    (y0, y1, wy0, wy1), (x0, x1, wx0, wx1) = _tap_weights(rois_xywh, h_map, w_map, p,
+                                                           center_stride)
+    g = grad_out.float()
+    gx0 = wx0[:, :, None, :, None] * g  # (B, R, P, P, C): rows py, columns px
+    gx1 = wx1[:, :, None, :, None] * g
+    base = (torch.arange(b, device=g.device) * (h_map * w_map))[:, None, None, None]
+    out = torch.zeros((b * h_map * w_map, c), dtype=torch.float32, device=g.device)
+    for yi, wy in ((y0, wy0), (y1, wy1)):
+        for xi, gx in ((x0, gx0), (x1, gx1)):
+            idx = base + yi[:, :, :, None] * w_map + xi[:, :, None, :]  # (B, R, P, P)
+            out.index_add_(0, idx.reshape(-1), (wy[:, :, :, None, None] * gx).reshape(-1, c))
+    return out.reshape(b, h_map, w_map, c)
+
+
+def roi_pool_backward_cuda(grad_out: torch.Tensor, rois_xywh: torch.Tensor,
+                           map_hw: tuple[int, int], *, pool_size: int,
+                           center_stride: int = 1) -> torch.Tensor:
+    """Launch ``csrc/roi_pool_backward.cu``; same contract as
+    :func:`roi_pool_backward_plain` (float32 out)."""
+    if not (grad_out.is_cuda and rois_xywh.is_cuda and grad_out.device == rois_xywh.device):
+        raise ValueError("roi_pool_backward_cuda needs both tensors on one CUDA device")
+    if grad_out.dtype not in _DTYPE_CODE:
+        raise TypeError(f"roi_pool_backward_cuda takes float32 or bfloat16 gradients, "
+                        f"not {grad_out.dtype}")
+    if rois_xywh.dtype != torch.float32:
+        raise TypeError(f"rois must be float32, not {rois_xywh.dtype}")
+    if grad_out.dim() != 5 or rois_xywh.dim() != 3 or rois_xywh.shape[-1] != 4 \
+            or grad_out.shape[:2] != rois_xywh.shape[:2] or grad_out.shape[2:4] != (pool_size,) * 2:
+        raise ValueError(f"shapes {tuple(grad_out.shape)}, {tuple(rois_xywh.shape)}, P = {pool_size}")
+    if not (grad_out.is_contiguous() and rois_xywh.is_contiguous()):
+        raise ValueError("roi_pool_backward_cuda needs contiguous gradients and rois")
+    b, r, p, _, c = grad_out.shape
+    if grad_out.data_ptr() % 16 or (c * grad_out.element_size()) % 16:
+        raise ValueError(f"roi_pool_backward_cuda needs 16-byte aligned gradients in whole "
+                         f"16-byte channel vectors, not C = {c} of {grad_out.dtype}")
+    if not 1 <= pool_size <= MAX_POOL_SIZE:
+        raise ValueError(f"roi_pool_backward_cuda takes 1 to {MAX_POOL_SIZE} cells a side")
+    h, w = map_hw
+    out = torch.zeros((b, h, w, c), dtype=torch.float32, device=grad_out.device)
+    cuda_kernels.ROI_POOL_BACKWARD.launch(
+        cuda_kernels.ptr(grad_out), cuda_kernels.ptr(rois_xywh), cuda_kernels.ptr(out),
+        b, h, w, c, r, pool_size, center_stride, _DTYPE_CODE[grad_out.dtype],
+    )
+    return out
+
+
+class RoIPoolFunction(torch.autograd.Function):
+    """RoI pooling on CUDA tensors: the forward kernel, and the backward
+    kernel for the map's gradient, cast once to the map's type."""
+
+    @staticmethod
+    def forward(ctx, fmap, rois_xywh, pool_size: int, center_stride: int):
+        ctx.save_for_backward(rois_xywh)
+        ctx.geometry = (fmap.shape[1], fmap.shape[2], fmap.dtype, pool_size, center_stride)
+        return roi_pool_cuda(fmap, rois_xywh, pool_size=pool_size, center_stride=center_stride)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (rois,) = ctx.saved_tensors
+        h, w, dtype, p, stride = ctx.geometry
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = roi_pool_backward_cuda(grad_out.to(dtype).contiguous(), rois, (h, w),
+                                          pool_size=p, center_stride=stride).to(dtype)
+        return grad, None, None, None
+
+
 def batched_roi_pool(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: int,
                      center_stride: int = 1) -> torch.Tensor:
-    """RoI pooling: the plain version for CPU tensors, the kernel for CUDA."""
+    """RoI pooling: the plain version for CPU tensors, the kernels for CUDA."""
     if fmap.device.type == "cpu":
         return roi_pool_plain(fmap, rois_xywh, pool_size=pool_size, center_stride=center_stride)
-    return roi_pool_cuda(fmap, rois_xywh, pool_size=pool_size, center_stride=center_stride)
+    return RoIPoolFunction.apply(fmap, rois_xywh, pool_size, center_stride)

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise:
-no JAX, flax, OpenCV, PIL or radnet_tpu import in radnet_torch or
-chip_smoke.py; entry points default to CUDA and raise without a card; the
-serving protocol works in-process on the CPU when asked."""
+no JAX, flax, OpenCV, PIL, pandas, h5py, matplotlib or radnet_tpu import in
+radnet_torch or chip_smoke.py; entry points default to CUDA and raise
+without a card; the serving protocol works in-process on the CPU when
+asked."""
 
 import ast
 import io
@@ -21,7 +22,8 @@ from tests.util import tiny_config
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "radnet_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "radnet_tpu",
+             "pandas", "h5py", "matplotlib"}
 PORT_FILES = sorted((ROOT / "radnet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -54,3 +54,82 @@ def port_cv2_resize(src, dsize, interpolation=None):
     from radnet_torch.ops.resize import resize_cubic_u8
 
     return resize_cubic_u8(torch.from_numpy(np.ascontiguousarray(src)), *dsize).numpy()
+
+
+# --------------------------------------------------------------------------- #
+# JAX's random draws of one train step, replayed into the port's StepDraws.
+# The key discipline is radnet_tpu's: compute_losses splits (targets,
+# proposals, dropout) (engine/steps.py:196), each stage splits one key per
+# tile (:115, :166), and each tile splits (positives, negatives)
+# (ops/targets.py:180, :295); the photometric draws fold 7 into the step key
+# (:78) and split one key per tile (ops/augment_device.py:186-199).
+# --------------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=8)
+def _jax_target_draw_fn(n: int, rand_bits: int, p: int):
+    import jax.numpy as jnp
+
+    def one(k_t, k_p):
+        kp, kn = jax.random.split(k_t)
+        bits = [(jax.random.bits(key, (n,), jnp.uint32) >> jnp.uint32(32 - rand_bits)).astype(jnp.int32)
+                for key in (kp, kn)]
+        up, un = jax.random.split(k_p)
+        return bits[0], bits[1], jax.random.uniform(up, (p,)), jax.random.uniform(un, (p,))
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_target_draws(rng, cfg, b: int):
+    """(pos_bits, neg_bits, r_pos, r_neg) numpy arrays of the target
+    sampling of compute_losses for step key ``rng``."""
+    from radnet_torch.ops.targets import subset_bits
+
+    rng_t, rng_p, _ = jax.random.split(rng, 3)
+    n = cfg.feat_size * cfg.feat_size * cfg.n_anchors
+    fn = _jax_target_draw_fn(n, subset_bits(n)[1], cfg.post_nms_top_n)
+    return tuple(np.asarray(a) for a in fn(jax.random.split(rng_t, b), jax.random.split(rng_p, b)))
+
+
+@functools.lru_cache(maxsize=8)
+def _jax_photometric_draw_fn(field: tuple):
+    def one(k):
+        k_bc, k_b, k_nc, k_n = jax.random.split(k, 4)
+        k1, k2 = jax.random.split(k_b)
+        k_pick, k_op = jax.random.split(k_n)
+        s1, s2, s3 = jax.random.split(k_op, 3)
+        c1, c2 = jax.random.split(k_op)
+        return {
+            "bright_coin": jax.random.uniform(k_bc), "bright_down": jax.random.uniform(k1),
+            "bright_mag": jax.random.uniform(k2), "noise_coin": jax.random.uniform(k_nc),
+            "noise_pick": jax.random.randint(k_pick, (), 0, 4),
+            "sp_amount": jax.random.uniform(s1), "sp_svp": jax.random.truncated_normal(s2, -5.0, 5.0),
+            "sp_field": jax.random.uniform(s3, field), "gauss_var": jax.random.uniform(s2),
+            "gauss_field": jax.random.normal(s3, field), "contrast_lo": jax.random.uniform(c1),
+            "contrast_hi": jax.random.uniform(c2),
+        }
+
+    return jax.jit(jax.vmap(one))
+
+
+def jax_photometric_draws(key, shape, grey: bool):
+    """The port's PhotometricDraws of ``photometric_augment(images, key)`` on
+    ``shape = (B, H, W, C)`` canvases (``key`` already folded), without a
+    Poisson generator."""
+    from radnet_torch.ops.augment_device import PhotometricDraws
+
+    b, h, w, c = shape
+    vals = _jax_photometric_draw_fn((h, w) if grey else (h, w, c))(jax.random.split(key, b))
+    out = {k: torch.from_numpy(np.array(v)) for k, v in vals.items()}
+    out["noise_pick"] = out["noise_pick"].long()
+    return PhotometricDraws(**out)
+
+
+def jax_step_draws(rng, cfg, b: int, images_shape=None, grey: bool = True):
+    """The port's StepDraws replaying JAX's draws for step key ``rng``;
+    photometric draws when ``images_shape`` is given."""
+    from radnet_torch.engine.steps import StepDraws
+
+    pos, neg, r_pos, r_neg = (torch.from_numpy(a) for a in jax_target_draws(rng, cfg, b))
+    photo = None
+    if images_shape is not None:
+        photo = jax_photometric_draws(jax.random.fold_in(rng, 7), images_shape, grey)
+    return StepDraws(pos, neg, r_pos, r_neg, photo)
