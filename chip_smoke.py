@@ -65,23 +65,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 epochs of 16 steps, validation, --allow-random-init), then
                 cli.cont_train (1 epoch of 8 steps, trunk trainable), then
                 load_radnet(...).predict on a panel: record.csv has 3 rows,
-                the checkpoints and model.pt exist, and each run launched one
-                NMS and one RoI forward per step or validation batch, and the
-                backward once per trainable step (never when frozen);
- 12. train_step ms per step and the card's busy share over 10 steps, frozen
+                the checkpoints, model.pt and each run's dashboard.html exist,
+                and each run launched one NMS and one RoI forward per step or
+                validation batch, and the backward once per trainable step
+                (never when frozen);
+ 12. evaluate   on the model cli.train wrote, a test set of 24 synthetic
+                2400 x 2400 panels (the two validation panels and 22 more):
+                radnet_torch.cli.test --coco-map (every class and mAP in
+                test_accuracy.json, AP50 == mAP over 10 thresholds in
+                test_accuracy_coco.json, a PNG a panel and the SVG curve; per
+                batch exactly one grey stem, two NMS and one RoI pool, no
+                backward), --compare exiting 0 against its own file and 2
+                against 0.01 more mAP; float32 card vs CPU on one panel: the
+                trained model's proposals, and the calibrated serving
+                weights' detections (at most 5% unmatched each; mAP within
+                0.005 against the panel's boxes and against every second
+                CPU detection); cli.test_rpn over the test set (a PNG a
+                panel, the recall line, one NMS a host tile batch and
+                nothing else); cli.test_data drawing 2 samples and its
+                anchor report;
+ 13. train_step ms per step and the card's busy share over 10 steps, frozen
                 and trainable, peak memory, the host's samples/s, and each
                 kernel at the train step's shapes (library: F.grid_sample and
                 its backward);
- 13. train_sync_free  one train step under set_sync_debug_mode("error");
- 14. learning   60 steps on one fixed batch, photometric augmentation off:
+ 14. train_sync_free  one train step under set_sync_debug_mode("error");
+ 15. learning   60 steps on one fixed batch, photometric augmentation off:
                 the mean loss of the last 10 below that of the first 5;
- 15. train_card_vs_cpu  one float32 step (TF32 off, batch 2, trunk
+ 16. train_card_vs_cpu  one float32 step (TF32 off, batch 2, trunk
                 trainable) on the card and the CPU with the same weights and
-                draws: losses within 1e-4 relative, updates within 1e-4 of
-                the largest.
+                draws: the proposal sets at most 5% unmatched; with the
+                card's proposals given to the CPU step, losses within 1e-4
+                relative and updates within 1e-4 of the largest.
 
 The last lines are the kernels JSON line (four kernels; launches over each
-kernel's main path: the served run, or cont_train for the backward), the
+kernel's main path: the served run, or cont_train for the backward; beside
+them the launches of the train, cont_train, test and test_rpn runs), the
 nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
@@ -861,8 +879,7 @@ class Stamped(io.StringIO):
         self.echo = echo
 
     def write(self, s):
-        if s.endswith("\n"):
-            self.stamps.append(time.perf_counter())
+        self.stamps += [time.perf_counter()] * s.count("\n")
         if self.echo is not None:
             self.echo.write(s)
         return super().write(s)
@@ -1210,6 +1227,8 @@ def card_vs_cpu_phase(net, images, dev):
 # Training: the backward kernel, the CLIs, per-step numbers, learning.
 # --------------------------------------------------------------------------- #
 TRAIN_PANEL = 2400
+# The evaluate phase's test set: the two validation panels and fresh ones.
+N_TEST_PANELS = 24
 FG_CLASSES = ["boat", "human", "other", "animal", "circle", "wheel"]
 # (B, R) of the backward checks: the train step's RoI sample, the cascade's.
 BACKWARD_CASES = [(8, 20), (12, 300)]
@@ -1294,24 +1313,30 @@ def synthetic_training_panel(seed: int, n_figures: int = 7):
     return img, boxes
 
 
-def write_training_set(root: str, n_train: int = 4, n_val: int = 2) -> None:
-    """data/{train,val}/<img type>/panel*.png and data/{train,val}.csv."""
+def write_split(root: str, split: str, seeds) -> None:
+    """data/<split>/<img type>/panel<k>.png, one synthetic panel a seed, and
+    data/<split>.csv."""
     import csv
 
     from radnet_torch.data.png import write_png
 
-    for split, n, base in (("train", n_train, 100), ("val", n_val, 200)):
-        folder = os.path.join(root, "data", split, "enhanced_topo_grey")
-        os.makedirs(folder, exist_ok=True)
-        rows = []
-        for k in range(n):
-            img, boxes = synthetic_training_panel(SEED + base + k)
-            write_png(os.path.join(folder, f"panel{k}.png"), img)
-            rows += [[f"panel{k}.png", cls, x1, y1, x2, y2] for x1, y1, x2, y2, cls in boxes]
-        with open(os.path.join(root, "data", f"{split}.csv"), "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(["img_path", "label", "xmin", "ymin", "xmax", "ymax"])
-            w.writerows(rows)
+    folder = os.path.join(root, "data", split, "enhanced_topo_grey")
+    os.makedirs(folder, exist_ok=True)
+    rows = []
+    for k, seed in enumerate(seeds):
+        img, boxes = synthetic_training_panel(seed)
+        write_png(os.path.join(folder, f"panel{k}.png"), img)
+        rows += [[f"panel{k}.png", cls, x1, y1, x2, y2] for x1, y1, x2, y2, cls in boxes]
+    with open(os.path.join(root, "data", f"{split}.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["img_path", "label", "xmin", "ymin", "xmax", "ymax"])
+        w.writerows(rows)
+
+
+def write_training_set(root: str, n_train: int = 4, n_val: int = 2) -> None:
+    """data/{train,val}/<img type>/panel*.png and data/{train,val}.csv."""
+    write_split(root, "train", [SEED + 100 + k for k in range(n_train)])
+    write_split(root, "val", [SEED + 200 + k for k in range(n_val)])
 
 
 def train_phase(tmp: str, dev, smi) -> dict:
@@ -1351,11 +1376,15 @@ def train_phase(tmp: str, dev, smi) -> dict:
         return made
 
     out = {}
+    model_dir = os.path.join(tmp, "train_models", "faster_rcnn_resnet50_smoke")
+    dashboard = os.path.join(model_dir, "dashboard.html")
     for name, fn, argv, steps, epochs in (
             ("train", train.main, ["--model-name", "smoke", "--allow-random-init",
                                    "--epoch-length", "16", "--n-epochs", "2"], 32, 2),
             ("cont_train", cont_train.main, ["--model-name", "faster_rcnn_resnet50_smoke",
                                              "--epoch-length", "8", "--n-epochs", "1"], 8, 1)):
+        if os.path.exists(dashboard):  # each run renders its own
+            os.remove(dashboard)
         cuda_kernels.reset_launch_counts()
         nms.NMS_STATS.update(calls=0)
         calls.update(train_step=0, eval_step=0)
@@ -1370,9 +1399,10 @@ def train_phase(tmp: str, dev, smi) -> dict:
         torch.cuda.synchronize()
         out[name] = {"wall_s": time.perf_counter() - t0, "steps": steps, "epochs": epochs, "rc": rc,
                      "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
-                     "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"]}
+                     "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"],
+                     "dashboard": os.path.isfile(dashboard)}
         check(rc == 0, f"{name} exited {rc}")
-    model_dir = os.path.join(tmp, "train_models", "faster_rcnn_resnet50_smoke")
+        check(out[name]["dashboard"], f"{name} wrote no {dashboard}")
     with open(os.path.join(model_dir, "record.csv"), newline="") as f:
         record = list(csv.DictReader(f))
     files = {n: os.path.exists(os.path.join(model_dir, n))
@@ -1409,6 +1439,223 @@ def train_phase(tmp: str, dev, smi) -> dict:
           f"cont_train launched the backward kernel "
           f"{out['cont_train']['launches']['roi_pool_backward']} times in 8 steps")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Evaluation: cli.test, cli.test_rpn and cli.test_data on the trained model.
+# --------------------------------------------------------------------------- #
+def unmatched(got: list, want: list, prob_tol: float = 1e-3) -> int:
+    """Detections of either list without a partner in the other: the same
+    class and box, confidences within ``prob_tol``."""
+    pool: dict = {}
+    for d in want:
+        pool.setdefault((d["class"], d["x1"], d["y1"], d["x2"], d["y2"]), []).append(d["prob"])
+    missing = 0
+    for d in got:
+        probs = pool.get((d["class"], d["x1"], d["y1"], d["x2"], d["y2"]), [])
+        j = next((j for j, p in enumerate(probs) if abs(p - d["prob"]) <= prob_tol), None)
+        if j is None:
+            missing += 1
+        else:
+            probs.pop(j)
+    return missing + sum(len(v) for v in pool.values())
+
+
+@contextlib.contextmanager
+def counting_calls(cls, method: str, record=None):
+    """Counts the calls of ``cls.method`` (``record(*args)`` is kept per call)."""
+    calls = []
+    real = getattr(cls, method)
+
+    def wrapped(self, *args, **kwargs):
+        calls.append(record(*args) if record else None)
+        return real(self, *args, **kwargs)
+
+    setattr(cls, method, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(cls, method, real)
+
+
+def run_cli(main, argv) -> tuple[int, Stamped, float]:
+    """(exit code, standard output with its line times, wall seconds) of a
+    CLI run in process, its output echoed to stderr."""
+    import torch
+
+    out = Stamped(echo=sys.stderr)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    return rc, out, time.perf_counter() - t0
+
+
+def card_and_cpu(weights: dict, cfg, dev, run) -> dict:
+    """``run(net)`` on a float32 (TF32 off) RADNet of ``weights``, on the card
+    and on the CPU: both results, their counts, how many of either have no
+    partner in the other, and each side's seconds."""
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model
+
+    # A smaller tile batch than serving's 12 keeps the CPU half short; the
+    # widths are the configuration's own.
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", infer_tile_batch=4)
+    got, secs = [], []
+    for where in (dev, "cpu"):
+        m = build_model(cfg32)
+        m.load_state_dict(weights)
+        t0 = time.perf_counter()
+        got.append(run(RADNet(cfg32, m, device=where)))
+        secs.append(time.perf_counter() - t0)
+    return {"card": got[0], "cpu": got[1], "n_card": len(got[0]), "n_cpu": len(got[1]),
+            "unmatched": unmatched(*got), "card_s": secs[0], "cpu_s": secs[1]}
+
+
+def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
+    """Phase evaluate, on the model directory cli.train wrote, over a test set
+    of N_TEST_PANELS 2400 x 2400 panels (the two validation panels first):
+    cli.test --coco-map (launches exact a batch, outputs, --compare's exit
+    codes), one panel card vs CPU, cli.test_rpn, and cli.test_data drawing
+    samples and reporting anchors.  Returns each serving kernel's launches on
+    the cli.test and cli.test_rpn runs."""
+    import shutil
+
+    import torch
+
+    from radnet_torch.cli import test, test_data, test_rpn
+    from radnet_torch.config import Config
+    from radnet_torch.data.dataset import get_data, get_image
+    from radnet_torch.data.png import read_png
+    from radnet_torch.evaluation import evaluate_detections
+    from radnet_torch.inference import RADNet
+    from radnet_torch.ops import cuda_kernels
+
+    t_phase = time.perf_counter()
+    models = os.path.join(tmp, "train_models")
+    name = "faster_rcnn_resnet50_smoke"
+    model_dir = os.path.join(models, name)
+    cfg = Config.load(os.path.join(model_dir, "config.json"))
+    d = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_split(tmp, "test", [SEED + 200, SEED + 201] + [SEED + 300 + k for k in range(N_TEST_PANELS - 2)])
+    write_s = time.perf_counter() - t0
+    test_csv, test_dir = os.path.join(d, "test.csv"), os.path.join(d, "test")
+    test_args = ["--models-path", models, "--model-name", name, "--test-annot", test_csv,
+                 "--test-data", test_dir, "--device", str(dev)]
+
+    # cli.test: every kernel launch counted against the cascade's batches.
+    cuda_kernels.reset_launch_counts()
+    with counting_calls(RADNet, "_predict_tiles_impl", lambda images, *_: images.dim()) as batches:
+        rc, stdout, test_s = run_cli(test.main, test_args + ["--coco-map"])
+    stdout = stdout.getvalue()
+    launches_test = launch_counts()
+    check(rc == 0, f"cli.test exited {rc}")
+    with open(os.path.join(model_dir, "test_accuracy.json")) as f:
+        acc = json.load(f)
+    with open(os.path.join(model_dir, "test_accuracy_coco.json")) as f:
+        coco = json.load(f)
+    data, _, _ = get_data(test_csv, test_dir, cfg.img_types)
+    classes = {b["class"] for img in data for b in img["bboxes"]}
+    seconds = {k: float(line.split(": ")[1].rstrip("s")) for line in stdout.splitlines()
+               for k in ("Average prediction time", "Steady-state prediction time (excl. first panel)")
+               if line.startswith(k + ": ")}
+    pngs = [os.path.join(model_dir, "test", img["filepath"].split("/")[-1]) for img in data]
+    svg = os.path.join(model_dir, "viz", "precision_recall.svg")
+    n_b = len(batches)
+    emit({"phase": "evaluate_test", "nvidia_smi": smi, "panels": len(data), "write_s": write_s,
+          "wall_s": test_s, "sec_per_panel": seconds, "batches": n_b, "grey_batches": batches.count(3),
+          "launches": launches_test, "mAP": acc.get("mAP"), "per_class": acc,
+          "mAP_50_95": coco.get("mAP_50_95"), "AP50": coco.get("AP50")})
+    check(len(data) == N_TEST_PANELS, f"cli.test read {len(data)} panels, not {N_TEST_PANELS}")
+    check(classes | {"mAP"} <= set(acc), f"test_accuracy.json lacks classes: {sorted(acc)}")
+    check(coco["AP50"] == acc["mAP"] and len(coco["per_threshold"]) == 10,
+          f"test_accuracy_coco.json: AP50 {coco['AP50']} vs mAP {acc['mAP']}, "
+          f"{len(coco['per_threshold'])} thresholds")
+    check(all(os.path.isfile(p) and read_png(p).ndim == 3 for p in pngs) and os.path.isfile(svg),
+          f"cli.test did not write {pngs} and {svg}")
+    check(len(seconds) == 2, f"cli.test printed no prediction times: {seconds}")
+    check(n_b > 0 and batches.count(3) == n_b, f"cli.test batches {batches}: not all prescaled grey")
+    want = {"grey_stem": n_b, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0}
+    check(launches_test == want, f"cli.test launches {launches_test}, want {want} for {n_b} batches")
+
+    # --compare: against its own file parity holds; 0.01 more mAP fails it.
+    ref = dict(acc, mAP=acc["mAP"] + 0.01)
+    ref_path = os.path.join(tmp, "ref_accuracy.json")
+    with open(ref_path, "w") as f:
+        json.dump(ref, f)
+    own_path = os.path.join(tmp, "own_accuracy.json")
+    shutil.copy(os.path.join(model_dir, "test_accuracy.json"), own_path)
+    compare_rc = [run_cli(test.main, test_args + ["--compare", p])[0] for p in (own_path, ref_path)]
+    check(compare_rc == [0, 2], f"cli.test --compare exited {compare_rc}, want [0, 2]")
+
+    # The card against the CPU on one panel, float32: the trained model's
+    # proposals (40 steps from random init score no detection yet), then the
+    # calibrated serving weights' detections, scored against the panel's
+    # boxes and against every second CPU detection, so that the two mAPs
+    # have something to differ on.
+    panel, gt = get_image(data[0]["filepath"], cfg.img_types), data[0]["bboxes"]
+    trained_w = torch.load(os.path.join(model_dir, "model.pt"), weights_only=True)
+    props = card_and_cpu(trained_w, cfg, dev, lambda net: net.predict_region_proposals(panel))
+    dets = card_and_cpu(serve_weights, cfg, dev, lambda net: net.predict([panel]))
+    pseudo = [{k: det[k] for k in ("class", "x1", "y1", "x2", "y2")} for det in dets["cpu"][::2]]
+    for key, truth in (("map", gt), ("map_pseudo_gt", pseudo)):
+        dets[key + "_card"] = evaluate_detections(dets["card"], truth)["mAP"]
+        dets[key + "_cpu"] = evaluate_detections(dets["cpu"], truth)["mAP"]
+    cmp = {"trained_proposals": props, "calibrated_detections": dets}
+
+    # cli.test_rpn over the test set: only the fused NMS, once a host tile batch.
+    cuda_kernels.reset_launch_counts()
+    with counting_calls(RADNet, "_proposals_only") as rpn_batches:
+        rc, rpn_out, rpn_s = run_cli(test_rpn.main, [
+            "--models-path", models, "--model-name", name, "--annot", test_csv,
+            "--data", test_dir, "--device", str(dev)])
+    launches_rpn = launch_counts()
+    lines = rpn_out.getvalue().splitlines()
+    recall = [line for line in lines if line.startswith("RPN recall@0.5")]
+    # From the annotations read (the model is loaded) to each panel's
+    # proposals printed: a panel's decode, proposals, drawing and PNG write.
+    t_read = next(t for t, ln in zip(rpn_out.stamps, lines) if ln.startswith("Read "))
+    t_props = [t for t, ln in zip(rpn_out.stamps, lines) if ln.endswith(" proposals")]
+    rpn_seconds = {"average": (t_props[-1] - t_read) / len(t_props),
+                   "steady_state": (t_props[-1] - t_props[0]) / max(len(t_props) - 1, 1)}
+    rpn_pngs = [os.path.join(model_dir, "test_rpn", img["filepath"].split("/")[-1]) for img in data]
+
+    # cli.test_data: samples drawn, then the anchor report.
+    viz = os.path.join(tmp, "test_data_viz")
+    td = ["--config-json", os.path.join(model_dir, "config.json"), "--train-annot",
+          os.path.join(d, "train.csv"), "--train-data", os.path.join(d, "train"), "--device", str(dev)]
+    rc_td, _, td_s = run_cli(test_data.main, td + ["--n-samples", "2", "--out-dir", viz])
+    rc_an, an_out, an_s = run_cli(test_data.main, td + ["--analyze-anchors", "--usage-samples", "2"])
+    an_out = an_out.getvalue()
+    report = json.loads(an_out[an_out.index("{"):])
+
+    shown = {k: {f: v for f, v in c.items() if f not in ("card", "cpu")} for k, c in cmp.items()}
+    emit({"phase": "evaluate", "nvidia_smi": smi, "test_panels": len(data), "test_sec_per_panel": seconds,
+          "test_rpn_panels": len(t_props), "test_rpn_sec_per_panel": rpn_seconds,
+          "test_rpn_wall_s": rpn_s, "test_rpn_batches": len(rpn_batches),
+          "test_rpn_launches": launches_rpn, "rpn_recall": recall, "compare_rc": compare_rc,
+          "card_vs_cpu": shown, "test_data_s": td_s, "analyze_anchors_s": an_s,
+          "kmeans_wh_clusters": report.get("kmeans_wh_clusters"),
+          "anchor_usage": report.get("anchor_usage"), "phase_wall_s": time.perf_counter() - t_phase})
+    for which, c in cmp.items():
+        check(c["n_card"] > 0 and c["unmatched"] <= 0.05 * (c["n_card"] + c["n_cpu"]),
+              f"{which}: {c['unmatched']} of {c['n_card']} + {c['n_cpu']} unmatched card vs CPU")
+    for key in ("map", "map_pseudo_gt"):
+        m_g, m_w = dets[key + "_card"], dets[key + "_cpu"]
+        check(abs(m_g - m_w) <= 0.005, f"calibrated detections: {key} card {m_g} vs CPU {m_w}")
+    check(dets["map_pseudo_gt_cpu"] > 0, f"the pseudo ground truth scored nothing: {shown}")
+    check(rc == 0 and len(recall) == 1 and len(t_props) == len(data) and all(map(os.path.isfile, rpn_pngs)),
+          f"cli.test_rpn: rc {rc}, recall lines {recall}, {len(t_props)} of {len(data)} panels, "
+          f"pngs {sum(map(os.path.isfile, rpn_pngs))}")
+    want = {"grey_stem": 0, "nms_fused": len(rpn_batches), "roi_pool": 0, "roi_pool_backward": 0}
+    check(len(rpn_batches) > 0 and launches_rpn == want,
+          f"cli.test_rpn launches {launches_rpn}, want {want} for {len(rpn_batches)} tile batches")
+    check(rc_td == 0 and all(os.path.isfile(os.path.join(viz, f"test_data_{i}.png")) for i in range(2)),
+          f"cli.test_data: rc {rc_td}, PNGs {os.listdir(viz) if os.path.isdir(viz) else None}")
+    check(rc_an == 0 and len(report.get("kmeans_wh_clusters", [])) == 3 and "anchor_usage" in report,
+          f"cli.test_data --analyze-anchors: rc {rc_an}, report {report}")
+    return {"test": launches_test, "test_rpn": launches_rpn}
 
 
 def training_batch(tmp: str, cfg, dev, n_samples: int = 64):
@@ -1636,22 +1883,43 @@ def learning_phase(batch, cfg, dev, n_steps: int = 60, lr: float = 1e-5) -> dict
     return {"mean_first_5": first, "mean_last_10": last}
 
 
+def proposal_sets_unmatched(got, want) -> tuple[int, int]:
+    """(proposals of either side without an equal box in the other's set of
+    the same tile, proposals on both sides): the kept sets' valid boxes,
+    which are integer-valued, compared as multisets."""
+    import collections
+
+    missing = total = 0
+    for b in range(got.boxes.shape[0]):
+        g, w = (collections.Counter(map(tuple, p.boxes[b][p.valid[b]].tolist())) for p in (got, want))
+        missing += sum(((g - w) + (w - g)).values())
+        total += sum(g.values()) + sum(w.values())
+    return missing, total
+
+
 def train_card_vs_cpu_phase(batch, base, dev) -> dict:
     """Phase train_card_vs_cpu: one float32 train step (TF32 off, trunk
     trainable, brightness only) on the card and on the CPU from the same
-    weights and the same StepDraws: the four losses within 1e-4 relative,
-    and the parameter updates within 1e-4 of the largest update.  The step
-    updates with plain SGD here, so an update is lr times the gradient:
-    Adam's first update is lr * sign(g) for any gradient above 1e-8, which
-    would turn elements whose gradient is float32 noise into full-size
-    differences (Adam itself is held against optax on the CPU,
+    weights and the same StepDraws.  The proposals are a discrete choice
+    (top-k and NMS over RPN scores), so float32 noise at a near tie can swap
+    a proposal and with it a sampled RoI (one run: the detector's class loss
+    2e-3 apart); their sets are held at the serving gate of at most 5%
+    unmatched, and the CPU step then takes the card's proposals so that the
+    rest of the step is compared on the same RoIs: the four losses within
+    1e-4 relative, and the parameter updates within 1e-4 of the largest
+    update.  The step updates with plain SGD here, so an update is lr times
+    the gradient: Adam's first update is lr * sign(g) for any gradient above
+    1e-8, which would turn elements whose gradient is float32 noise into
+    full-size differences (Adam itself is held against optax on the CPU,
     tests/test_torch_train_step.py)."""
     import torch
 
+    from radnet_torch.engine import steps
     from radnet_torch.engine.steps import draw_step, make_train_step
     from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import RADNet
     from radnet_torch.models.detector import build_model, init_weights
+    from radnet_torch.ops.proposals import Proposals
 
     cfg = dataclasses.replace(base, compute_dtype="float32", batch_size=2, use_noise=False)
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1661,17 +1929,30 @@ def train_card_vs_cpu_phase(batch, base, dev) -> dict:
     weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     draws = draw_step(torch.Generator().manual_seed(SEED + 2), cfg, 2, "cpu")
     torch.set_num_threads(os.cpu_count() or 1)
-    out = []
-    for where in (torch.device(dev), torch.device("cpu")):
-        m = build_model(cfg)
-        m.load_state_dict(weights)
-        state = create_train_state(cfg, gen, where, base_net_trainable=True, model=m)
-        state.optimizer = torch.optim.SGD([p for p in m.parameters() if p.requires_grad], lr=1e-3)
-        step = make_train_step(state, cfg, trunk_trainable=True)
-        t0 = time.perf_counter()
-        metrics = step({k: v.to(where) for k, v in small.items()}, draws.to(where))
-        after = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
-        out.append(({k: float(v) for k, v in metrics.items()}, after, time.perf_counter() - t0))
+    props, out = [], []
+    real_decode = steps.decode_proposals
+
+    def decode(*args, **kwargs):
+        own = real_decode(*args, **kwargs)
+        props.append(Proposals(*(t.cpu() for t in own)))
+        return own if len(props) == 1 else props[0]
+
+    steps.decode_proposals = decode
+    try:
+        for where in (torch.device(dev), torch.device("cpu")):
+            m = build_model(cfg)
+            m.load_state_dict(weights)
+            state = create_train_state(cfg, gen, where, base_net_trainable=True, model=m)
+            state.optimizer = torch.optim.SGD([p for p in m.parameters() if p.requires_grad], lr=1e-3)
+            step = make_train_step(state, cfg, trunk_trainable=True)
+            t0 = time.perf_counter()
+            metrics = step({k: v.to(where) for k, v in small.items()}, draws.to(where))
+            after = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
+            out.append(({k: float(v) for k, v in metrics.items()}, after, time.perf_counter() - t0))
+    finally:
+        steps.decode_proposals = real_decode
+    check(len(props) == 2, f"{len(props)} proposal calls in two train steps")
+    props_unmatched, props_total = proposal_sets_unmatched(*props)
     (m_gpu, p_gpu, s_gpu), (m_cpu, p_cpu, s_cpu) = out
     loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
                 for k in ("loss_rpn_cls", "loss_rpn_regr", "loss_detector_cls", "loss_detector_regr")}
@@ -1682,14 +1963,19 @@ def train_card_vs_cpu_phase(batch, base, dev) -> dict:
     n_beyond = sum(int(((upd_gpu[k] - upd_cpu[k]).abs() > 1e-4 * largest).sum()) for k in upd_cpu)
     n_params = sum(u.numel() for u in upd_cpu.values())
     emit({"phase": "train_card_vs_cpu", "dtype": "float32", "tf32": False, "batch": 2,
+          "proposals_unmatched": props_unmatched, "proposals_both_sides": props_total,
+          "cpu_step_takes_card_proposals": True,
           "losses_card": m_gpu, "losses_cpu": m_cpu, "loss_rel_err": loss_rel,
           "largest_update": largest, "max_update_diff": worst,
           "max_update_diff_over_largest": worst / largest,
           "n_beyond_1e-4_of_largest": n_beyond, "n_params": n_params,
           "card_s": s_gpu, "cpu_s": s_cpu})
+    check(props_total > 0 and props_unmatched <= 0.05 * props_total,
+          f"card vs CPU proposals: {props_unmatched} of {props_total} unmatched")
     check(max(loss_rel.values()) <= 1e-4, f"card vs CPU losses differ: {loss_rel}")
     check(worst <= 1e-4 * largest, f"card vs CPU updates differ by {worst} (largest {largest})")
-    return {"loss_rel_err": loss_rel, "max_update_diff_over_largest": worst / largest}
+    return {"loss_rel_err": loss_rel, "max_update_diff_over_largest": worst / largest,
+            "proposals_unmatched": props_unmatched}
 
 
 def main() -> int:
@@ -1737,11 +2023,14 @@ def main() -> int:
 
     # 9. card vs CPU, float32, TF32 off.
     card_vs_cpu_phase(net, images, dev)
+    serve_weights = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
     del net, images
 
-    # 10-14. training: the CLIs, per-step numbers, sync-free, learning, card vs CPU.
+    # 10-16. training and evaluation: the CLIs, per-step numbers, sync-free,
+    # learning, card vs CPU.
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_phase(tmp, dev, smi)
+        evaluated = evaluate_phase(tmp, dev, smi, serve_weights)
         batch, samples_per_s = training_batch(tmp, cfg, dev)
     train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs)
     train_sync_free_phase(batch, cfg, dev)
@@ -1755,6 +2044,8 @@ def main() -> int:
         name = k["name"]
         k["launches_train"] = trained["train"]["launches"][name]
         k["launches_cont_train"] = trained["cont_train"]["launches"][name]
+        k["launches_test"] = evaluated["test"][name]
+        k["launches_test_rpn"] = evaluated["test_rpn"][name]
         if name in launches:  # the served run is the serving kernels' main path
             k["launches"] = launches[name]
             k["launches_per_batch"] = per_batch[name]

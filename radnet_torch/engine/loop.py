@@ -14,8 +14,9 @@ The observable contract of the JAX package's ``engine/loop.py``:
   save also writes ``model.pt``.
 
 Step metrics stay on the device during an epoch and are fetched once at
-its end.  The loss plots and HTML dashboard of the JAX package are not
-written (ROADMAP Queue 1 item 12).
+its end.  When the run ends, ``dashboard.html`` is rendered from the two
+logs (``utils/dashboard.py``); the JAX package's matplotlib loss plots are
+not drawn (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from radnet_torch.engine import checkpoint as ckpt
 from radnet_torch.engine.steps import METRIC_KEYS, draw_step
 from radnet_torch.engine.train_state import TrainState
 from radnet_torch.inference import WEIGHTS_FILE
+from radnet_torch.utils.dashboard import generate_dashboard
 from radnet_torch.utils.tbevents import EventWriter
 
 # metrics.jsonl key -> per-step TensorBoard tag.
@@ -244,6 +246,12 @@ def fit(
     try:
         saver.close()
     finally:
+        # Every epoch completed: close the logs and render the dashboard
+        # even if the last checkpoint flush failed.
         metrics_log.close()
         events.close()
+        try:
+            generate_dashboard(model_path)
+        except Exception as e:  # a dashboard never fails a training run
+            print(f"dashboard generation failed: {e}")
     return state, record

@@ -509,7 +509,6 @@ class RADNet:
                         )
                         probs_total.setdefault(cls_name, []).append(float(p))
 
-
     def predict_from_path(self, img_path: str) -> list[dict[str, Any]]:
         """Load the panel of every configured image type (or only the first,
         unless ``use_img_type``) and predict."""
@@ -520,13 +519,49 @@ class RADNet:
             images = [get_image(img_path, types)]
         return self.predict(images)
 
+    # ------------------------------------------------------------------ #
+    # RPN-only debug path.
+    # ------------------------------------------------------------------ #
+    def predict_region_proposals(self, img: np.ndarray) -> list[dict[str, Any]]:
+        """The RPN's proposals for every tile of ``img``, in panel pixels, as
+        ``{'class': 'object', 'prob': 1.0, 'x1', 'y1', 'x2', 'y2'}`` dicts.
+        Every tile takes the host path onto a 3-channel square canvas, as in
+        the JAX package (never the grey stem), so the proposal NMS is the
+        only kernel; each batch is fetched once."""
+        cfg = self.C
+        out: list[dict[str, Any]] = []
+        tiles = plan_tiles(img.shape[1], img.shape[0], cfg.tile_size, cfg.tile_overlap)
+        for imgs, wh, scales, chunk, n in self._tile_batches(img, tiles):
+            boxes, valid = self._proposals_only(imgs, wh)
+            for i in range(n):
+                tile, ratio = chunk[i], scales[i]
+                for b in boxes[i][valid[i]] * cfg.rpn_stride:  # feature map -> canvas px
+                    rx1, ry1, rx2, ry2 = (int(v // ratio) for v in b)
+                    out.append({"class": "object", "prob": 1.0,
+                                "x1": tile[0] + rx1, "y1": tile[1] + ry1,
+                                "x2": tile[0] + rx2, "y2": tile[1] + ry2})
+        return out
+
+    @torch.inference_mode()
+    def _proposals_only(self, imgs: np.ndarray, wh: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Host canvases -> the proposals' (boxes, valid), fetched."""
+        images = torch.from_numpy(imgs).to(self.device)
+        props = self._proposals(self._features(images), torch.from_numpy(wh).to(self.device))
+        return props.boxes.cpu().numpy(), props.valid.cpu().numpy()
+
 
 def save_radnet(model_dir: str, config: Config, model: FasterRCNN) -> None:
     """Write ``config.json`` and the model's float32 state_dict."""
     os.makedirs(model_dir, exist_ok=True)
     config.save(os.path.join(model_dir, "config.json"))
-    state = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
-    torch.save(state, os.path.join(model_dir, WEIGHTS_FILE))
+    save_weights(model_dir, model)
+
+
+def save_weights(model_dir: str, model: FasterRCNN) -> str:
+    """Write the model's float32 state_dict as ``<model_dir>/model.pt``."""
+    path = os.path.join(model_dir, WEIGHTS_FILE)
+    torch.save({k: v.detach().float().cpu() for k, v in model.state_dict().items()}, path)
+    return path
 
 
 def load_radnet(model_dir: str, device="cuda") -> RADNet:
@@ -536,7 +571,8 @@ def load_radnet(model_dir: str, device="cuda") -> RADNet:
     path = os.path.join(model_dir, WEIGHTS_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"{path}: no torch weights (converting a JAX checkpoint is ROADMAP Queue 1 item 1)"
+            f"{path}: no torch weights; convert a JAX model directory with "
+            f"scripts/export_jax_model.py on a host with the JAX package"
         )
     model = build_model(config)
     model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))

@@ -80,3 +80,20 @@ def test_serve_protocol_on_cpu(tmp_path):
     assert "error" in recs[1] and "detections" not in recs[1]
     for r in (recs[0], recs[2]):
         assert isinstance(r["detections"], list) and r["sec"] >= 0
+
+
+@pytest.mark.parametrize("module", ["radnet_torch.cli.test", "radnet_torch.cli.test_rpn",
+                                    "radnet_torch.cli.test_data"])
+def test_eval_clis_load_without_a_card_and_default_to_cuda(module, tmp_path):
+    import importlib
+
+    cli = importlib.import_module(module)
+    assert cli.build_argparser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    _tiny_model_dir(tmp_path)
+    argv = ["--models-path", str(tmp_path), "--model-name", "m"]
+    if module.endswith("test_data"):
+        argv = ["--train-annot", str(tmp_path / "none.csv")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(argv)

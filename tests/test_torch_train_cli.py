@@ -131,7 +131,8 @@ def test_train_then_cont_train_then_predict(dataset):
     assert rc == 0
     model_dir = root / "models" / "faster_rcnn_resnet50_smoke"
     for name in ("config.json", "record.csv", "metrics.jsonl", "model.pt",
-                 "ckpt_best/train_state.pt", "ckpt_last/train_state.pt", "viz", "test"):
+                 "ckpt_best/train_state.pt", "ckpt_last/train_state.pt", "viz", "test",
+                 "dashboard.html"):
         assert (model_dir / name).exists(), name
     assert any(n.startswith("events.out.tfevents") for n in os.listdir(model_dir))
     with open(model_dir / "record.csv", newline="") as f:
@@ -150,6 +151,8 @@ def test_train_then_cont_train_then_predict(dataset):
     assert rc == 0
     with open(model_dir / "record.csv", newline="") as f:
         assert len(list(csv.DictReader(f))) == 3
+    # The dashboard is rendered again, from all three epochs.
+    assert (model_dir / "dashboard.html").read_text().count("<tr><td>") == 3
     # base_net_cont_trainable changes the partition: weights only, so the
     # step count restarts, as in the JAX package.
     steps = [json.loads(line)["step"] for line in open(model_dir / "metrics.jsonl")]

@@ -133,3 +133,18 @@ def jax_step_draws(rng, cfg, b: int, images_shape=None, grey: bool = True):
     if images_shape is not None:
         photo = jax_photometric_draws(jax.random.fold_in(rng, 7), images_shape, grey)
     return StepDraws(pos, neg, r_pos, r_neg, photo)
+
+
+def jax_rpn_bits(key, n: int):
+    """(pos_bits, neg_bits), each a (1, n) int32 tensor: the subsample words
+    that radnet_tpu's single-tile ``rpn_targets(..., key)`` draws (it splits
+    (positives, negatives), ops/targets.py:180, and shifts 32-bit words down
+    to the random width, :66)."""
+    import jax.numpy as jnp
+
+    from radnet_torch.ops.targets import subset_bits
+
+    shift = jnp.uint32(32 - subset_bits(n)[1])
+    return tuple(torch.from_numpy(np.array((jax.random.bits(k, (n,), jnp.uint32) >> shift)
+                                             .astype(jnp.int32)))[None]
+                 for k in jax.random.split(key))
