@@ -33,6 +33,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 this card; the earlier designs (radnet_torch/csrc/earlier/)
                 timed on the same inputs: the RoI pool, the grey stem, and the
                 whole earlier NMS call (byte relation + host-synced rounds);
+                the RoI-pool backward's in phases 10 and 13;
   7. main path  the default Config (ResNet50, canvas 608, bf16, 12 tiles a
                 batch) with seeded random weights, saved to a model dir and
                 served through radnet_torch.cli.serve: three 4400 x 3000 grey
@@ -57,9 +58,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 backward kernel vs roi_pool_backward_plain at (8, 20) and
                 (12, 300) RoIs on a 38 x 38 x 1024 map, random and edge RoIs,
                 bf16 and f32, both strides: f32 within 1e-5 of the largest
-                magnitude (atomics reorder the sums), bf16 within one bf16
-                ulp of the float32 result (or 1e-6 of the largest); and
-                torch.autograd.gradcheck of the plain pool in float64;
+                magnitude (the kernel sums in another fixed order than
+                index_add_), bf16 within one bf16 ulp of the float32 result
+                (or 1e-6 of the largest); two launches bit-equal; the earlier
+                atomic kernel's error beside it, and both timed at bf16,
+                stride 2; and torch.autograd.gradcheck of the plain pool in
+                float64;
  11. train      six synthetic 2400 x 2400 grey panels with train.csv and
                 val.csv; radnet_torch.cli.train at the default config (2
                 epochs of 16 steps, validation, --allow-random-init), then
@@ -87,7 +91,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
  13. train_step ms per step and the card's busy share over 10 steps, frozen
                 and trainable, peak memory, the host's samples/s, and each
                 kernel at the train step's shapes (library: F.grid_sample and
-                its backward);
+                its backward); the backward also bit-equal across two
+                launches, beside the earlier atomic kernel, and the whole
+                RoIPoolFunction backward before (zero fill, atomic kernel,
+                cast) and after (one kernel, the only one a call launches);
  14. train_sync_free  one train step under set_sync_debug_mode("error");
  15. learning   60 steps on one fixed batch, photometric augmentation off:
                 the mean loss of the last 10 below that of the first 5;
@@ -169,21 +176,21 @@ def roi_forward_error(got, ref, dtype) -> tuple[bool, float, str]:
     return ulps <= 1.0, max_err, f"1 bf16 ulp (max {ulps:.3f} ulp)"
 
 
-def roi_backward_error(got, ref, dtype) -> tuple[bool, float, float, float, str]:
-    """(within tolerance, max abs error, max abs error of the float32 sums,
-    largest magnitude, tolerance) of the backward kernel's float32 map
-    gradient ``got`` against the plain version's ``ref``: f32 1e-5 of the
-    largest magnitude (atomics reorder the sums); bf16 one ulp of the float32
-    result after the one cast autograd makes."""
+def roi_backward_error(got, ref) -> tuple[bool, float, float, str]:
+    """(within tolerance, max abs error, largest magnitude, tolerance) of a
+    backward kernel's map gradient ``got``, in the map's type, against the
+    plain version's float32 ``ref``: f32 1e-5 of the largest magnitude (the
+    kernel sums in another fixed order than index_add_); bf16 one ulp of the
+    float32 result (at least 1e-6 of the largest)."""
     import torch
 
     top = float(ref.abs().max())
-    err32 = float((got - ref).abs().max())
-    if dtype == torch.float32:
-        return err32 <= 1e-5 * top, err32, err32, top, "1e-5 of the largest magnitude"
-    e = (got.to(dtype).float() - ref).abs()
+    e = (got.float() - ref).abs()
+    if got.dtype == torch.float32:
+        err = float(e.max())
+        return err <= 1e-5 * top, err, top, "1e-5 of the largest magnitude"
     ok = bool((e <= torch.clamp(bf16_ulp(ref), min=1e-6 * top)).all())
-    return (ok, float(e.max()), err32, top,
+    return (ok, float(e.max()), top,
             "1 bf16 ulp of the float32 result (at least 1e-6 of the largest)")
 
 
@@ -231,9 +238,42 @@ def device_ms(fn, symbol: str, iters: int = 20) -> float | None:
     return None
 
 
+def device_work_per_call(fn) -> int:
+    """Device kernels, memsets and copies one call of ``fn`` puts on the
+    card: the nodes of a CUDA graph captured from one call, read with
+    libcuda's cuGraphGetNodes (torch.profiler windows have missed kernels on
+    the card)."""
+    import ctypes
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    torch.cuda.synchronize()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    graph.reset()
+    return sum(k in (0, 1, 2) for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL, MEMCPY, MEMSET
+
+
 def call_device_ms(fn, iters: int = 20) -> float:
-    """Device milliseconds per call of ``fn``: every kernel it launches (a
-    library call's fills included), summed from ``torch.profiler``."""
+    """Device milliseconds per call of ``fn``: the mean device time of each
+    kernel it launches (a library call's fills included), from
+    ``torch.profiler``, summed over the kernels, each once a call.  Means by
+    kernel, not the window's sum, since a profiler window on the card has
+    missed some of the kernels it ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -244,9 +284,11 @@ def call_device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return sum(spans) / iters / 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    return sum(statistics.mean(v) for v in by_name.values()) / 1e3
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -625,9 +667,10 @@ def kernel_checks(dev) -> dict:
 
 def earlier_kernels() -> dict:
     """The earlier designs of the NMS (a byte relation in device memory), the
-    RoI pool (one block per output cell) and the grey stem (float32 products
-    on the CUDA cores, a full centring map), kept in radnet_torch/csrc/earlier/
-    to be timed beside the current kernels."""
+    RoI pool (one block per output cell), the grey stem (float32 products on
+    the CUDA cores, a full centring map) and the RoI-pool backward (float32
+    atomics into a zeroed map), kept in radnet_torch/csrc/earlier/ to be
+    timed beside the current kernels."""
     import ctypes
 
     from radnet_torch.ops.cuda_kernels import CudaKernel
@@ -641,7 +684,24 @@ def earlier_kernels() -> dict:
                                [ptr] * 3 + [i32] * 8, extra_flags=("--fmad=false",)),
         "grey_stem": CudaKernel("earlier/grey_stem_scalar.cu", "radnet_earlier_grey_stem",
                                 [ptr] * 5 + [i32] * 3),
+        "roi_pool_backward": CudaKernel(
+            "earlier/roi_pool_backward_atomic.cu", "radnet_earlier_roi_pool_backward",
+            [ptr] * 3 + [i32] * 8, extra_flags=("--fmad=false",), headers=("roi_taps.cuh",)),
     }
+
+
+def earlier_roi_backward(kernel, g, rois, map_hw, *, pool_size, center_stride):
+    """The earlier backward kernel as its wrapper ran it: float32 sums into a
+    zeroed map."""
+    import torch
+
+    from radnet_torch.ops.cuda_kernels import ptr
+
+    b, r, _, _, c = g.shape
+    out = torch.zeros((b, *map_hw, c), dtype=torch.float32, device=g.device)
+    kernel.launch(ptr(g), ptr(rois), ptr(out), b, *map_hw, c, r, pool_size, center_stride,
+                  {torch.float32: 0, torch.bfloat16: 1}[g.dtype])
+    return out
 
 
 def earlier_nms_kept(kernel, boxes, scores, valid, thresh):
@@ -1249,10 +1309,12 @@ def roi_backward_inputs(dtype, seed, device, b, r, kind, hw=38, c=1024):
     return g.to(dtype), rois
 
 
-def roi_backward_checks(dev) -> float:
+def roi_backward_checks(dev, earlier: dict) -> float:
     """Phase kernel2_backward: csrc/roi_pool_backward.cu against
-    roi_pool_backward_plain, and gradcheck of the plain pool in float64.
-    Returns the largest error at the train step's shape, bf16."""
+    roi_pool_backward_plain, bit-equal across two launches, beside the
+    earlier atomic kernel (its error; both timed at bf16, stride 2), and
+    gradcheck of the plain pool in float64.  Returns the largest error at
+    the train step's shape, bf16."""
     import torch
 
     from radnet_torch.ops import roi_align
@@ -1263,21 +1325,38 @@ def roi_backward_checks(dev) -> float:
             for dtype in (torch.bfloat16, torch.float32):
                 g, rois = roi_backward_inputs(dtype, SEED + seed, dev, b, r, kind)
                 for stride in (2, 1):
-                    got = roi_align.roi_pool_backward_cuda(g, rois, (38, 38), pool_size=7,
-                                                           center_stride=stride)
-                    ref = roi_align.roi_pool_backward_plain(g.float(), rois, (38, 38), pool_size=7,
-                                                            center_stride=stride)
+                    kw = {"pool_size": 7, "center_stride": stride}
+                    got = roi_align.roi_pool_backward_cuda(g, rois, (38, 38), **kw)
+                    again = roi_align.roi_pool_backward_cuda(g, rois, (38, 38), **kw)
+                    ref = roi_align.roi_pool_backward_plain(g.float(), rois, (38, 38), **kw)
+                    sums = earlier_roi_backward(earlier["roi_pool_backward"], g, rois, (38, 38), **kw)
+                    sums_again = earlier_roi_backward(earlier["roi_pool_backward"], g, rois, (38, 38),
+                                                      **kw)
                     torch.cuda.synchronize()
-                    ok, err, err32, top, tol = roi_backward_error(got, ref, dtype)
+                    deterministic = bool(torch.equal(got, again))
+                    ok, err, top, tol = roi_backward_error(got, ref)
+                    _, err_earlier, _, _ = roi_backward_error(sums.to(dtype), ref)
                     if (b, r, kind, dtype, stride) == (8, 20, "random", torch.bfloat16, 2):
                         err_main = err
-                    emit({"phase": "kernel2_backward", "shape": [b, 38, 38, 1024, r, 7],
-                          "rois": kind, "dtype": str(dtype), "center_stride": stride,
-                          "max_abs_err": err, "max_abs_err_float32_sums": err32, "largest": top,
-                          "tolerance": tol})
+                    line = {"phase": "kernel2_backward", "shape": [b, 38, 38, 1024, r, 7],
+                            "rois": kind, "dtype": str(dtype), "center_stride": stride,
+                            "max_abs_err": err, "largest": top, "tolerance": tol,
+                            "deterministic": deterministic, "earlier_max_abs_err": err_earlier,
+                            "earlier_deterministic_float32_sums": bool(torch.equal(sums, sums_again))}
+                    if dtype == torch.bfloat16 and stride == 2:
+                        line["ms"] = device_ms(
+                            lambda: roi_align.roi_pool_backward_cuda(g, rois, (38, 38), **kw),
+                            "roi_pool_backward_kernel", iters=10)
+                        line["earlier_ms"] = device_ms(
+                            lambda: earlier_roi_backward(earlier["roi_pool_backward"], g, rois,
+                                                         (38, 38), **kw),
+                            "roi_pool_backward_atomic_kernel", iters=10)
+                    emit(line)
                     check(ok, f"roi_pool_backward disagrees with its plain version "
                               f"({b}, {r}, {kind}, {dtype}, stride {stride})")
-                    del got, ref
+                    check(deterministic, f"roi_pool_backward gave two results on the same inputs "
+                                         f"({b}, {r}, {kind}, {dtype}, stride {stride})")
+                    del got, again, ref, sums, sums_again
     fm = torch.randn(2, 6, 6, 3, dtype=torch.float64, device=dev, requires_grad=True)
     rois = torch.tensor([[[0, 0, 6, 6], [1, 2, 3, 1], [5, 5, 0, 0]],
                          [[2, 1, 4, 4], [0, 3, 6, 2], [1, 1, 1, 1]]], dtype=torch.float32, device=dev)
@@ -1707,7 +1786,7 @@ def captured_kernel_inputs(step, batch, draws):
     return got
 
 
-def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs) -> dict:
+def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier) -> dict:
     """Phase train_step: ms per step and the card's busy share over 10
     steps, frozen and trainable trunk; peak memory; the host's samples/s;
     each kernel on the inputs one train step gave it, held against its plain
@@ -1784,35 +1863,8 @@ def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs) -> dict:
                      fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
                  "bound_ms": bnd, "bound_by": by}
 
-    g, brois, map_hw, bkw = captured["bwd"]
-    ok_bwd, bwd_err, _, _, bwd_tol = roi_backward_error(
-        roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw),
-        roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw), g.dtype)
-    gb = g.permute(0, 4, 1, 2, 3).reshape(b, c, r * p, p).contiguous()  # grid_sample's layout
-
-    def library():
-        return torch.ops.aten.grid_sampler_2d_backward(gb, fmap_nchw, grid, 0, 1, True, [True, False])
-
-    bnd, by = bound_ms(g.numel() * g.element_size() + b * r * 16 + b * hw * hw * c * elt,
-                       10.0 * b * r * p * p * c)
-    bwd = {
-        "name": "roi_pool_backward", "route": "cuda", "source": "radnet_torch/csrc/roi_pool_backward.cu",
-        "replaces": "radnet_tpu/ops/roi_align.py:121 (XLA autodiff of roi_pool_matmul; no Pallas kernel)",
-        "shape": [b, hw, hw, c, r, p],
-        "ms": device_ms(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw),
-                        "roi_pool_backward_kernel"),
-        "call_ms": time_cuda(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw)),
-        "call_device_ms": call_device_ms(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw)),
-        "plain_ms": time_cuda(lambda: roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw), iters=5),
-        "library_ms": call_device_ms(library),
-        "library": ("torch.ops.aten.grid_sampler_2d_backward (F.grid_sample's backward), same "
-                    "shape; device ms of every kernel it launches"),
-        "bound_ms": bnd, "bound_by": by, "max_abs_err": errs["roi_pool_backward"],
-        "max_abs_err_train_step_inputs": bwd_err, "tolerance": bwd_tol,
-        "bound_bytes_note": "reads the bf16 cell gradient once, writes the map's gradient once in bf16",
-        "bound_ms_float32_accumulator": bound_ms(g.numel() * g.element_size() + b * r * 16
-                                                 + b * hw * hw * c * 4, 0)[0],
-    }
+    bwd = backward_train_kernel(captured["bwd"], fmap_nchw, grid, errs["roi_pool_backward"],
+                                earlier)
     emit({"phase": "train_kernels", "nms_fused": nms_train, "roi_pool": fwd_train,
           "roi_pool_backward": bwd})
     check(kept_mism == 0 and nms_train["rounds_equal"],
@@ -1820,10 +1872,86 @@ def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs) -> dict:
           f"({kept_mism} kept mismatches, rounds equal: {nms_train['rounds_equal']})")
     check(ok_fwd, f"roi_pool disagrees with its plain version on the train step's inputs "
                   f"({fwd_err}, {fwd_tol})")
-    check(ok_bwd, f"roi_pool_backward disagrees with its plain version on the train step's "
-                  f"inputs ({bwd_err}, {bwd_tol})")
+    check(bwd["within_tolerance"], f"roi_pool_backward disagrees with its plain version on the "
+                                   f"train step's inputs ({bwd['max_abs_err_train_step_inputs']}, "
+                                   f"{bwd['tolerance']})")
+    check(bwd["deterministic"], "roi_pool_backward gave two results on the train step's inputs")
+    check(bwd["call_kernels"] == 1, f"one RoIPoolFunction backward launched "
+                                    f"{bwd['call_kernels']} device kernels, not 1")
     return {"nms_fused": nms_train, "roi_pool": fwd_train, "roi_pool_backward": bwd,
             "train_step": per_trunk}
+
+
+def backward_train_kernel(captured_bwd, fmap_nchw, grid, err_main: float, earlier) -> dict:
+    """The backward kernel on the inputs one train step gave it: held
+    against its plain version, launched twice (bit-equal), timed beside its
+    bound, its plain version, the library call and the earlier atomic
+    kernel; and the whole RoIPoolFunction backward timed after (this
+    kernel alone) and before (the earlier wrapper's zero fill, atomic kernel
+    and cast), with the device kernels each call launches."""
+    import types
+
+    import torch
+
+    from radnet_torch.ops import roi_align
+
+    g, brois, map_hw, bkw = captured_bwd
+    b, r, p, _, c = g.shape
+    h, w = map_hw
+    got = roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw)
+    again = roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw)
+    ref = roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw)
+    sums = earlier_roi_backward(earlier["roi_pool_backward"], g, brois, map_hw, **bkw)
+    ok, err, _, tol = roi_backward_error(got, ref)
+    _, err_earlier, _, _ = roi_backward_error(sums.to(g.dtype), ref)
+    deterministic = bool(torch.equal(got, again))
+    del got, again, ref, sums
+    # What RoIPoolFunction.forward leaves on its context.
+    ctx = types.SimpleNamespace(saved_tensors=(brois,), needs_input_grad=(True, False, False, False),
+                                geometry=(h, w, g.dtype, p, bkw["center_stride"]))
+
+    def after():
+        return roi_align.RoIPoolFunction.backward(ctx, g)[0]
+
+    def before():  # the earlier RoIPoolFunction.backward, on the same contiguous grad_out
+        return earlier_roi_backward(earlier["roi_pool_backward"], g, brois, map_hw,
+                                    **bkw).to(g.dtype)
+
+    gb = g.permute(0, 4, 1, 2, 3).reshape(b, c, r * p, p).contiguous()  # grid_sample's layout
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(gb, fmap_nchw, grid, 0, 1, True, [True, False])
+
+    elt = g.element_size()
+    bnd, by = bound_ms(g.numel() * elt + b * r * 16 + b * h * w * c * elt, 10.0 * b * r * p * p * c)
+    return {
+        "name": "roi_pool_backward", "route": "cuda", "source": "radnet_torch/csrc/roi_pool_backward.cu",
+        "replaces": "radnet_tpu/ops/roi_align.py:121 (XLA autodiff of roi_pool_matmul; no Pallas kernel)",
+        "shape": [b, h, w, c, r, p], "dtype": str(g.dtype),
+        "ms": device_ms(lambda: roi_align.roi_pool_backward_cuda(g, brois, map_hw, **bkw),
+                        "roi_pool_backward_kernel"),
+        "earlier_ms": device_ms(
+            lambda: earlier_roi_backward(earlier["roi_pool_backward"], g, brois, map_hw, **bkw),
+            "roi_pool_backward_atomic_kernel"),
+        "call_ms": time_cuda(after), "call_device_ms": call_device_ms(after),
+        "call_kernels": device_work_per_call(after),
+        "earlier_call_ms": time_cuda(before), "earlier_call_device_ms": call_device_ms(before),
+        "earlier_call_kernels": device_work_per_call(before),
+        "call_kernels_counted_by": "nodes of a CUDA graph captured from one call",
+        "call": "RoIPoolFunction.backward on grad_out contiguous in the map's type",
+        "earlier_call": "zero-filled float32 map, earlier atomic kernel, cast to the map's type",
+        "plain_ms": time_cuda(lambda: roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw), iters=5),
+        "library_ms": call_device_ms(library),
+        "library": ("torch.ops.aten.grid_sampler_2d_backward (F.grid_sample's backward), same "
+                    "shape; device ms of every kernel it launches"),
+        "bound_ms": bnd, "bound_by": by,
+        "bound_bytes_note": "reads the bf16 cell gradient once, writes the map's gradient once in bf16",
+        "max_abs_err": err_main, "max_abs_err_train_step_inputs": err, "tolerance": tol,
+        "within_tolerance": ok, "deterministic": deterministic,
+        "earlier_max_abs_err_train_step_inputs": err_earlier,
+        "earlier_design": ("float32 atomics into a zero-filled map, cast to the map's type "
+                           "(radnet_torch/csrc/earlier/roi_pool_backward_atomic.cu)"),
+    }
 
 
 def train_sync_free_phase(batch, cfg, dev) -> None:
@@ -2009,7 +2137,7 @@ def main() -> int:
 
     # 3-6. kernels against their plain versions, then timed.
     errs = kernel_checks(dev)
-    errs["roi_pool_backward"] = roi_backward_checks(dev)
+    errs["roi_pool_backward"] = roi_backward_checks(dev, earlier)
     kernels_line = timings(dev, errs, earlier)
 
     # 7-8. the main path through serve, per-stage times, then predict.
@@ -2032,7 +2160,7 @@ def main() -> int:
         trained = train_phase(tmp, dev, smi)
         evaluated = evaluate_phase(tmp, dev, smi, serve_weights)
         batch, samples_per_s = training_batch(tmp, cfg, dev)
-    train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs)
+    train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier)
     train_sync_free_phase(batch, cfg, dev)
     learning_phase(batch, cfg, dev)
     train_card_vs_cpu_phase(batch, cfg, dev)

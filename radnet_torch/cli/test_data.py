@@ -122,7 +122,7 @@ def _kmeans_wh(wh: np.ndarray, k: int = 3, seed: int = 27, iters: int = 50) -> n
     return centers[order]
 
 
-def analyze_anchors(data, config, usage_samples: int = 0, seed: int = 27, device="cpu",
+def analyze_anchors(data, config, usage_samples: int = 0, seed: int = 27, device="cuda",
                     draws: Draws | None = None) -> dict:
     """Object-size statistics vs the configured anchor grid.
 
@@ -168,7 +168,7 @@ def analyze_anchors(data, config, usage_samples: int = 0, seed: int = 27, device
     return report
 
 
-def _anchor_usage(data, config, n_samples: int, seed: int, device="cpu",
+def _anchor_usage(data, config, n_samples: int, seed: int, device="cuda",
                   draws: Draws | None = None) -> dict:
     """Positives assigned to each (scale, ratio) anchor over ``n_samples``
     generator samples.  An anchor with ~0 positives is dead weight; if every

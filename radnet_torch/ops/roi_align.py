@@ -13,9 +13,13 @@ two rows and two columns, so both the plain version and the CUDA kernel read
 four taps.  :func:`batched_roi_pool` runs the plain version on CPU tensors
 (native autograd) and, on CUDA tensors, :class:`RoIPoolFunction`: the
 forward kernel (``csrc/roi_pool.cu``) and, for the gradient, the backward
-kernel (``csrc/roi_pool_backward.cu``), which scatters each pooled cell's
-gradient to its four taps with the same weights.  The RoIs get no gradient:
-they come from proposals that carry none.
+kernel (``csrc/roi_pool_backward.cu``), which gives each pooled cell's
+gradient back to its four taps with the same weights.  It gathers rather
+than scatters: one block owns a map row and sums, in a fixed order and in
+float32, every cell gradient whose taps land on it, then writes the row
+once in the map's type; so it needs no atomics, no zeroed buffer and no
+cast, and two calls give the same bits.  The RoIs get no gradient: they
+come from proposals that carry none.
 """
 
 from __future__ import annotations
@@ -85,6 +89,10 @@ def roi_pool_plain(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: in
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_POOL_SIZE = 32  # csrc/roi_pool.cu computes an axis' taps on one warp
+# csrc/roi_pool_backward.cu: a block sums one map row of 512 bytes of
+# channels in float32 shared memory, at most this many bytes of it.
+_BACKWARD_CHUNK_BYTES = 512
+_BACKWARD_MAX_ROW_BYTES = 192 * 1024
 
 
 def roi_pool_cuda(fmap: torch.Tensor, rois_xywh: torch.Tensor, *, pool_size: int,
@@ -155,7 +163,8 @@ def roi_pool_backward_cuda(grad_out: torch.Tensor, rois_xywh: torch.Tensor,
                            map_hw: tuple[int, int], *, pool_size: int,
                            center_stride: int = 1) -> torch.Tensor:
     """Launch ``csrc/roi_pool_backward.cu``; same contract as
-    :func:`roi_pool_backward_plain` (float32 out)."""
+    :func:`roi_pool_backward_plain`, but the map's gradient comes out in
+    ``grad_out``'s type (the map's), from float32 sums rounded once."""
     if not (grad_out.is_cuda and rois_xywh.is_cuda and grad_out.device == rois_xywh.device):
         raise ValueError("roi_pool_backward_cuda needs both tensors on one CUDA device")
     if grad_out.dtype not in _DTYPE_CODE:
@@ -175,7 +184,11 @@ def roi_pool_backward_cuda(grad_out: torch.Tensor, rois_xywh: torch.Tensor,
     if not 1 <= pool_size <= MAX_POOL_SIZE:
         raise ValueError(f"roi_pool_backward_cuda takes 1 to {MAX_POOL_SIZE} cells a side")
     h, w = map_hw
-    out = torch.zeros((b, h, w, c), dtype=torch.float32, device=grad_out.device)
+    row_bytes = w * (_BACKWARD_CHUNK_BYTES // grad_out.element_size()) * 4
+    if row_bytes > _BACKWARD_MAX_ROW_BYTES:
+        raise ValueError(f"roi_pool_backward_cuda sums a map row of W = {w} in {row_bytes} bytes "
+                         f"of shared memory; at most {_BACKWARD_MAX_ROW_BYTES} fit")
+    out = torch.empty((b, h, w, c), dtype=grad_out.dtype, device=grad_out.device)
     cuda_kernels.ROI_POOL_BACKWARD.launch(
         cuda_kernels.ptr(grad_out), cuda_kernels.ptr(rois_xywh), cuda_kernels.ptr(out),
         b, h, w, c, r, pool_size, center_stride, _DTYPE_CODE[grad_out.dtype],
@@ -185,7 +198,7 @@ def roi_pool_backward_cuda(grad_out: torch.Tensor, rois_xywh: torch.Tensor,
 
 class RoIPoolFunction(torch.autograd.Function):
     """RoI pooling on CUDA tensors: the forward kernel, and the backward
-    kernel for the map's gradient, cast once to the map's type."""
+    kernel for the map's gradient, in the map's type."""
 
     @staticmethod
     def forward(ctx, fmap, rois_xywh, pool_size: int, center_stride: int):
@@ -200,7 +213,7 @@ class RoIPoolFunction(torch.autograd.Function):
         grad = None
         if ctx.needs_input_grad[0]:
             grad = roi_pool_backward_cuda(grad_out.to(dtype).contiguous(), rois, (h, w),
-                                          pool_size=p, center_stride=stride).to(dtype)
+                                          pool_size=p, center_stride=stride)
         return grad, None, None, None
 
 

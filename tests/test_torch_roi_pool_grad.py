@@ -1,8 +1,10 @@
 """The RoI-pool gradient with respect to the feature map: the plain
 version's autograd and ``roi_pool_backward_plain`` (the reference of
 ``csrc/roi_pool_backward.cu``) against ``jax.grad`` of radnet_tpu's
-``roi_pool_matmul``, float32, within 1e-5 of the largest magnitude; the
-CUDA path's wrappers refuse CPU tensors."""
+``roi_pool_matmul``, float32, within 1e-5 of the largest magnitude, on
+random RoIs and on the geometry the kernel treats specially (the map's
+edges, where a clamp puts both taps on one pixel; one RoI repeated; many
+overlapping RoIs); the CUDA path's wrappers refuse CPU tensors."""
 
 import functools
 
@@ -61,6 +63,60 @@ def test_roi_pool_gradient_matches_jax(stride, seed):
     out.backward(torch.from_numpy(g))
     _close(fm.grad.numpy(), want)
     assert np.abs(want).max() > 0
+
+
+def _edge_rois(hw, r, seed):
+    """Four tiles of RoIs at the edges of the backward kernel's geometry:
+    near the whole map (with the whole map itself), single pixels (the four
+    corners among them), zero sizes, and RoIs past the bottom-right border,
+    whose taps clamp so that i1 lands on i0."""
+    rng = np.random.default_rng(seed)
+    rois = np.empty((4, r, 4), np.float32)
+    rois[0, :, :2] = rng.integers(-2, 3, (r, 2))
+    rois[0, :, 2:] = rng.integers(hw - 4, hw + 3, (r, 2))
+    rois[0, 0] = (0, 0, hw, hw)
+    for t, size in ((1, 1), (2, 0)):
+        rois[t, :, :2] = rng.integers(0, hw, (r, 2))
+        rois[t, :, 2:] = size
+    rois[1, :4, :2] = ((0, 0), (hw - 1, 0), (0, hw - 1), (hw - 1, hw - 1))
+    rois[3, :, :2] = rng.integers(hw - 1, hw + 3, (r, 2))
+    rois[3, :, 2:] = rng.integers(0, 4, (r, 2))
+    return rois
+
+
+def _geometry(case, hw, seed):
+    if case == "edges":
+        return _edge_rois(hw, 12, seed)
+    if case == "repeated":  # one RoI R times: every cell's taps collide R-fold
+        return np.broadcast_to(np.float32([2, 3, 5, 4]), (2, 24, 4)).copy()
+    rng = np.random.default_rng(seed)  # "overlapping": 64 RoIs over one corner of the map
+    xy = rng.integers(0, 4, (2, 64, 2))
+    wh = rng.integers(1, hw - 2, (2, 64, 2))
+    return np.concatenate([xy, wh], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("pool_size,stride", [(7, 2), (5, 1)])
+@pytest.mark.parametrize("case", ["edges", "repeated", "overlapping"])
+def test_roi_pool_gradient_matches_jax_on_edge_geometry(case, pool_size, stride):
+    hw, c, seed = 9, 8, 4
+    rois = _geometry(case, hw, seed)
+    rng = np.random.default_rng(seed + 20)
+    fmap = rng.normal(0, 1, (rois.shape[0], hw, hw, c)).astype(np.float32)
+    g = rng.normal(0, 1, rois.shape[:2] + (pool_size, pool_size, c)).astype(np.float32)
+    want = _jax_grad(fmap, rois, g, pool_size, stride)
+
+    troi = torch.from_numpy(rois)
+    plain = roi_align.roi_pool_backward_plain(torch.from_numpy(g), troi, (hw, hw),
+                                              pool_size=pool_size, center_stride=stride)
+    _close(plain.numpy(), want)
+    fm = torch.from_numpy(fmap).requires_grad_(True)
+    roi_align.batched_roi_pool(fm, troi, pool_size=pool_size, center_stride=stride).backward(
+        torch.from_numpy(g))
+    _close(fm.grad.numpy(), want)
+    assert np.abs(want).max() > 0
+    if case == "edges":  # the clamp that puts both row or column taps on one pixel is reached
+        (y0, y1, _, _), (x0, x1, _, _) = roi_align._tap_weights(troi, hw, hw, pool_size, stride)
+        assert bool((y0[3] == y1[3]).any()) and bool((x0[3] == x1[3]).any())
 
 
 def test_plain_backward_passes_gradcheck_in_float64():
