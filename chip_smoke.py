@@ -66,14 +66,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 float64;
  11. train      six synthetic 2400 x 2400 grey panels with train.csv and
                 val.csv; radnet_torch.cli.train at the default config (2
-                epochs of 16 steps, validation, --allow-random-init), then
+                epochs of 8 steps, validation, --allow-random-init), then
                 cli.cont_train (1 epoch of 8 steps, trunk trainable), then
                 load_radnet(...).predict on a panel: record.csv has 3 rows,
                 the checkpoints, model.pt and each run's dashboard.html exist,
                 and each run launched one NMS and one RoI forward per step or
                 validation batch, and the backward once per trainable step
                 (never when frozen);
- 12. evaluate   on the model cli.train wrote, a test set of 24 synthetic
+ 12. evaluate   on the model cli.train wrote, a test set of 12 synthetic
                 2400 x 2400 panels (the two validation panels and 22 more):
                 radnet_torch.cli.test --coco-map (every class and mAP in
                 test_accuracy.json, AP50 == mAP over 10 thresholds in
@@ -98,16 +98,59 @@ Phases, in order; any failure exits non-zero and prints no result line:
  14. train_sync_free  one train step under set_sync_debug_mode("error");
  15. learning   60 steps on one fixed batch, photometric augmentation off:
                 the mean loss of the last 10 below that of the first 5;
- 16. train_card_vs_cpu  one float32 step (TF32 off, batch 2, trunk
+ 16. train_card_vs_cpu  one float32 joint step (TF32 off, batch 2, trunk
                 trainable) on the card and the CPU with the same weights and
                 draws: the proposal sets at most 5% unmatched; with the
                 card's proposals given to the CPU step, losses within 1e-4
                 relative and updates within 1e-4 of the largest.
 
+VGG16 (vgg_config(): the default Config with network="vgg16", vgg_fc_dim
+4096), beside the ResNet50 phases above:
+  vgg_kernels   (beside phases 4 and 10) RoI pooling at (12, 38, 38, 512) x
+                (12, 300) and its backward at (8, 20) and (12, 300) RoIs,
+                C = 512, P = 7, stride 1, random and edge RoIs, bf16 and f32,
+                against their plain versions at the tolerances of phases 4
+                and 10; the backward bit-equal across two launches;
+  vgg_serve     seeded full-width weights (output layers calibrated) served
+                through radnet_torch.cli.serve on three 4400 x 3000 grey
+                panels: exactly 2 NMS and 1 RoI pool a batch, no grey stem;
+  vgg_stages    one 12-tile batch by stage (trunk, RPN + proposals, RoI
+                pool, head, per-class NMS) with its launches; the sync check
+                on a batch and a panel's dispatch (vgg_sync_free); the NMS
+                and RoI pool on the inputs this batch gave them
+                (vgg_kernels_main_path), held and timed;
+  vgg_predict   radnet_torch.cli.predict on a scan directory;
+  vgg_card_vs_cpu  one float32 2-tile grey batch, card vs CPU;
+  vgg_train     cli.train --network vgg16 --train-schedule alternating (2
+                epochs of 8 steps, validation), then cli.cont_train (4 steps,
+                trunk trainable): 3 record rows, both Adam states in the
+                checkpoint, exact launches per step, the backward once per
+                trainable step;
+  vgg_evaluate  cli.test --coco-map on that directory over 6 test panels
+                (exact launches a batch), and the calibrated serving weights
+                on one panel card vs CPU (at most 5% unmatched; mAP against
+                the panel's boxes above 0 and within 0.005, against every
+                second CPU detection within 0.05);
+  vgg_train_step  ms a step and busy share at batch 8, joint and
+                alternating, frozen and trainable; the kernels on one
+                trainable alternating step's inputs (vgg_train_kernels);
+  vgg_train_sync_free  one alternating step under the sync check;
+  vgg_learning  40 alternating steps on a fixed batch: the loss falls;
+  vgg_train_card_vs_cpu  one float32 alternating step card vs CPU, trunk
+                trainable, plain SGD in both phases, each phase on identical
+                inputs (the detector phase from the card's parameters after
+                its RPN phase, on its proposals): proposals at most 5%
+                unmatched, losses within 1e-4 relative, the output layers'
+                updates within 1e-4 of the largest, the other updates and
+                the feature map's gradient within 0.1 (float32 flips ReLUs:
+                alternating_card_vs_cpu_phase's docstring).
+
 The last lines are the kernels JSON line (four kernels; launches over each
 kernel's main path: the served run, or cont_train for the backward; beside
-them the launches of the train, cont_train, test and test_rpn runs), the
-nvidia-smi line, and {"ok": true, "device": {...}}.
+them the launches of the train, cont_train, test and test_rpn runs, and
+under "launches_vgg16" those of the VGG16 runs; each kernel's rows at the
+VGG16 shapes under "vgg16"), the nvidia-smi line, and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -491,11 +534,12 @@ def count_flops(model):
     import torch
 
     from radnet_torch.models.layers import Conv
+    from radnet_torch.models.vgg import Dense
 
     totals: dict[str, int] = {}
     hooks = []
     for name, m in model.named_modules():
-        if isinstance(m, (Conv, torch.nn.Linear)):
+        if isinstance(m, (Conv, Dense, torch.nn.Linear)):
             def hook(mod, inp, out, top=name.split(".")[0]):
                 totals[top] = totals.get(top, 0) + 2 * out.numel() * mod.weight[0].numel()
 
@@ -544,9 +588,12 @@ def calibrate_heads(radnet, canvases, gen):
             pool_size=model.pool_size, center_stride=model.pool_center_stride,
         )
         head = model.head
-        x = p.reshape((-1,) + p.shape[2:]).permute(0, 3, 1, 2)
-        x = head.s5c(head.s5b(head.s5a(x.to(head.dtype))))
-        feats = F.avg_pool2d(x, 7).flatten(1).float()[props.valid.reshape(-1)]
+        if model.network == "vgg16":  # fc1 and fc2 on the flattened NHWC pool
+            x = F.relu(head.fc2(F.relu(head.fc1(p.reshape(p.shape[0] * p.shape[1], -1)))))
+        else:
+            x = p.reshape((-1,) + p.shape[2:]).permute(0, 3, 1, 2)
+            x = F.avg_pool2d(head.s5c(head.s5b(head.s5a(x.to(head.dtype)))), 7).flatten(1)
+        feats = x.float()[props.valid.reshape(-1)]
         fit(head.dense_class, feats, 4.0)
         fit(head.dense_regress, feats, 0.5)
 
@@ -1134,7 +1181,7 @@ def stages_phase(net, panel3, small, origins, kind, smi):
     return images, per_batch
 
 
-def sync_free_phase(net, images, panel3):
+def sync_free_phase(net, images, panel3, phase: str = "sync_free"):
     """One 12-tile batch of the cascade, then one panel's predict_dispatch,
     under torch.cuda.set_sync_debug_mode("error"): any operation that waits
     for the card raises.  Each runs once before, so first-use constants
@@ -1157,7 +1204,7 @@ def sync_free_phase(net, images, panel3):
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     dets = net.predict_collect(pending)
-    emit({"phase": "sync_free", "batch_queue_ms": (t1 - t0) * 1e3,
+    emit({"phase": phase, "batch_queue_ms": (t1 - t0) * 1e3,
           "panel_dispatch_queue_ms": (t2 - t1) * 1e3, "card_done_after_ms": (t3 - t0) * 1e3,
           "batch_detections": int(out[2].sum()), "panel_detections": len(dets)})
     check(len(dets) > 0, "the panel dispatched under the sync check found nothing")
@@ -1239,9 +1286,9 @@ def predict_phase(tmp, net, kind, smi):
         check(len(dets) > 0, f"{name}: no detections")
 
 
-def card_vs_cpu_phase(net, images, dev):
+def card_vs_cpu_phase(net, images, dev, kinds=("grey", "three_channel"), phase="card_vs_cpu"):
     """Phase 9: one 2-tile float32 batch on the card and on the CPU, grey
-    (through the grey stem) and as 3 channels."""
+    (through the grey stem on ResNet50) and as 3 channels."""
     import torch
 
     from radnet_torch.inference import RADNet
@@ -1258,6 +1305,8 @@ def card_vs_cpu_phase(net, images, dev):
     grey = images[2:4]
     wh = torch.full((2, 2), float(cfg32.img_size))
     for name, canv in (("grey", grey), ("three_channel", grey[..., None].expand(2, *grey.shape[1:], 3))):
+        if name not in kinds:
+            continue
         canv = canv.contiguous()
         t0 = time.perf_counter()
         got = [t.cpu().numpy() for t in gpu._predict_tiles_impl(canv, wh.to(dev))]
@@ -1276,7 +1325,7 @@ def card_vs_cpu_phase(net, images, dev):
                         w.pop(hit)
                 unmatched += len(w)
         pooled = n_g + n_w
-        emit({"phase": "card_vs_cpu", "canvases": name, "dtype": "float32", "tf32": False,
+        emit({"phase": phase, "network": cfg32.network, "canvases": name, "dtype": "float32", "tf32": False,
               "tiles": 2, "detections_card": n_g, "detections_cpu": n_w,
               "unmatched": unmatched, "seconds": cmp_s})
         check(pooled > 0, f"float32 {name} comparison has no detections")
@@ -1288,7 +1337,7 @@ def card_vs_cpu_phase(net, images, dev):
 # --------------------------------------------------------------------------- #
 TRAIN_PANEL = 2400
 # The evaluate phase's test set: the two validation panels and fresh ones.
-N_TEST_PANELS = 24
+N_TEST_PANELS = 12
 FG_CLASSES = ["boat", "human", "other", "animal", "circle", "wheel"]
 # (B, R) of the backward checks: the train step's RoI sample, the cascade's.
 BACKWARD_CASES = [(8, 20), (12, 300)]
@@ -1418,10 +1467,21 @@ def write_training_set(root: str, n_train: int = 4, n_val: int = 2) -> None:
     write_split(root, "val", [SEED + 200 + k for k in range(n_val)])
 
 
-def train_phase(tmp: str, dev, smi) -> dict:
-    """Phase train: radnet_torch.cli.train (2 epochs of 16 steps, with
-    validation) and cli.cont_train (1 epoch of 8 steps, trunk trainable) at
-    the default config, then load_radnet on the directory they wrote."""
+# cli.train's arguments past the data, the model dir it writes, steps an
+# epoch of cli.train (2 epochs) and of cli.cont_train (1 epoch), per backbone.
+TRAIN_RUNS = {
+    "resnet50": (["--model-name", "smoke", "--allow-random-init"], "faster_rcnn_resnet50_smoke", 8, 8),
+    "vgg16": (["--network", "vgg16", "--train-schedule", "alternating", "--model-name", "alt"],
+              "faster_rcnn_vgg16_alt", 8, 4),
+}
+
+
+def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "train") -> dict:
+    """Phase train: radnet_torch.cli.train (2 epochs, with validation) and
+    cli.cont_train (1 epoch, trunk trainable) at the default config
+    (ResNet50: the joint step; VGG16: the alternating schedule, from random
+    init), then load_radnet on the directory they wrote.  Writes the six
+    training panels unless they exist."""
     import csv
 
     import torch
@@ -1432,17 +1492,21 @@ def train_phase(tmp: str, dev, smi) -> dict:
     from radnet_torch.inference import load_radnet
     from radnet_torch.ops import cuda_kernels, nms
 
-    t0 = time.perf_counter()
-    write_training_set(tmp)
-    write_s = time.perf_counter() - t0
+    argv, name, epoch_len, cont_len = TRAIN_RUNS[network]
     d = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    if not os.path.isfile(os.path.join(d, "train.csv")):
+        write_training_set(tmp)
+    write_s = time.perf_counter() - t0
     common = ["--device", str(dev), "--models-path", os.path.join(tmp, "train_models"),
               "--train-annot", os.path.join(d, "train.csv"), "--train-data", os.path.join(d, "train"),
               "--val-annot", os.path.join(d, "val.csv"), "--val-data", os.path.join(d, "val")]
     # The CLIs import the step factories when they run: wrap them to count
     # the train and validation batches that fit drives.
     calls = {"train_step": 0, "eval_step": 0}
-    real = (engine_steps.make_train_step, engine_steps.make_eval_step)
+    factories = {"make_train_step": "train_step", "make_alternating_train_step": "train_step",
+                 "make_eval_step": "eval_step"}
+    real = {f: getattr(engine_steps, f) for f in factories}
 
     def counting(make, key):
         def made(*args, **kwargs):
@@ -1455,68 +1519,74 @@ def train_phase(tmp: str, dev, smi) -> dict:
         return made
 
     out = {}
-    model_dir = os.path.join(tmp, "train_models", "faster_rcnn_resnet50_smoke")
+    model_dir = os.path.join(tmp, "train_models", name)
     dashboard = os.path.join(model_dir, "dashboard.html")
-    for name, fn, argv, steps, epochs in (
-            ("train", train.main, ["--model-name", "smoke", "--allow-random-init",
-                                   "--epoch-length", "16", "--n-epochs", "2"], 32, 2),
-            ("cont_train", cont_train.main, ["--model-name", "faster_rcnn_resnet50_smoke",
-                                             "--epoch-length", "8", "--n-epochs", "1"], 8, 1)):
+    for run, fn, run_argv, steps, epochs in (
+            ("train", train.main, argv + ["--epoch-length", str(epoch_len), "--n-epochs", "2"],
+             2 * epoch_len, 2),
+            ("cont_train", cont_train.main, ["--model-name", name, "--epoch-length", str(cont_len),
+                                             "--n-epochs", "1"], cont_len, 1)):
         if os.path.exists(dashboard):  # each run renders its own
             os.remove(dashboard)
         cuda_kernels.reset_launch_counts()
         nms.NMS_STATS.update(calls=0)
         calls.update(train_step=0, eval_step=0)
-        engine_steps.make_train_step = counting(real[0], "train_step")
-        engine_steps.make_eval_step = counting(real[1], "eval_step")
+        for f, key in factories.items():
+            setattr(engine_steps, f, counting(real[f], key))
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(sys.stderr):
-                rc = fn(common + argv)
+                rc = fn(common + run_argv)
         finally:
-            engine_steps.make_train_step, engine_steps.make_eval_step = real
+            for f in factories:
+                setattr(engine_steps, f, real[f])
         torch.cuda.synchronize()
-        out[name] = {"wall_s": time.perf_counter() - t0, "steps": steps, "epochs": epochs, "rc": rc,
-                     "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
-                     "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"],
-                     "dashboard": os.path.isfile(dashboard)}
-        check(rc == 0, f"{name} exited {rc}")
-        check(out[name]["dashboard"], f"{name} wrote no {dashboard}")
+        out[run] = {"wall_s": time.perf_counter() - t0, "steps": steps, "epochs": epochs, "rc": rc,
+                    "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
+                    "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"],
+                    "dashboard": os.path.isfile(dashboard)}
+        check(rc == 0, f"{phase}: {run} exited {rc}")
+        check(out[run]["dashboard"], f"{phase}: {run} wrote no {dashboard}")
     with open(os.path.join(model_dir, "record.csv"), newline="") as f:
         record = list(csv.DictReader(f))
     files = {n: os.path.exists(os.path.join(model_dir, n))
              for n in ("ckpt_best/train_state.pt", "ckpt_last/train_state.pt", "model.pt",
                        "config.json", "metrics.jsonl")}
+    opt = torch.load(os.path.join(model_dir, "ckpt_last", "train_state.pt"),
+                     weights_only=True)["optimizer"]
+    adam_counts = {k: int(v["count"]) for k, v in opt.items()} if "rpn" in opt else None
     net = load_radnet(model_dir, device=dev)
     panel = read_png(os.path.join(d, "val", "enhanced_topo_grey", "panel0.png"))
     dets = net.predict([panel])
-    emit({"phase": "train", "nvidia_smi": smi, "panel": TRAIN_PANEL, "write_s": write_s,
-          **out, "record_rows": len(record),
+    emit({"phase": phase, "network": network, "nvidia_smi": smi, "panel": TRAIN_PANEL,
+          "write_s": write_s, **out, "record_rows": len(record),
           "record_total_loss": [r["total_loss"] for r in record],
           "record_val_total_loss": [r["val_total_loss"] for r in record],
-          "files": files, "predict_detections": len(dets)})
-    check(len(record) == 3, f"record.csv has {len(record)} rows, not 3")
-    check(all(files.values()), f"missing outputs: {files}")
-    for name in ("train", "cont_train"):
-        o, launches = out[name], out[name]["launches"]
+          "files": files, "alternating_adam_counts": adam_counts, "predict_detections": len(dets)})
+    check(len(record) == 3, f"{phase}: record.csv has {len(record)} rows, not 3")
+    check(all(files.values()), f"{phase}: missing outputs: {files}")
+    if network == "vgg16":  # the alternating checkpoint: both Adam states
+        check(adam_counts is not None and adam_counts["rpn"] == cont_len
+              and adam_counts["det"] <= cont_len, f"{phase}: checkpoint Adam counts {adam_counts}")
+    for run in ("train", "cont_train"):
+        o, launches = out[run], out[run]["launches"]
         val = o["val_batches_run"]
         check(o["train_steps_run"] == o["steps"],
-              f"{name}: fit ran {o['train_steps_run']} train steps, not {o['steps']}")
+              f"{phase}: {run}: fit ran {o['train_steps_run']} train steps, not {o['steps']}")
         check(val >= o["epochs"] and val % o["epochs"] == 0,
-              f"{name}: {val} validation batches over {o['epochs']} epochs")
+              f"{phase}: {run}: {val} validation batches over {o['epochs']} epochs")
         # Exactly one proposal NMS and one RoI-pool forward a step, train or eval.
         want = o["steps"] + val
         check(o["nms_calls"] == want and launches["nms_fused"] == want,
-              f"{name}: {o['nms_calls']} NMS calls, {launches['nms_fused']} launches for "
+              f"{phase}: {run}: {o['nms_calls']} NMS calls, {launches['nms_fused']} launches for "
               f"{o['steps']} steps + {val} validation batches")
-        check(launches["roi_pool"] == want,
-              f"{name}: {launches['roi_pool']} RoI-pool launches for {o['steps']} steps + "
-              f"{val} validation batches")
+        check(launches["roi_pool"] == want and launches["grey_stem"] == 0,
+              f"{phase}: {run}: launches {launches} for {o['steps']} steps + {val} validation batches")
     check(out["train"]["launches"]["roi_pool_backward"] == 0,
-          "the frozen-trunk run launched the backward kernel")
-    check(out["cont_train"]["launches"]["roi_pool_backward"] == 8,
-          f"cont_train launched the backward kernel "
-          f"{out['cont_train']['launches']['roi_pool_backward']} times in 8 steps")
+          f"{phase}: the frozen-trunk run launched the backward kernel")
+    check(out["cont_train"]["launches"]["roi_pool_backward"] == cont_len,
+          f"{phase}: cont_train launched the backward kernel "
+          f"{out['cont_train']['launches']['roi_pool_backward']} times in {cont_len} steps")
     return out
 
 
@@ -1591,6 +1661,21 @@ def card_and_cpu(weights: dict, cfg, dev, run) -> dict:
             "unmatched": unmatched(*got), "card_s": secs[0], "cpu_s": secs[1]}
 
 
+def map_card_vs_cpu(weights: dict, cfg, dev, panel, boxes) -> dict:
+    """card_and_cpu's detections on ``panel``, and each side's mAP against
+    the panel's ``boxes`` (``map_card``, ``map_cpu``) and against every
+    second CPU detection (``map_pseudo_gt_card``, ``map_pseudo_gt_cpu``),
+    so that the two mAPs have something to differ on."""
+    from radnet_torch.evaluation import evaluate_detections
+
+    dets = card_and_cpu(weights, cfg, dev, lambda net: net.predict([panel]))
+    pseudo = [{k: det[k] for k in ("class", "x1", "y1", "x2", "y2")} for det in dets["cpu"][::2]]
+    for key, truth in (("map", boxes), ("map_pseudo_gt", pseudo)):
+        dets[key + "_card"] = evaluate_detections(dets["card"], truth)["mAP"]
+        dets[key + "_cpu"] = evaluate_detections(dets["cpu"], truth)["mAP"]
+    return dets
+
+
 def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
     """Phase evaluate, on the model directory cli.train wrote, over a test set
     of N_TEST_PANELS 2400 x 2400 panels (the two validation panels first):
@@ -1606,7 +1691,6 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
     from radnet_torch.config import Config
     from radnet_torch.data.dataset import get_data, get_image
     from radnet_torch.data.png import read_png
-    from radnet_torch.evaluation import evaluate_detections
     from radnet_torch.inference import RADNet
     from radnet_torch.ops import cuda_kernels
 
@@ -1670,17 +1754,11 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
 
     # The card against the CPU on one panel, float32: the trained model's
     # proposals (40 steps from random init score no detection yet), then the
-    # calibrated serving weights' detections, scored against the panel's
-    # boxes and against every second CPU detection, so that the two mAPs
-    # have something to differ on.
+    # calibrated serving weights' detections and their mAPs.
     panel, gt = get_image(data[0]["filepath"], cfg.img_types), data[0]["bboxes"]
     trained_w = torch.load(os.path.join(model_dir, "model.pt"), weights_only=True)
     props = card_and_cpu(trained_w, cfg, dev, lambda net: net.predict_region_proposals(panel))
-    dets = card_and_cpu(serve_weights, cfg, dev, lambda net: net.predict([panel]))
-    pseudo = [{k: det[k] for k in ("class", "x1", "y1", "x2", "y2")} for det in dets["cpu"][::2]]
-    for key, truth in (("map", gt), ("map_pseudo_gt", pseudo)):
-        dets[key + "_card"] = evaluate_detections(dets["card"], truth)["mAP"]
-        dets[key + "_cpu"] = evaluate_detections(dets["cpu"], truth)["mAP"]
+    dets = map_card_vs_cpu(serve_weights, cfg, dev, panel, gt)
     cmp = {"trained_proposals": props, "calibrated_detections": dets}
 
     # cli.test_rpn over the test set: only the fused NMS, once a host tile batch.
@@ -1786,100 +1864,128 @@ def captured_kernel_inputs(step, batch, draws):
     return got
 
 
-def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier) -> dict:
+def train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier,
+                     schedules=("joint",), phase: str = "train_step") -> dict:
     """Phase train_step: ms per step and the card's busy share over 10
-    steps, frozen and trainable trunk; peak memory; the host's samples/s;
-    each kernel on the inputs one train step gave it, held against its plain
-    version (NMS kept sets and rounds equal, the RoI pool and its backward
-    within their kernel2 / kernel2_backward tolerances) and timed beside its
-    bound, its plain version and a library call.  Returns kernel-line
-    entries."""
+    steps of each schedule, frozen and trainable trunk; peak memory; the
+    host's samples/s; each kernel on the inputs one trainable step of the
+    last schedule gave it, held against its plain version (NMS kept sets
+    and rounds equal, the RoI pool and its backward within their kernel2 /
+    kernel2_backward tolerances) and timed beside its bound, its plain
+    version and a library call (emitted as ``phase`` with "_step" made
+    "_kernels").  Returns kernel-line entries."""
     import torch
 
-    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.steps import draw_step, make_step
     from radnet_torch.engine.train_state import create_train_state
-    from radnet_torch.ops import nms, roi_align
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    per_trunk, captured = {}, None
-    for trainable in (False, True):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        state = create_train_state(cfg, torch.Generator().manual_seed(SEED), dev,
-                                   base_net_trainable=trainable)
-        step = make_train_step(state, cfg, trunk_trainable=trainable)
-        draws = [draw_step(gen, cfg, cfg.batch_size, dev) for _ in range(10)]
-        count = [0]
+    per_case, captured = {}, None
+    for schedule in schedules:
+        c = dataclasses.replace(cfg, train_schedule=schedule)
+        for trainable in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state = create_train_state(c, torch.Generator().manual_seed(SEED), dev,
+                                       base_net_trainable=trainable)
+            step = make_step(state, c, trunk_trainable=trainable)
+            draws = [draw_step(gen, c, c.batch_size, dev) for _ in range(10)]
+            count = [0]
 
-        def one():
-            count[0] += 1
-            return step(batch, draws[count[0] % 10])
+            def one():
+                count[0] += 1
+                return step(batch, draws[count[0] % 10])
 
-        ms = time_cuda(one, iters=10, warmup=2)
-        wall_ms, busy_ms = device_busy(lambda: [one() for _ in range(10)])
-        per_trunk["trainable" if trainable else "frozen"] = {
-            "ms_per_step": ms, "steps_per_s": 1e3 / ms, "samples_per_s": cfg.batch_size * 1e3 / ms,
-            "wall_ms_10_steps": wall_ms, "busy_ms_10_steps": busy_ms,
-            "busy_share": busy_ms / wall_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        }
-        if trainable:
-            captured = captured_kernel_inputs(step, batch, draws[0])
-        del state, step, draws
-    emit({"phase": "train_step", "nvidia_smi": smi, "batch": cfg.batch_size,
-          "canvas": cfg.canvas_size, "dtype": cfg.compute_dtype, **per_trunk,
+            ms = time_cuda(one, iters=10, warmup=2)
+            wall_ms, busy_ms = device_busy(lambda: [one() for _ in range(10)])
+            per_case[f"{schedule}_{'trainable' if trainable else 'frozen'}"] = {
+                "ms_per_step": ms, "steps_per_s": 1e3 / ms, "samples_per_s": c.batch_size * 1e3 / ms,
+                "wall_ms_10_steps": wall_ms, "busy_ms_10_steps": busy_ms,
+                "busy_share": busy_ms / wall_ms, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            }
+            if trainable and schedule == schedules[-1]:
+                captured = captured_kernel_inputs(step, batch, draws[0])
+            del state, step, draws
+    frozen = per_case[f"{schedules[0]}_frozen"]["samples_per_s"]
+    emit({"phase": phase, "network": cfg.network, "nvidia_smi": smi, "batch": cfg.batch_size,
+          "canvas": cfg.canvas_size, "dtype": cfg.compute_dtype, **per_case,
           "host_samples_per_s": samples_per_s,
-          "host_vs_card": ("host" if samples_per_s < per_trunk["frozen"]["samples_per_s"]
-                           else "card") + " sets the pace (frozen trunk)"})
+          "host_vs_card": ("host" if samples_per_s < frozen else "card")
+                          + f" sets the pace ({schedules[0]}, frozen trunk)"})
+    nms_train, fwd_train, bwd = captured_kernel_rows(captured, errs, earlier,
+                                                     phase.replace("_step", "_kernels"))
+    return {"nms_fused": nms_train, "roi_pool": fwd_train, "roi_pool_backward": bwd,
+            "train_step": per_case}
 
-    # Each kernel against its plain version on the inputs the train step gave it.
-    boxes, scores, valid, thr = captured["nms"]
+
+def nms_row(boxes, scores, valid, thr, where: str) -> dict:
+    """The fused NMS on sets a path gave it: held against its plain version
+    (kept sets and round counts equal) and timed beside its bound."""
+    import torch
+
+    from radnet_torch.ops import nms
+
     kept, rounds = nms.nms_kept_cuda(boxes, scores, valid, thr)
     want_kept, want_rounds = nms.nms_kept_plain(boxes, scores, valid, thr)
     kept_mism = int((kept != want_kept).sum())
     bnd, by = bound_ms(*nms_work(boxes, scores, valid, rounds))
-    nms_train = {"shape": list(scores.shape), "thresh": thr, "valid": int(valid.sum()),
-                 "kept": int(kept.sum()), "rounds_max": int(rounds.max()),
-                 "kept_mismatches": kept_mism, "rounds_equal": bool(torch.equal(rounds, want_rounds)),
-                 "max_abs_err": float((kept.float() - want_kept.float()).abs().max()),
-                 "ms": device_ms(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel"),
-                 "plain_ms": time_cuda(lambda: nms.nms_kept_plain(boxes, scores, valid, thr), iters=3),
-                 "bound_ms": bnd, "bound_by": by}
+    row = {"shape": list(scores.shape), "thresh": thr, "valid": int(valid.sum()),
+           "kept": int(kept.sum()), "rounds_max": int(rounds.max()),
+           "kept_mismatches": kept_mism, "rounds_equal": bool(torch.equal(rounds, want_rounds)),
+           "max_abs_err": float((kept.float() - want_kept.float()).abs().max()),
+           "ms": device_ms(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel"),
+           "plain_ms": time_cuda(lambda: nms.nms_kept_plain(boxes, scores, valid, thr), iters=3),
+           "bound_ms": bnd, "bound_by": by}
+    check(kept_mism == 0 and row["rounds_equal"],
+          f"nms_fused disagrees with its plain version on {where} "
+          f"({kept_mism} kept mismatches, rounds equal: {row['rounds_equal']})")
+    return row
 
-    fmap, rois, kw = captured["fwd"]
-    ok_fwd, fwd_err, fwd_tol = roi_forward_error(
-        roi_align.roi_pool_cuda(fmap, rois, **kw),
-        roi_align.roi_pool_plain(fmap.float(), rois, **kw), fmap.dtype)
+
+def roi_forward_row(fmap, rois, kw, where: str) -> tuple[dict, object, object]:
+    """The RoI-pool kernel on inputs a path gave it: held against its plain
+    version (kernel2's tolerances) and timed beside its bound, its plain
+    version and F.grid_sample.  Also returns grid_sample's NCHW map and grid."""
+    import torch
+
+    from radnet_torch.ops import roi_align
+
+    ok, err, tol = roi_forward_error(roi_align.roi_pool_cuda(fmap, rois, **kw),
+                                     roi_align.roi_pool_plain(fmap.float(), rois, **kw), fmap.dtype)
     b, hw, _, c = fmap.shape
     r, p, elt = rois.shape[1], kw["pool_size"], fmap.element_size()
     grid = grid_sample_centres(rois, p, kw["center_stride"], hw).to(fmap.dtype)
     fmap_nchw = fmap.permute(0, 3, 1, 2)
     bnd, by = bound_ms(b * hw * hw * c * elt + b * r * 16 + b * r * p * p * c * elt,
                        9.0 * b * r * p * p * c)
-    fwd_train = {"shape": [b, hw, hw, c, r, p], "dtype": str(fmap.dtype),
-                 "max_abs_err": fwd_err, "tolerance": fwd_tol,
-                 "ms": device_ms(lambda: roi_align.roi_pool_cuda(fmap, rois, **kw), "roi_pool_kernel"),
-                 "plain_ms": time_cuda(lambda: roi_align.roi_pool_plain(fmap, rois, **kw), iters=5),
-                 "library_ms": call_device_ms(lambda: torch.nn.functional.grid_sample(
-                     fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
-                 "bound_ms": bnd, "bound_by": by}
+    row = {"shape": [b, hw, hw, c, r, p], "center_stride": kw["center_stride"],
+           "dtype": str(fmap.dtype), "max_abs_err": err, "tolerance": tol,
+           "ms": device_ms(lambda: roi_align.roi_pool_cuda(fmap, rois, **kw), "roi_pool_kernel"),
+           "plain_ms": time_cuda(lambda: roi_align.roi_pool_plain(fmap, rois, **kw), iters=5),
+           "library_ms": call_device_ms(lambda: torch.nn.functional.grid_sample(
+               fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
+           "bound_ms": bnd, "bound_by": by}
+    check(ok, f"roi_pool disagrees with its plain version on {where} ({err}, {tol})")
+    return row, fmap_nchw, grid
 
+
+def captured_kernel_rows(captured, errs, earlier, phase: str):
+    """Each kernel against its plain version on the inputs one train step
+    gave it (captured_kernel_inputs), timed: the NMS, RoI-pool forward and
+    backward rows, emitted as ``phase``."""
+    where = "the train step's inputs"
+    nms_train = nms_row(*captured["nms"], where)
+    fwd_train, fmap_nchw, grid = roi_forward_row(*captured["fwd"], where)
     bwd = backward_train_kernel(captured["bwd"], fmap_nchw, grid, errs["roi_pool_backward"],
                                 earlier)
-    emit({"phase": "train_kernels", "nms_fused": nms_train, "roi_pool": fwd_train,
-          "roi_pool_backward": bwd})
-    check(kept_mism == 0 and nms_train["rounds_equal"],
-          f"nms_fused disagrees with its plain version on the train step's sets "
-          f"({kept_mism} kept mismatches, rounds equal: {nms_train['rounds_equal']})")
-    check(ok_fwd, f"roi_pool disagrees with its plain version on the train step's inputs "
-                  f"({fwd_err}, {fwd_tol})")
-    check(bwd["within_tolerance"], f"roi_pool_backward disagrees with its plain version on the "
-                                   f"train step's inputs ({bwd['max_abs_err_train_step_inputs']}, "
+    emit({"phase": phase, "nms_fused": nms_train, "roi_pool": fwd_train, "roi_pool_backward": bwd})
+    check(bwd["within_tolerance"], f"roi_pool_backward disagrees with its plain version on "
+                                   f"{where} ({bwd['max_abs_err_train_step_inputs']}, "
                                    f"{bwd['tolerance']})")
-    check(bwd["deterministic"], "roi_pool_backward gave two results on the train step's inputs")
+    check(bwd["deterministic"], f"roi_pool_backward gave two results on {where}")
     check(bwd["call_kernels"] == 1, f"one RoIPoolFunction backward launched "
                                     f"{bwd['call_kernels']} device kernels, not 1")
-    return {"nms_fused": nms_train, "roi_pool": fwd_train, "roi_pool_backward": bwd,
-            "train_step": per_trunk}
+    return nms_train, fwd_train, bwd
 
 
 def backward_train_kernel(captured_bwd, fmap_nchw, grid, err_main: float, earlier) -> dict:
@@ -1954,17 +2060,19 @@ def backward_train_kernel(captured_bwd, fmap_nchw, grid, err_main: float, earlie
     }
 
 
-def train_sync_free_phase(batch, cfg, dev) -> None:
-    """Phase train_sync_free: one train step (draws, augmentation, targets,
-    both losses, backward, Adam) queued under set_sync_debug_mode("error"),
-    trunk trainable, after one step that builds the first-use constants."""
+def train_sync_free_phase(batch, cfg, dev, phase: str = "train_sync_free") -> None:
+    """Phase train_sync_free: one train step of ``cfg.train_schedule`` (draws,
+    augmentation, targets, losses, backward, the Adam updates, the
+    alternating detector update gated on the card) queued under
+    set_sync_debug_mode("error"), trunk trainable, after one step that
+    builds the first-use constants."""
     import torch
 
-    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.steps import draw_step, make_step
     from radnet_torch.engine.train_state import create_train_state
 
     state = create_train_state(cfg, torch.Generator().manual_seed(SEED), dev, base_net_trainable=True)
-    step = make_train_step(state, cfg, trunk_trainable=True)
+    step = make_step(state, cfg, trunk_trainable=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     step(batch, draw_step(gen, cfg, cfg.batch_size, dev))
     torch.cuda.synchronize()
@@ -1978,19 +2086,20 @@ def train_sync_free_phase(batch, cfg, dev) -> None:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     total = float(metrics["total_loss"])
-    emit({"phase": "train_sync_free", "queue_ms": (t1 - t0) * 1e3, "card_done_after_ms": (t2 - t0) * 1e3,
-          "total_loss": total})
-    check(np.isfinite(total), "the sync-free step's loss is not finite")
+    emit({"phase": phase, "schedule": cfg.train_schedule, "queue_ms": (t1 - t0) * 1e3,
+          "card_done_after_ms": (t2 - t0) * 1e3, "total_loss": total})
+    check(np.isfinite(total), f"{phase}: the step's loss is not finite")
 
 
-def learning_phase(batch, cfg, dev, n_steps: int = 60, lr: float = 1e-5) -> dict:
-    """Phase learning: one fixed batch, photometric augmentation off, trunk
-    frozen, ``n_steps`` Adam steps from the seeded init with calibrated
-    output layers; the mean total loss of the last 10 steps must be below
-    the mean of the first 5."""
+def learning_phase(batch, cfg, dev, n_steps: int = 60, lr: float = 1e-5,
+                   phase: str = "learning") -> dict:
+    """Phase learning: ``cfg.train_schedule`` on one fixed batch,
+    photometric augmentation off, trunk frozen, ``n_steps`` Adam steps from
+    the seeded init with calibrated output layers; the mean total loss of
+    the last 10 steps must be below the mean of the first 5."""
     import torch
 
-    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.steps import draw_step, make_step
     from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import RADNet
     from radnet_torch.models.detector import build_model, init_weights
@@ -1999,15 +2108,15 @@ def learning_phase(batch, cfg, dev, n_steps: int = 60, lr: float = 1e-5) -> dict
     model = init_weights(build_model(cfg), gen)
     calibrate_heads(RADNet(cfg, model, device=dev), batch["image"][:2], gen)
     state = create_train_state(cfg, gen, dev, learning_rate=lr, model=model)
-    step = make_train_step(state, cfg)
+    step = make_step(state, cfg)
     dgen = torch.Generator(device=dev).manual_seed(SEED)
     totals = torch.stack([step(batch, draw_step(dgen, cfg, batch["image"].shape[0], dev,
                                                 photometric=False))["total_loss"]
                           for _ in range(n_steps)]).cpu().tolist()
     first, last = float(np.mean(totals[:5])), float(np.mean(totals[-10:]))
-    emit({"phase": "learning", "steps": n_steps, "lr": lr, "total_loss": totals,
-          "mean_first_5": first, "mean_last_10": last, "ratio": last / first})
-    check(last < first, f"no learning on a fixed batch: {first} -> {last}")
+    emit({"phase": phase, "schedule": cfg.train_schedule, "steps": n_steps, "lr": lr,
+          "total_loss": totals, "mean_first_5": first, "mean_last_10": last, "ratio": last / first})
+    check(last < first, f"{phase}: no learning on a fixed batch: {first} -> {last}")
     return {"mean_first_5": first, "mean_last_10": last}
 
 
@@ -2026,24 +2135,28 @@ def proposal_sets_unmatched(got, want) -> tuple[int, int]:
 
 
 def train_card_vs_cpu_phase(batch, base, dev) -> dict:
-    """Phase train_card_vs_cpu: one float32 train step (TF32 off, trunk
-    trainable, brightness only) on the card and on the CPU from the same
-    weights and the same StepDraws.  The proposals are a discrete choice
-    (top-k and NMS over RPN scores), so float32 noise at a near tie can swap
-    a proposal and with it a sampled RoI (one run: the detector's class loss
-    2e-3 apart); their sets are held at the serving gate of at most 5%
-    unmatched, and the CPU step then takes the card's proposals so that the
-    rest of the step is compared on the same RoIs: the four losses within
-    1e-4 relative, and the parameter updates within 1e-4 of the largest
-    update.  The step updates with plain SGD here, so an update is lr times
-    the gradient: Adam's first update is lr * sign(g) for any gradient above
-    1e-8, which would turn elements whose gradient is float32 noise into
-    full-size differences (Adam itself is held against optax on the CPU,
-    tests/test_torch_train_step.py)."""
+    """Phase train_card_vs_cpu: one float32 joint step (TF32 off, batch 2,
+    brightness only, trunk trainable) on the card and on the CPU from the
+    same weights and the same StepDraws.  The proposals are a discrete
+    choice (top-k and NMS over RPN scores), so float32 noise at a near tie
+    can swap a proposal and with it a sampled RoI (one run: the detector's
+    class loss 2e-3 apart); their sets are held at the serving gate of at
+    most 5% unmatched, and the CPU step then takes the card's proposals so
+    that the rest of the step is compared on the same RoIs: the four losses
+    within 1e-4 relative, and the parameter updates within 1e-4 of the
+    largest update.  The step updates with plain SGD here (GatedSGD), so an
+    update is lr times the gradient: Adam's first update is lr * sign(g)
+    for any gradient above 1e-8, which would turn elements whose gradient
+    is float32 noise into full-size differences (Adam itself is held
+    against optax on the CPU, tests/test_torch_train_step.py and
+    tests/test_torch_alternating.py).  ResNet50's largest update, its
+    output layers', is ~30x its trunk's, so the 1e-4 gate holds the trunk
+    at ~3e-3 of its own updates (vgg_train_card_vs_cpu holds VGG16's
+    alternating step phase by phase)."""
     import torch
 
     from radnet_torch.engine import steps
-    from radnet_torch.engine.steps import draw_step, make_train_step
+    from radnet_torch.engine.steps import draw_step, make_step
     from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import RADNet
     from radnet_torch.models.detector import build_model, init_weights
@@ -2071,8 +2184,8 @@ def train_card_vs_cpu_phase(batch, base, dev) -> dict:
             m = build_model(cfg)
             m.load_state_dict(weights)
             state = create_train_state(cfg, gen, where, base_net_trainable=True, model=m)
-            state.optimizer = torch.optim.SGD([p for p in m.parameters() if p.requires_grad], lr=1e-3)
-            step = make_train_step(state, cfg, trunk_trainable=True)
+            state.optimizer = GatedSGD(state.optimizer.params, 1e-3)
+            step = make_step(state, cfg, trunk_trainable=True)
             t0 = time.perf_counter()
             metrics = step({k: v.to(where) for k, v in small.items()}, draws.to(where))
             after = {k: v.detach().cpu() for k, v in state.model.named_parameters()}
@@ -2082,28 +2195,556 @@ def train_card_vs_cpu_phase(batch, base, dev) -> dict:
     check(len(props) == 2, f"{len(props)} proposal calls in two train steps")
     props_unmatched, props_total = proposal_sets_unmatched(*props)
     (m_gpu, p_gpu, s_gpu), (m_cpu, p_cpu, s_cpu) = out
-    loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
-                for k in ("loss_rpn_cls", "loss_rpn_regr", "loss_detector_cls", "loss_detector_regr")}
+    loss_rel = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in LOSS_KEYS}
     upd_gpu = {k: p_gpu[k] - weights[k] for k in p_gpu}
     upd_cpu = {k: p_cpu[k] - weights[k] for k in p_cpu}
     largest = max(float(u.abs().max()) for u in upd_cpu.values())
-    worst = max(float((upd_gpu[k] - upd_cpu[k]).abs().max()) for k in upd_cpu)
+    diff = {k: float((upd_gpu[k] - upd_cpu[k]).abs().max()) for k in upd_cpu}
+    worst = max(diff.values())
     n_beyond = sum(int(((upd_gpu[k] - upd_cpu[k]).abs() > 1e-4 * largest).sum()) for k in upd_cpu)
     n_params = sum(u.numel() for u in upd_cpu.values())
-    emit({"phase": "train_card_vs_cpu", "dtype": "float32", "tf32": False, "batch": 2,
-          "proposals_unmatched": props_unmatched, "proposals_both_sides": props_total,
+    emit({"phase": "train_card_vs_cpu", "network": cfg.network, "schedule": cfg.train_schedule,
+          "trunk": "trainable", "dtype": "float32", "tf32": False,
+          "batch": 2, "proposals_unmatched": props_unmatched, "proposals_both_sides": props_total,
           "cpu_step_takes_card_proposals": True,
           "losses_card": m_gpu, "losses_cpu": m_cpu, "loss_rel_err": loss_rel,
           "largest_update": largest, "max_update_diff": worst,
-          "max_update_diff_over_largest": worst / largest,
+          "max_update_diff_over_largest": worst / largest, "worst_update_param": max(diff, key=diff.get),
           "n_beyond_1e-4_of_largest": n_beyond, "n_params": n_params,
           "card_s": s_gpu, "cpu_s": s_cpu})
     check(props_total > 0 and props_unmatched <= 0.05 * props_total,
-          f"card vs CPU proposals: {props_unmatched} of {props_total} unmatched")
-    check(max(loss_rel.values()) <= 1e-4, f"card vs CPU losses differ: {loss_rel}")
-    check(worst <= 1e-4 * largest, f"card vs CPU updates differ by {worst} (largest {largest})")
+          f"train_card_vs_cpu: card vs CPU proposals: {props_unmatched} of {props_total} unmatched")
+    check(max(loss_rel.values()) <= 1e-4, f"train_card_vs_cpu: card vs CPU losses differ: {loss_rel}")
+    check(worst <= 1e-4 * largest, f"train_card_vs_cpu: card vs CPU updates differ by {worst} (largest {largest})")
     return {"loss_rel_err": loss_rel, "max_update_diff_over_largest": worst / largest,
             "proposals_unmatched": props_unmatched}
+
+
+LOSS_KEYS = ("loss_rpn_cls", "loss_rpn_regr", "loss_detector_cls", "loss_detector_regr")
+# The layers whose gradient passes no ReLU between them and the loss: a
+# ReLU that float32 noise flips moves their gradient by ~ the noise only.
+OUTPUT_LAYERS = ("rpn_head.rpn_out_class.", "rpn_head.rpn_out_regress.",
+                 "head.dense_class.", "head.dense_regress.")
+# The limit, as a share of the phase's largest update (the feature map's
+# gradient: of its largest element), on everything a ReLU stands before,
+# from scripts/card_vs_cpu_probe.py's readings (PERF.md, section 6):
+# card vs CPU at most 9.1e-3, CPU vs CPU 2 ulp apart at most 6.3e-2 (one
+# flipped fc2 ReLU), the backward's gradient one map row off 0.31 / 1.35.
+RELU_NOISE_LIMIT = 0.1
+# VGG16's pseudo-ground-truth mAP, card vs CPU, from the same probe's
+# readings: at most 0.0139 over 3 weight seeds x 3 panels (the gated panel
+# and seed read 0.0139), 0.352-0.363 with the pooled cells one column off.
+VGG_PSEUDO_GT_MAP_LIMIT = 0.05
+
+
+def alternating_card_vs_cpu(batch, base, dev, seed: int = SEED + 1, lr: float = 1e-3) -> dict:
+    """One float32 alternating step (TF32 off, batch 2, brightness only,
+    trunk trainable, GatedSGD at ``lr`` in both phases) of the seeded,
+    calibrated ``base`` model on the card, then on the CPU, phase by phase
+    on identical inputs:
+
+      rpn    the CPU step from the same weights (the RPN phase's update);
+      det    the CPU step from the card's parameters after its RPN phase,
+             with its own RPN phase at lr 0 (the detector phase's update);
+      step   the rpn run's detector phase: after the CPU's own RPN update;
+
+    every CPU step takes the card's proposals.  ``witness_rpn`` and
+    ``witness_det`` are the rpn and det runs again from weights moved by 2
+    ulp each (random sign): float32 noise on the CPU alone.  Returns each
+    comparison's readings: loss differences (relative), update differences
+    over the phase's largest update for the output layers (OUTPUT_LAYERS)
+    and for the rest, the feature map's gradient difference over its
+    largest, and the ReLUs whose sign differs before rpn_conv1, fc1 and
+    fc2."""
+    import torch
+
+    from radnet_torch.engine import steps
+    from radnet_torch.engine.steps import draw_step, make_alternating_train_step
+    from radnet_torch.engine.train_state import PhaseAdams, create_train_state
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model, init_weights
+    from radnet_torch.ops.proposals import Proposals
+
+    cfg = dataclasses.replace(base, compute_dtype="float32", batch_size=2, use_noise=False,
+                              train_schedule="alternating")
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights(build_model(cfg), gen)
+    small = {k: v[:2] for k, v in batch.items()}
+    calibrate_heads(RADNet(cfg, model.to(dev), device=dev), small["image"], gen)
+    w0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    draws = draw_step(torch.Generator().manual_seed(seed + 1), cfg, 2, "cpu")
+    torch.set_num_threads(os.cpu_count() or 1)
+    props = []
+    real_decode = steps.decode_proposals
+
+    def decode(*args, **kwargs):
+        own = real_decode(*args, **kwargs)
+        props.append(Proposals(*(t.cpu() for t in own)))
+        return own if len(props) == 1 else props[0]
+
+    def moved(weights, k):
+        """``weights`` with every parameter moved by 2 ulp, signs seeded by ``k``."""
+        g = torch.Generator().manual_seed(seed + k)
+        return {n: (v.double() * (1 + 2.0 ** -22 * (2 * torch.randint(0, 2, v.shape, generator=g) - 1))).float()
+                for n, v in weights.items()}
+
+    def run(where, start, lr_rpn, lr_det):
+        m = build_model(cfg)
+        m.load_state_dict(start)
+        state = create_train_state(cfg, gen, where, base_net_trainable=True, model=m)
+        rec = {"start": start, "fmap_grad": [], "signs": {}}
+
+        def snap():
+            return {k: v.detach().cpu().clone() for k, v in m.named_parameters()}
+
+        class RPNPhase(GatedSGD):
+            def step(self, gate=None):
+                super().step(gate)
+                rec["after_rpn"] = snap()
+
+        state.optimizer = PhaseAdams(RPNPhase(state.optimizer.rpn.params, lr_rpn),
+                                     GatedSGD(state.optimizer.det.params, lr_det))
+        real_features = m.features
+
+        def features(images):
+            f = real_features(images)
+            f.register_hook(lambda g: rec["fmap_grad"].append(g.detach().cpu()))
+            return f
+
+        def sign(name):
+            def hook(mod, inp, out):
+                if torch.is_grad_enabled():  # not step 2's proposal forward
+                    rec["signs"][name] = (out > 0).cpu()
+            return hook
+
+        m.features = features
+        for name, mod in (("rpn_conv1", m.rpn_head.rpn_conv1), ("fc1", m.head.fc1), ("fc2", m.head.fc2)):
+            mod.register_forward_hook(sign(name))
+        t0 = time.perf_counter()
+        metrics = make_alternating_train_step(state, cfg, trunk_trainable=True)(
+            {k: v.to(where) for k, v in small.items()}, draws.to(where))
+        rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+        rec["after"] = snap()
+        rec["s"] = time.perf_counter() - t0
+        return rec
+
+    steps.decode_proposals = decode
+    try:
+        card = run(torch.device(dev), w0, lr, lr)
+        cpu = run("cpu", w0, lr, lr)
+        post = dict(w0, **card["after_rpn"])
+        det = run("cpu", post, 0.0, lr)
+        witness_rpn = run("cpu", moved(w0, 7), lr, 0.0)
+        witness_det = run("cpu", moved(post, 8), 0.0, lr)
+    finally:
+        steps.decode_proposals = real_decode
+
+    def updates(r, phase):
+        start, end = (r["after_rpn"], r["after"]) if phase == "det" else (r["start"], r["after_rpn"])
+        return {k: end[k] - start[k] for k in end}
+
+    def compare(a, b, phase, losses, signs, fmap_index):
+        """a's and b's ``phase`` update, losses and feature-map gradient."""
+        ua, ub = updates(a, phase), updates(b, phase)
+        largest = max(float(u.abs().max()) for u in ub.values())
+        diff = {k: float((ua[k] - ub[k]).abs().max()) / largest for k in ub}
+        out_layers = {k: v for k, v in diff.items() if k.startswith(OUTPUT_LAYERS)}
+        rest = {k: v for k, v in diff.items() if not k.startswith(OUTPUT_LAYERS)}
+        ga, gb = a["fmap_grad"][fmap_index], b["fmap_grad"][fmap_index]
+        return {"loss_rel_err": {k: abs(a["metrics"][k] - b["metrics"][k]) / max(abs(b["metrics"][k]), 1e-12)
+                                 for k in losses},
+                "largest_update": largest,
+                "output_layers_diff": max(out_layers.values()),
+                "rest_diff": max(rest.values()), "worst_rest_param": max(rest, key=rest.get),
+                "fmap_grad_diff": float((ga - gb).abs().max()) / float(gb.abs().max()),
+                "relu_flips": {n: int((a["signs"][n] != b["signs"][n]).sum()) for n in signs}}
+
+    rpn_losses, det_losses = LOSS_KEYS[:2], LOSS_KEYS[2:]
+    (p_card, p_cpu, p_det) = props[:3]
+    return {
+        "seed": seed, "lr": lr, "card_s": card["s"], "cpu_s": cpu["s"],
+        "proposals_same_params": proposal_sets_unmatched(p_card, p_det),
+        "proposals_after_own_rpn_update": proposal_sets_unmatched(p_card, p_cpu),
+        "rpn": compare(card, cpu, "rpn", rpn_losses, ("rpn_conv1",), 0),
+        "det": compare(card, det, "det", det_losses, ("fc1", "fc2"), 1),
+        "step": compare(card, cpu, "det", det_losses, ("fc1", "fc2"), 1),
+        "witness_rpn": compare(witness_rpn, cpu, "rpn", rpn_losses, ("rpn_conv1",), 0),
+        "witness_det": compare(witness_det, det, "det", det_losses, ("fc1", "fc2"), 1),
+    }
+
+
+def alternating_card_vs_cpu_phase(batch, base, dev, phase: str = "vgg_train_card_vs_cpu") -> dict:
+    """Phase vgg_train_card_vs_cpu: alternating_card_vs_cpu's readings,
+    gated on identical inputs (the rpn and det comparisons): the proposals
+    from the same parameters at most 5% unmatched, losses within 1e-4
+    relative, the output layers' updates within 1e-4 of the phase's
+    largest, the other updates and the feature map's gradient (the det
+    phase's is kernel 2b's) within RELU_NOISE_LIMIT.  Float32 noise flips
+    a ReLU whose input is near 0, and a flip changes its gradient by all
+    of it: a conv's weight gradient, a sum over the map of random-sign
+    terms, moves by ~1/sqrt(terms) of itself, an fc row's (40 RoIs) by
+    ~1/6.  The output layers have no ReLU between them and the loss.  The
+    step comparison (the CPU after its own RPN update: its fc1 and fc2
+    inputs ~1e-4 apart, so tens of flips) and the witnesses are
+    reported."""
+    r = alternating_card_vs_cpu(batch, base, dev)
+    emit({"phase": phase, "network": base.network, "schedule": "alternating", "trunk": "trainable",
+          "dtype": "float32", "tf32": False, "batch": 2, "relu_noise_limit": RELU_NOISE_LIMIT, **r})
+    missing, total = r["proposals_same_params"]
+    check(total > 0 and missing <= 0.05 * total,
+          f"{phase}: proposals from the same parameters: {missing} of {total} unmatched")
+    for which in ("rpn", "det"):
+        c = r[which]
+        check(max(c["loss_rel_err"].values()) <= 1e-4, f"{phase}: {which} losses differ: {c['loss_rel_err']}")
+        check(c["output_layers_diff"] <= 1e-4, f"{phase}: {which} output layers' updates differ by "
+              f"{c['output_layers_diff']} of the largest")
+        check(max(c["rest_diff"], c["fmap_grad_diff"]) <= RELU_NOISE_LIMIT,
+              f"{phase}: {which}: updates differ by {c['rest_diff']} of the largest "
+              f"({c['worst_rest_param']}), the feature map's gradient by {c['fmap_grad_diff']}")
+    return r
+
+
+class GatedSGD:
+    """Plain SGD with GatedAdam's interface, for the card-vs-CPU update:
+    the update is lr times the gradient where the gate is open."""
+
+    def __init__(self, params, lr: float):
+        self.params, self.lr = list(params), lr
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def step(self, gate=None) -> None:
+        import torch
+
+        with torch.no_grad():
+            for p in self.params:
+                if p.grad is not None:
+                    scale = -self.lr if gate is None else gate.float() * -self.lr
+                    p.add_(p.grad * scale)
+
+
+# --------------------------------------------------------------------------- #
+# VGG16: its kernel shapes, serving, training (alternating), evaluation.
+# --------------------------------------------------------------------------- #
+VGG_C = 512  # block5_conv3's channels, the map the RoI pool reads
+
+
+def vgg_config():
+    """The default Config with the VGG16 backbone: vgg_fc_dim 4096, canvas
+    608, bf16, 12 tiles a batch, 2048 -> 300 proposals, 20 RoIs, batch 8."""
+    from radnet_torch.config import Config
+
+    return dataclasses.replace(Config(), network="vgg16", model_path="faster_rcnn_vgg16")
+
+
+def vgg_kernel_checks(dev) -> dict:
+    """Phase vgg_kernels: kernel 2 at (12, 38, 38, 512) x (12, 300) and kernel
+    2b at (8, 20) and (12, 300) RoIs with C = 512, P = 7, stride 1, random and
+    edge RoIs, bf16 and f32, against their plain versions at kernel2 /
+    kernel2_backward's tolerances; the backward bit-equal across two
+    launches.  Returns the bf16 random errors."""
+    import torch
+
+    from radnet_torch.ops import roi_align
+
+    errs, kw = {}, {"pool_size": 7, "center_stride": 1}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, make_inputs in (("random", roi_inputs), ("edges", roi_edge_inputs)):
+            fmap, rois = make_inputs(dtype, SEED + 8, dev, c=VGG_C)
+            got = roi_align.roi_pool_cuda(fmap, rois, **kw)
+            ref = roi_align.roi_pool_plain(fmap.float(), rois, **kw)
+            torch.cuda.synchronize()
+            ok, max_err, tol = roi_forward_error(got, ref, dtype)
+            if dtype == torch.bfloat16 and case == "random":
+                errs["roi_pool"] = max_err
+            emit({"phase": "vgg_kernels", "kernel": "roi_pool", "rois": case, "shape": list(got.shape),
+                  "dtype": str(dtype), "center_stride": 1, "max_abs_err": max_err, "tolerance": tol})
+            check(ok, f"roi_pool disagrees with its plain version at VGG16's shape ({case}, {dtype})")
+            del fmap, got, ref
+    for b, r in BACKWARD_CASES:
+        for kind, seed in (("random", 2), ("edges", 3)):
+            for dtype in (torch.bfloat16, torch.float32):
+                g, rois = roi_backward_inputs(dtype, SEED + 8 + seed, dev, b, r, kind, c=VGG_C)
+                got = roi_align.roi_pool_backward_cuda(g, rois, (38, 38), **kw)
+                again = roi_align.roi_pool_backward_cuda(g, rois, (38, 38), **kw)
+                ref = roi_align.roi_pool_backward_plain(g.float(), rois, (38, 38), **kw)
+                torch.cuda.synchronize()
+                deterministic = bool(torch.equal(got, again))
+                ok, err, top, tol = roi_backward_error(got, ref)
+                if (b, r, kind, dtype) == (8, 20, "random", torch.bfloat16):
+                    errs["roi_pool_backward"] = err
+                emit({"phase": "vgg_kernels", "kernel": "roi_pool_backward",
+                      "shape": [b, 38, 38, VGG_C, r, 7], "rois": kind, "dtype": str(dtype),
+                      "center_stride": 1, "max_abs_err": err, "largest": top, "tolerance": tol,
+                      "deterministic": deterministic})
+                check(ok, f"roi_pool_backward disagrees with its plain version at VGG16's width "
+                          f"({b}, {r}, {kind}, {dtype})")
+                check(deterministic, f"roi_pool_backward gave two results at VGG16's width "
+                                     f"({b}, {r}, {kind}, {dtype})")
+                del g, got, again, ref
+    return errs
+
+
+def batch_kernel_inputs(net, images, valid_wh) -> dict:
+    """One batch of the cascade with the NMS and RoI-pool wrappers wrapped:
+    the inputs the serving path gives them."""
+    from radnet_torch.ops import nms, roi_align
+
+    got = {"nms": []}
+    real = (nms.nms_kept, roi_align.roi_pool_cuda)
+
+    def nms_kept(boxes, scores, valid, thresh):
+        got["nms"].append((boxes.clone(), scores.clone(), valid.clone(), thresh))
+        return real[0](boxes, scores, valid, thresh)
+
+    def fwd(fmap, rois, **kw):
+        got["fwd"] = (fmap.clone(), rois.clone(), kw)
+        return real[1](fmap, rois, **kw)
+
+    nms.nms_kept, roi_align.roi_pool_cuda = nms_kept, fwd
+    try:
+        net._predict_tiles_impl(images, valid_wh)
+    finally:
+        nms.nms_kept, roi_align.roi_pool_cuda = real
+    check(len(got["nms"]) == 2 and "fwd" in got, f"one batch made {len(got['nms'])} NMS calls")
+    return got
+
+
+def vgg_serve_phase(tmp, cfg, dev, kind, smi):
+    """Phase vgg_serve: seeded full-width VGG16 weights (output layers
+    calibrated) saved to a model dir and served through
+    radnet_torch.cli.serve on three 4400 x 3000 grey panels, every batch
+    counted: exactly 2 NMS and 1 RoI pool a batch, no grey stem.  Returns
+    the RADNet reloaded from the dir, the prescaled first panel, its window
+    origins, the run's launches and the calibrated weights."""
+    import torch
+
+    from radnet_torch.cli import serve
+    from radnet_torch.data.png import write_png
+    from radnet_torch.data.tiling import plan_tiles
+    from radnet_torch.inference import RADNet, load_radnet, save_radnet
+    from radnet_torch.models.detector import build_model, init_weights
+    from radnet_torch.ops import cuda_kernels
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    radnet = RADNet(cfg, init_weights(build_model(cfg), gen), device=dev)
+    panels = [synthetic_grey_panel(SEED + k) for k in range(N_PANELS)]
+    panel3 = bgr(panels[0])
+    small, scale, _, _ = radnet._prescale_panel(panel3)
+    tiles = plan_tiles(PANEL_HW[1], PANEL_HW[0], cfg.tile_size, cfg.tile_overlap)
+    origins = np.round(tiles[:, :2] * scale).astype(np.int64)
+    calibrate_heads(radnet, radnet._window_canvases(small, origins[:2]), gen)
+    weights = {k: v.detach().cpu() for k, v in radnet.model.state_dict().items()}
+    save_radnet(os.path.join(tmp, "models", "vgg"), cfg, radnet.model)
+    paths = []
+    for k, img in enumerate(panels):
+        paths.append(os.path.join(tmp, f"vgg_panel{k}.png"))
+        write_png(paths[-1], img)
+
+    cuda_kernels.reset_launch_counts()
+    out, err = Stamped(), Stamped(echo=sys.stderr)
+    t0 = time.perf_counter()
+    real_stderr, sys.stderr = sys.stderr, err
+    try:
+        with counting_calls(RADNet, "_predict_tiles_impl") as batches:
+            rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "vgg",
+                             "--warmup-size", str(cfg.tile_size), "--device", str(dev)],
+                            stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
+    finally:
+        sys.stderr = real_stderr
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(rc == 0, f"serve exited {rc} on the VGG16 model")
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    t_ready = next(t for t, line in zip(err.stamps, err.getvalue().splitlines()) if line == "READY")
+    results_s = [t - t_ready for t in out.stamps]
+    n_b = len(batches)
+    emit({"phase": "vgg_serve", "kind": kind, "nvidia_smi": smi, "panels": len(recs),
+          "tiles_per_panel": len(tiles), "batches": n_b,
+          "detections": [len(r.get("detections", [])) for r in recs],
+          "panels_per_s": len(recs) / results_s[-1], "result_s_after_ready": results_s,
+          "serve_wall_s": serve_s, "launches": launches})
+    check([r.get("path") for r in recs] == paths, f"serve output out of order: {recs}")
+    check(all(len(r.get("detections", [])) > 0 for r in recs), "a VGG16 panel has no detections")
+    want = {"grey_stem": 0, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0}
+    check(n_b > 0 and launches == want, f"VGG16 serve launches {launches}, want {want} for {n_b} batches")
+    return load_radnet(os.path.join(tmp, "models", "vgg"), device=dev), panel3, small, origins, launches, weights
+
+
+def vgg_stages_phase(net, panel3, small, origins, kind, smi, errs) -> tuple:
+    """Phase vgg_stages: per-stage times of one 12-tile grey batch (trunk,
+    RPN + proposals, RoI pool, head, per-class NMS), its launches (exactly 2
+    NMS, 1 RoI pool, no grey stem) and FLOPs, a panel's busy and host times;
+    then one batch and one panel's dispatch under
+    set_sync_debug_mode("error"); and the NMS and RoI-pool kernels on the
+    inputs this batch gave them, held against their plain versions and
+    timed.  Returns the batch's canvases and the two kernel rows."""
+    import torch
+
+    from radnet_torch.geometry import xyxy_to_xywh
+    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.ops.roi_align import batched_roi_pool
+
+    cfg, dev, model = net.C, net.device, net.model
+    images = net._window_canvases(small, origins[: cfg.infer_tile_batch])
+    check(images.dim() == 3, f"grey panel canvases are {tuple(images.shape)}, not (T, S, S)")
+    valid_wh = torch.full((len(images), 2), float(cfg.img_size), device=dev)
+    names = ["trunk", "rpn_proposals", "roi_pool", "head", "class_nms"]
+
+    def stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        with torch.inference_mode():
+            ev[0].record()
+            fmap = net._features(images)
+            ev[1].record()
+            props = net._proposals(fmap, valid_wh)
+            ev[2].record()
+            rois = xyxy_to_xywh(props.boxes)
+            pooled = batched_roi_pool(fmap.permute(0, 2, 3, 1).contiguous(), rois.contiguous(),
+                                      pool_size=model.pool_size, center_stride=model.pool_center_stride)
+            ev[3].record()
+            b, r = rois.shape[:2]
+            cls, regr = model.head(pooled.reshape((b * r,) + pooled.shape[2:]))
+            ev[4].record()
+            net._detections(cls.reshape(b, r, -1), regr.reshape(b, r, -1), rois, props.valid)
+            ev[5].record()
+        ev[-1].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))]
+
+    stages()
+    runs = [stages() for _ in range(5)]
+    stage_ms = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(names)}
+    batch_ms = time_cuda(lambda: net._predict_tiles_impl(images, valid_wh), iters=5, warmup=1)
+    saved = launch_counts()
+    cuda_kernels.reset_launch_counts()
+    with count_flops(model) as flops:
+        net._predict_tiles_impl(images, valid_wh)
+    per_batch = launch_counts()
+    for k in cuda_kernels.KERNELS:  # the served run's counts stay the reported ones
+        k.launches = saved[k.name]
+    panel_wall_ms, panel_busy_ms = device_busy(lambda: net.predict([panel3]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = net.predict_dispatch([panel3])
+    t1 = time.perf_counter()
+    net.predict_collect(pending)
+    t2 = time.perf_counter()
+    emit({"phase": "vgg_stages", "kind": kind, "nvidia_smi": smi, "batch_tiles": len(images),
+          "stage_ms": stage_ms, "batch_ms": batch_ms, "launches_per_batch": per_batch,
+          "tflop_per_batch": {k: v / 1e12 for k, v in flops.items()},
+          "tflop_per_s": {"trunk": flops["trunk"] / stage_ms["trunk"] / 1e9,
+                          "head": flops["head"] / stage_ms["head"] / 1e9},
+          "panel_predict_ms": panel_wall_ms, "panel_device_busy_ms": panel_busy_ms,
+          "panel_device_idle_share": 1.0 - panel_busy_ms / panel_wall_ms,
+          "panel_host_ms": {"dispatch": (t1 - t0) * 1e3, "collect": (t2 - t1) * 1e3}})
+    want = {"grey_stem": 0, "nms_fused": 2, "roi_pool": 1, "roi_pool_backward": 0}
+    check(per_batch == want, f"a VGG16 batch launched {per_batch}, want {want}")
+
+    sync_free_phase(net, images, panel3, phase="vgg_sync_free")
+
+    got = batch_kernel_inputs(net, images, valid_wh)
+    where = "the VGG16 serving batch's inputs"
+    nms_rows = {site: nms_row(*sets, where) for site, sets in zip(("proposal", "per_class"), got["nms"])}
+    fwd, _, _ = roi_forward_row(*got["fwd"], where)
+    f = cfg.feat_size
+    check(fwd["shape"] == [len(images), f, f, VGG_C, cfg.post_nms_top_n, 7] and fwd["center_stride"] == 1,
+          f"the VGG16 batch pooled {fwd['shape']} at stride {fwd['center_stride']}")
+    fwd["max_abs_err_random_inputs"] = errs["roi_pool"]
+    emit({"phase": "vgg_kernels_main_path", "nms_fused": nms_rows, "roi_pool": fwd})
+    return images, {"nms_fused": nms_rows, "roi_pool": fwd}, per_batch
+
+
+def vgg_predict_phase(tmp, net, kind, smi) -> dict:
+    """Phase vgg_predict: radnet_torch.cli.predict on a scan directory of
+    grey panels with the VGG16 model: 2 NMS for each RoI pool, no stem."""
+    import torch
+
+    from radnet_torch.cli import predict
+    from radnet_torch.data.png import write_png
+    from radnet_torch.ops import cuda_kernels
+
+    scan = os.path.join(tmp, "scan_vgg")
+    for k, img_type in enumerate(net.C.img_types + ["blended_map_grey"]):
+        path = predict.resolve_type_path(scan, img_type)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_png(str(path), synthetic_grey_panel(SEED + 30 + k))
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = predict.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "vgg",
+                           "--scan-data-path", scan, "--device", str(net.device)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(scan, "arrays", "predictions.json")) as f:
+        preds = json.load(f)
+    emit({"phase": "vgg_predict_cli", "kind": kind, "nvidia_smi": smi, "detections": len(preds),
+          "wall_s": wall_s, "launches": launches})
+    check(rc == 0 and len(preds) > 0, f"predict on the VGG16 model: rc {rc}, {len(preds)} detections")
+    check(launches["roi_pool"] > 0 and launches["nms_fused"] == 2 * launches["roi_pool"]
+          and launches["grey_stem"] == 0, f"VGG16 predict launches {launches}")
+    return launches
+
+
+def vgg_evaluate_phase(tmp: str, dev, smi, serve_weights: dict, n_panels: int = 6) -> dict:
+    """Phase vgg_evaluate: radnet_torch.cli.test --coco-map on the VGG16
+    directory cli.train wrote, over the first ``n_panels`` of the evaluate
+    phase's test set (exactly 2 NMS and 1 RoI pool a batch, no stem), and
+    the calibrated VGG16 serving weights on one panel, float32 card vs CPU:
+    at most 5% unmatched; the mAP against the panel's boxes above 0 and
+    within 0.005; the mAP against every second CPU detection within
+    VGG_PSEUDO_GT_MAP_LIMIT."""
+    from radnet_torch.cli import test
+    from radnet_torch.config import Config
+    from radnet_torch.data.dataset import get_data, get_image
+    from radnet_torch.inference import RADNet
+    from radnet_torch.ops import cuda_kernels
+
+    models = os.path.join(tmp, "train_models")
+    name = "faster_rcnn_vgg16_alt"
+    d = os.path.join(tmp, "data")
+    test_csv, test_dir = os.path.join(d, "test.csv"), os.path.join(d, "test")
+    cuda_kernels.reset_launch_counts()
+    with counting_calls(RADNet, "_predict_tiles_impl") as batches:
+        rc, stdout, test_s = run_cli(test.main, [
+            "--models-path", models, "--model-name", name, "--test-annot", test_csv,
+            "--test-data", test_dir, "--device", str(dev), "--coco-map", "--limit", str(n_panels)])
+    launches = launch_counts()
+    with open(os.path.join(models, name, "test_accuracy.json")) as f:
+        acc = json.load(f)
+    seconds = {k: float(line.split(": ")[1].rstrip("s")) for line in stdout.getvalue().splitlines()
+               for k in ("Average prediction time", "Steady-state prediction time (excl. first panel)")
+               if line.startswith(k + ": ")}
+
+    cfg = Config.load(os.path.join(models, name, "config.json"))
+    data, _, _ = get_data(test_csv, test_dir, cfg.img_types)
+    dets = map_card_vs_cpu(serve_weights, cfg, dev, get_image(data[0]["filepath"], cfg.img_types),
+                           data[0]["bboxes"])
+    shown = {f: v for f, v in dets.items() if f not in ("card", "cpu")}
+    n_b = len(batches)
+    emit({"phase": "vgg_evaluate", "nvidia_smi": smi, "panels": n_panels, "wall_s": test_s,
+          "sec_per_panel": seconds, "batches": n_b, "launches": launches, "mAP": acc.get("mAP"),
+          "card_vs_cpu": shown})
+    check(rc == 0 and "mAP" in acc, f"cli.test on the VGG16 model: rc {rc}, {sorted(acc)}")
+    want = {"grey_stem": 0, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0}
+    check(n_b > 0 and launches == want, f"VGG16 cli.test launches {launches}, want {want}")
+    check(dets["n_card"] > 0 and dets["unmatched"] <= 0.05 * (dets["n_card"] + dets["n_cpu"]),
+          f"VGG16 detections: {dets['unmatched']} unmatched card vs CPU")
+    # Against the panel's boxes the random weights score little but not 0;
+    # against the pseudo ground truth two detections that float32 noise
+    # moves shift the mAP by 0.0139 (VGG_PSEUDO_GT_MAP_LIMIT).
+    check(dets["map_cpu"] > 0, f"the VGG16 detections scored nothing against the panel's boxes: {shown}")
+    check(abs(dets["map_card"] - dets["map_cpu"]) <= 0.005,
+          f"VGG16 calibrated detections: mAP card {dets['map_card']} vs CPU {dets['map_cpu']}")
+    check(dets["map_pseudo_gt_cpu"] > 0, f"the VGG16 pseudo ground truth scored nothing: {shown}")
+    gap = abs(dets["map_pseudo_gt_card"] - dets["map_pseudo_gt_cpu"])
+    check(gap <= VGG_PSEUDO_GT_MAP_LIMIT,
+          f"VGG16 calibrated detections: pseudo-ground-truth mAP card vs CPU {gap} apart")
+    return launches
 
 
 def main() -> int:
@@ -2135,13 +2776,15 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS + list(earlier.values())]})
 
-    # 3-6. kernels against their plain versions, then timed.
+    # 3-6. kernels against their plain versions, then timed; then kernels 2
+    # and 2b at VGG16's width (C = 512, stride 1).
     errs = kernel_checks(dev)
     errs["roi_pool_backward"] = roi_backward_checks(dev, earlier)
+    vgg_errs = vgg_kernel_checks(dev)
     kernels_line = timings(dev, errs, earlier)
 
     # 7-8. the main path through serve, per-stage times, then predict.
-    cfg = Config()
+    cfg, vcfg = Config(), vgg_config()
     with tempfile.TemporaryDirectory() as tmp:
         net, panel3, small, origins, launches = serve_phase(tmp, cfg, dev, kind, smi)
         images, per_batch = stages_phase(net, panel3, small, origins, kind, smi)
@@ -2149,31 +2792,62 @@ def main() -> int:
         sync_free_phase(net, images, panel3)
         predict_phase(tmp, net, kind, smi)
 
-    # 9. card vs CPU, float32, TF32 off.
-    card_vs_cpu_phase(net, images, dev)
-    serve_weights = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
-    del net, images
+        # 9. card vs CPU, float32, TF32 off.
+        card_vs_cpu_phase(net, images, dev)
+        serve_weights = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
+        del net, images
+
+        # VGG16: served, staged, sync-free, predicted, card vs CPU.
+        vnet, panel3, small, origins, vgg_launches, vgg_weights = vgg_serve_phase(
+            tmp, vcfg, dev, kind, smi)
+        vimages, vgg_main, vgg_per_batch = vgg_stages_phase(vnet, panel3, small, origins, kind, smi,
+                                                            vgg_errs)
+        vgg_predict = vgg_predict_phase(tmp, vnet, kind, smi)
+        card_vs_cpu_phase(vnet, vimages, dev, kinds=("grey",), phase="vgg_card_vs_cpu")
+        del vnet, vimages
 
     # 10-16. training and evaluation: the CLIs, per-step numbers, sync-free,
-    # learning, card vs CPU.
+    # learning, card vs CPU; each for ResNet50 (joint) and VGG16 (alternating).
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_phase(tmp, dev, smi)
         evaluated = evaluate_phase(tmp, dev, smi, serve_weights)
+        vgg_trained = train_phase(tmp, dev, smi, "vgg16", phase="vgg_train")
+        vgg_test = vgg_evaluate_phase(tmp, dev, smi, vgg_weights)
         batch, samples_per_s = training_batch(tmp, cfg, dev)
     train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier)
     train_sync_free_phase(batch, cfg, dev)
     learning_phase(batch, cfg, dev)
     train_card_vs_cpu_phase(batch, cfg, dev)
+    valt = dataclasses.replace(vcfg, train_schedule="alternating")
+    vgg_k = train_step_phase(batch, samples_per_s, vcfg, dev, smi, vgg_errs, earlier,
+                             schedules=("joint", "alternating"), phase="vgg_train_step")
+    check(vgg_k["roi_pool"]["shape"][3] == VGG_C and vgg_k["roi_pool"]["center_stride"] == 1,
+          f"the VGG16 step pooled {vgg_k['roi_pool']['shape']} at stride "
+          f"{vgg_k['roi_pool']['center_stride']}")
+    train_sync_free_phase(batch, valt, dev, phase="vgg_train_sync_free")
+    learning_phase(batch, valt, dev, n_steps=40, phase="vgg_learning")
+    alternating_card_vs_cpu_phase(batch, vcfg, dev)
 
     kernels_line["roi_pool_backward"] = train_k["roi_pool_backward"]
     kernels_line["nms_fused"]["train_step_shape"] = train_k["nms_fused"]
     kernels_line["roi_pool"]["train_step_shape"] = train_k["roi_pool"]
+    kernels_line["nms_fused"]["vgg16"] = {"main_path_inputs": vgg_main["nms_fused"],
+                                          "train_step_shape": vgg_k["nms_fused"]}
+    kernels_line["roi_pool"]["vgg16"] = {"main_path_inputs": vgg_main["roi_pool"],
+                                         "train_step_shape": vgg_k["roi_pool"]}
+    kernels_line["roi_pool_backward"]["vgg16"] = {"train_step_shape": vgg_k["roi_pool_backward"],
+                                                  "max_abs_err_random_inputs": vgg_errs["roi_pool_backward"]}
     for k in kernels_line.values():
         name = k["name"]
         k["launches_train"] = trained["train"]["launches"][name]
         k["launches_cont_train"] = trained["cont_train"]["launches"][name]
         k["launches_test"] = evaluated["test"][name]
         k["launches_test_rpn"] = evaluated["test_rpn"][name]
+        k["launches_vgg16"] = {"serve": vgg_launches[name], "batch": vgg_per_batch[name],
+                               "predict": vgg_predict[name],
+                               "train": vgg_trained["train"]["launches"][name],
+                               "cont_train": vgg_trained["cont_train"]["launches"][name],
+                               "test": vgg_test[name]}
         if name in launches:  # the served run is the serving kernels' main path
             k["launches"] = launches[name]
             k["launches_per_batch"] = per_batch[name]

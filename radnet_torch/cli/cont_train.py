@@ -5,8 +5,9 @@ Reloads ``config.json`` and a checkpoint (``ckpt_best``, else
 and goes on with the resume settings of the JAX package's
 ``cli/cont_train.py``: Adam at 2e-5, seed 128, 1000 epochs, trunk
 trainability from ``base_net_cont_trainable``, and the best-loss watermark
-seeded from record.csv's lowest ``val_total_loss``.  The Adam moments and
-the step count resume too; when the trainability partition changed, or
+seeded from record.csv's lowest ``val_total_loss``.  The step follows the
+directory's ``train_schedule``.  The Adam moments (both states of the
+alternating schedule) and the step count resume too; when the trainability partition changed, or
 with ``--fresh-optimizer``, only the weights load.  Appends to record.csv.
 Runs on the card unless ``--device cpu``.
 """
@@ -35,7 +36,7 @@ def main(argv=None) -> int:
     from radnet_torch.config import Config
     from radnet_torch.engine import checkpoint as ckpt
     from radnet_torch.engine.loop import fit, read_record
-    from radnet_torch.engine.steps import make_eval_step, make_train_step
+    from radnet_torch.engine.steps import make_eval_step, make_step
     from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import resolve_device
 
@@ -72,7 +73,7 @@ def main(argv=None) -> int:
         if vals:
             best = min(best, min(vals))
 
-    train_step = make_train_step(state, config, trunk_trainable=trainable)
+    train_step = make_step(state, config, trunk_trainable=trainable)
     eval_step = make_eval_step(state, config) if data_val is not None else None
     train_batches, val_factory = training_pipelines(args, config, data_train, class_count,
                                                     data_val, device)

@@ -7,14 +7,17 @@ the checkpoints ``ckpt_best/`` and ``ckpt_last/`` (``torch.save``), and
 ``model.pt``, which ``radnet_torch.cli.serve`` and ``load_radnet`` read.  An
 existing model directory is refused.
 
-Runs on the card unless ``--device cpu``.  Not ported yet, and refused:
-``--weights`` (Keras ImageNet backbone weights), ``--n-devices`` /
-``--model-parallel`` and ``--train-schedule alternating``.  A ResNet50
-config that names ``base_net_weights`` needs ``--allow-random-init``, since
-no weight file can be loaded.
+Both backbones (``--network resnet50|vgg16``) and both schedules
+(``--train-schedule joint|alternating``).  Runs on the card unless
+``--device cpu``.  Not ported yet, and refused: ``--weights`` (Keras
+ImageNet backbone weights) and ``--n-devices`` / ``--model-parallel``.  A
+ResNet50 config that names ``base_net_weights`` needs
+``--allow-random-init``, since no weight file can be loaded; VGG16 trains
+from random init with a warning.
 
 Example (CPU, a tiny run):
   python -m radnet_torch.cli.train --device cpu --config-json cfg.json \\
+      --network vgg16 --train-schedule alternating \\
       --epoch-length 2 --n-epochs 2 --model-name smoke
 """
 
@@ -34,10 +37,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     add_training_args(p, seed=64, n_epochs=100, lr=5e-5)
     p.add_argument("--model-name", default="raod_base")
-    p.add_argument("--network", default=None, help="resnet50 (vgg16 is not ported)")
+    p.add_argument("--network", choices=["resnet50", "vgg16"], default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--train-schedule", choices=["joint", "alternating"], default=None,
-                   help="'joint' (approximate joint training); 'alternating' is not ported")
+                   help="'joint' (approximate joint training); 'alternating': an RPN update, "
+                        "proposals from the updated RPN, then a detector update with its own Adam")
     p.add_argument("--config-json", default=None, help="a Config JSON replacing the defaults")
     p.add_argument("--weights", default=None,
                    help="not ported: Keras .h5 backbone weights (ROADMAP Queue 1 item 12)")
@@ -69,8 +73,8 @@ def main(argv=None) -> int:
                                          training_pipelines)
     from radnet_torch.config import Config
     from radnet_torch.engine.loop import create_model_folder, fit
-    from radnet_torch.engine.steps import make_eval_step, make_train_step
-    from radnet_torch.engine.train_state import create_train_state, not_ported_schedule
+    from radnet_torch.engine.steps import make_eval_step, make_step
+    from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import resolve_device
 
     args = build_argparser().parse_args(argv)
@@ -85,8 +89,6 @@ def main(argv=None) -> int:
         config.batch_size = args.batch_size
     if args.train_schedule:
         config.train_schedule = args.train_schedule
-    if config.train_schedule != "joint":
-        raise not_ported_schedule(config.train_schedule)
     check_pretrained(config, args.weights, args.allow_random_init)
 
     data_train, class_count, data_val = training_data(args, config)
@@ -109,7 +111,7 @@ def main(argv=None) -> int:
 
     state = create_train_state(config, torch.Generator().manual_seed(args.seed), device,
                                learning_rate=args.lr)
-    train_step = make_train_step(state, config)
+    train_step = make_step(state, config)
     eval_step = make_eval_step(state, config) if data_val is not None else None
     train_batches, val_factory = training_pipelines(args, config, data_train, class_count,
                                                     data_val, device)

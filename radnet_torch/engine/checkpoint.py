@@ -2,9 +2,10 @@
 
 A checkpoint directory (``ckpt_best`` or ``ckpt_last``) holds one file,
 ``train_state.pt``: the step, the model's state_dict (parameters and frozen
-statistics), the Adam state and the best-loss watermark, so ``cont_train``
-resumes exactly.  The file is written beside and renamed into place, so a
-crash mid-save keeps the previous checkpoint.  Every save of ``ckpt_best``
+statistics), the Adam state (``{"rpn", "det"}`` for the alternating
+schedule) and the best-loss watermark, so ``cont_train`` resumes exactly.
+The file is written beside and renamed into place, so a crash mid-save
+keeps the previous checkpoint.  Every save of ``ckpt_best``
 also writes the model directory's ``model.pt`` (float32 state_dict), which
 ``load_radnet`` and the serve and predict CLIs read.
 """
@@ -73,20 +74,22 @@ def _load(path: str) -> dict[str, Any]:
     return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
 
 
+def _partition(opt_state: dict):
+    """The parameter count of each Adam state in an optimizer's state_dict."""
+    if "n_params" in opt_state:  # one GatedAdam (the joint schedule)
+        return opt_state["n_params"]
+    return {phase: s["n_params"] for phase, s in opt_state.items()}
+
+
 def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, float]:
-    """Load a checkpoint into ``state`` (same model and trainable set);
-    raises ``ValueError`` when the optimizer's partition differs."""
+    """Load a checkpoint into ``state`` (same model, schedule and trainable
+    set); raises ``ValueError`` when the optimizer's partition differs."""
     tree = _load(path)
-    saved = tree["optimizer"]["param_groups"][0]["params"]
-    ours = state.optimizer.state_dict()["param_groups"][0]["params"]
-    if len(saved) != len(ours):
-        raise ValueError(f"checkpoint optimizer holds {len(saved)} parameters, "
-                         f"this partition {len(ours)}")
+    saved, ours = _partition(tree["optimizer"]), _partition(state.optimizer.state_dict())
+    if saved != ours:
+        raise ValueError(f"checkpoint optimizer holds {saved} parameters, this partition {ours}")
     state.model.load_state_dict(tree["model"])
-    lrs = [g["lr"] for g in state.optimizer.param_groups]
-    state.optimizer.load_state_dict(tree["optimizer"])
-    for g, lr in zip(state.optimizer.param_groups, lrs):  # the moments resume, not the rate
-        g["lr"] = lr
+    state.optimizer.load_state_dict(tree["optimizer"])  # the moments resume, not the rate
     state.step = int(tree["step"])
     return state, float(tree["best_total_loss"])
 

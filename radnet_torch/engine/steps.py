@@ -1,6 +1,6 @@
-"""The joint train step and the eval step.
+"""The train steps of both schedules, and the eval step.
 
-One step, with no read back to the host:
+The joint step, with no read back to the host:
 
   photometric augmentation + centring -> trunk (once) -> RPN heads
     -> RPN losses -> proposals from the detached RPN outputs (decode + NMS)
@@ -12,7 +12,10 @@ This is "approximate joint training": proposals come from the RPN before
 the update, and one optimizer updates the shared trunk once with the summed
 loss.  With the trunk frozen, the feature map is detached, so no backward
 runs through the trunk; with it trainable, the detector loss reaches the
-trunk through the RoI-pool gradient (``ops/roi_align.py``).
+trunk through the RoI-pool gradient (``ops/roi_align.py``).  The
+alternating step (:func:`make_alternating_train_step`) is the JAX package's
+reference-exact schedule: an RPN update, proposals from the updated RPN,
+then a detector update with a second Adam state.
 
 Random choices are a :class:`StepDraws` per step, drawn by :func:`draw_step`
 from a ``torch.Generator`` on the device.  ``Config.train_bundle_steps``
@@ -31,6 +34,7 @@ from radnet_torch import losses
 from radnet_torch.config import Config, feature_extent
 from radnet_torch.data.pipeline import preprocess_on_device
 from radnet_torch.engine.train_state import TrainState
+from radnet_torch.models import vgg
 from radnet_torch.models.detector import FasterRCNN
 from radnet_torch.ops import augment_device
 from radnet_torch.ops.anchors import feature_anchors_xywh, image_anchors_xyxy
@@ -45,18 +49,22 @@ METRIC_KEYS = ("loss_rpn_cls", "loss_rpn_regr", "loss_detector_cls", "loss_detec
 class StepDraws:
     """The random inputs of one step: the subsample's random words ``(B,
     N)`` int32 (N = H * W * A anchors), the RoI sample's uniforms ``(B,
-    post_nms_top_n)``, and the photometric draws (None: no augmentation)."""
+    post_nms_top_n)``, the photometric draws (None: no augmentation), and
+    the VGG16 head's two dropout masks, bool ``(B * n_rois, vgg_fc_dim)``
+    with True kept (None: the ResNet50 head, which has no dropout)."""
 
     rpn_pos_bits: torch.Tensor
     rpn_neg_bits: torch.Tensor
     roi_pos_u: torch.Tensor
     roi_neg_u: torch.Tensor
     photometric: augment_device.PhotometricDraws | None = None
+    head_masks: tuple[torch.Tensor, torch.Tensor] | None = None
 
     def to(self, device) -> "StepDraws":
         photo = None if self.photometric is None else self.photometric.to(device)
+        masks = None if self.head_masks is None else tuple(m.to(device) for m in self.head_masks)
         return StepDraws(self.rpn_pos_bits.to(device), self.rpn_neg_bits.to(device),
-                         self.roi_pos_u.to(device), self.roi_neg_u.to(device), photo)
+                         self.roi_pos_u.to(device), self.roi_neg_u.to(device), photo, masks)
 
 
 def draw_step(gen: torch.Generator, config: Config, b: int, device,
@@ -76,6 +84,10 @@ def draw_step(gen: torch.Generator, config: Config, b: int, device,
         s = config.canvas_size
         draws.photometric = augment_device.draw_photometric(
             gen, b, s, s, 3, augment_device.grey_mode(config), device)
+    if config.network == "vgg16":
+        shape = (b * config.n_rois, config.vgg_fc_dim)
+        draws.head_masks = tuple(torch.rand(shape, generator=gen, device=device) < vgg.KEEP_PROB
+                                 for _ in range(2))
     return draws
 
 
@@ -115,15 +127,10 @@ def _augment_and_preprocess(config: Config, images: torch.Tensor, draws: StepDra
     return preprocess_on_device(images)
 
 
-def compute_losses(model: FasterRCNN, config: Config, batch: dict, draws: StepDraws,
-                   consts: StepConstants, deterministic: bool,
-                   trunk_frozen: bool = False) -> tuple[torch.Tensor, dict]:
-    """Forward pass and the four losses of one batch of tiles: (total loss,
-    metrics as 0-d tensors on the device)."""
-    images = _augment_and_preprocess(config, batch["image"], draws, deterministic)
-    sample_valid = batch["sample_valid"].float()
+def _rpn_targets(config: Config, batch: dict, draws: StepDraws, consts: StepConstants,
+                 sample_valid: torch.Tensor):
+    """The RPN's targets; padded samples contribute nothing."""
     valid_wh = batch["valid_wh"]
-
     tg = rpn_targets(
         batch["gt_boxes"], batch["gt_mask"], valid_wh[:, 0], valid_wh[:, 1],
         consts.img_anchors, draws.rpn_pos_bits, draws.rpn_neg_bits,
@@ -132,17 +139,21 @@ def compute_losses(model: FasterRCNN, config: Config, batch: dict, draws: StepDr
         reference_neg_budget=config.rpn_reference_neg_budget,
         fallback_min_iou=config.rpn_fallback_min_iou,
     )
-    sv = sample_valid[:, None, None, None]  # padded samples contribute nothing
-    y_rpn_cls, y_rpn_regr = tg.y_rpn_cls * sv, tg.y_rpn_regr * sv
+    sv = sample_valid[:, None, None, None]
+    return tg.y_rpn_cls * sv, tg.y_rpn_regr * sv
 
-    fmap = model.features(images)
-    if trunk_frozen:
-        fmap = fmap.detach()
-    rpn_cls, rpn_regr = model.rpn(fmap)
-    n_anchors = config.n_anchors
-    l_rpn_cls = losses.rpn_loss_cls(y_rpn_cls, rpn_cls, n_anchors)
-    l_rpn_regr = losses.rpn_loss_regr(y_rpn_regr, rpn_regr, n_anchors)
 
+def _rpn_losses(config: Config, rpn_out, rpn_targets_):
+    (rpn_cls, rpn_regr), (y_cls, y_regr) = rpn_out, rpn_targets_
+    return (losses.rpn_loss_cls(y_cls, rpn_cls, config.n_anchors),
+            losses.rpn_loss_regr(y_regr, rpn_regr, config.n_anchors))
+
+
+def _proposals_and_roi_targets(config: Config, rpn_cls, rpn_regr, batch: dict, draws: StepDraws,
+                               consts: StepConstants, sample_valid: torch.Tensor):
+    """Proposals from the detached RPN outputs (decode + NMS), then the
+    second-stage targets and the balanced RoI sample: (targets, RoI mask)."""
+    valid_wh = batch["valid_wh"]
     props = decode_proposals(
         rpn_cls.detach(), rpn_regr.detach(),
         feature_extent(valid_wh[:, 0], config.network),
@@ -158,23 +169,51 @@ def compute_losses(model: FasterRCNN, config: Config, batch: dict, draws: StepDr
         classifier_min_overlap=config.classifier_min_overlap,
         classifier_max_overlap=config.classifier_max_overlap,
     )
-    roi_mask = pt.roi_valid.float() * sample_valid[:, None]
+    return pt, pt.roi_valid.float() * sample_valid[:, None]
 
-    det_cls, det_regr = model.roi_heads(fmap, pt.rois)
-    l_det_cls = losses.class_loss_cls(pt.y_class, det_cls, roi_mask)
-    l_det_regr = losses.class_loss_regr(pt.y_regr, det_regr, config.n_classes - 1, roi_mask)
-    acc = losses.detector_accuracy(pt.y_class, det_cls, roi_mask)
 
-    total = l_rpn_cls + l_rpn_regr + l_det_cls + l_det_regr
+def _detector_losses(model: FasterRCNN, config: Config, fmap, pt, roi_mask, masks):
+    """(class loss, regression loss, accuracy) of the RoI head on the
+    sampled RoIs; ``masks``: the head's dropout masks, or None."""
+    det_cls, det_regr = model.roi_heads(fmap, pt.rois, masks=masks)
+    return (losses.class_loss_cls(pt.y_class, det_cls, roi_mask),
+            losses.class_loss_regr(pt.y_regr, det_regr, config.n_classes - 1, roi_mask),
+            losses.detector_accuracy(pt.y_class, det_cls, roi_mask))
+
+
+def _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid) -> dict:
     n_valid = sample_valid.sum().clamp_min(1.0)
     metrics = {
         "loss_rpn_cls": l_rpn_cls, "loss_rpn_regr": l_rpn_regr,
         "loss_detector_cls": l_det_cls, "loss_detector_regr": l_det_regr,
-        "total_loss": total, "detector_acc": acc,
+        "total_loss": l_rpn_cls + l_rpn_regr + l_det_cls + l_det_regr, "detector_acc": acc,
         # Positive RoIs per image before sampling.
         "mean_overlapping_bboxes": (pt.n_pos.float() * sample_valid).sum() / n_valid,
     }
-    return total, {k: v.detach() for k, v in metrics.items()}
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def compute_losses(model: FasterRCNN, config: Config, batch: dict, draws: StepDraws,
+                   consts: StepConstants, deterministic: bool,
+                   trunk_frozen: bool = False) -> tuple[torch.Tensor, dict]:
+    """Forward pass and the four losses of one batch of tiles: (total loss,
+    metrics as 0-d tensors on the device).  ``deterministic``: no
+    augmentation and no dropout."""
+    images = _augment_and_preprocess(config, batch["image"], draws, deterministic)
+    sample_valid = batch["sample_valid"].float()
+    y_rpn = _rpn_targets(config, batch, draws, consts, sample_valid)
+
+    fmap = model.features(images)
+    if trunk_frozen:
+        fmap = fmap.detach()
+    rpn_cls, rpn_regr = model.rpn(fmap)
+    l_rpn_cls, l_rpn_regr = _rpn_losses(config, (rpn_cls, rpn_regr), y_rpn)
+    pt, roi_mask = _proposals_and_roi_targets(config, rpn_cls, rpn_regr, batch, draws, consts,
+                                              sample_valid)
+    l_det_cls, l_det_regr, acc = _detector_losses(
+        model, config, fmap, pt, roi_mask, None if deterministic else draws.head_masks)
+    metrics = _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid)
+    return l_rpn_cls + l_rpn_regr + l_det_cls + l_det_regr, metrics
 
 
 def make_train_step(state: TrainState, config: Config, trunk_trainable: bool | None = None):
@@ -186,7 +225,7 @@ def make_train_step(state: TrainState, config: Config, trunk_trainable: bool | N
     consts = step_constants(config, next(state.model.parameters()).device)
 
     def train_step(batch: dict, draws: StepDraws) -> dict:
-        state.optimizer.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad()
         total, metrics = compute_losses(state.model, config, batch, draws, consts, False,
                                         trunk_frozen=not trunk_trainable)
         total.backward()
@@ -195,6 +234,71 @@ def make_train_step(state: TrainState, config: Config, trunk_trainable: bool | N
         return metrics
 
     return train_step
+
+
+def make_alternating_train_step(state: TrainState, config: Config,
+                                trunk_trainable: bool | None = None):
+    """``step(batch, draws) -> metrics``: one step of the alternating
+    schedule on ``state`` (whose optimizer is a
+    :class:`~radnet_torch.engine.train_state.PhaseAdams`), in place:
+
+      1. the RPN losses -> backward -> the RPN phase's Adam (trunk + RPN);
+      2. proposals from the just-updated parameters -> the RoI sample;
+      3. the detector losses, dropout included -> backward -> the
+         detector phase's Adam (trunk + head), gated on the device: a batch
+         with no valid RoI moves neither the parameters nor that Adam state
+         (its count included), and nothing is read back to the host.
+
+    The trunk runs forward twice with a trainable trunk (before and after
+    the RPN update; step 3 reuses step 2's features) and once with it
+    frozen, since the RPN update then leaves it as it was.  Metrics are
+    the JAX package's, the detector's included on a batch with no valid
+    RoI."""
+    if trunk_trainable is None:
+        trunk_trainable = config.base_net_trainable
+    consts = step_constants(config, next(state.model.parameters()).device)
+    opt = state.optimizer
+
+    def train_step(batch: dict, draws: StepDraws) -> dict:
+        model = state.model
+        images = _augment_and_preprocess(config, batch["image"], draws, False)
+        sample_valid = batch["sample_valid"].float()
+        y_rpn = _rpn_targets(config, batch, draws, consts, sample_valid)
+
+        # 1. RPN update.
+        opt.rpn.zero_grad()
+        fmap = model.features(images)
+        if not trunk_trainable:
+            fmap = fmap.detach()
+        l_rpn_cls, l_rpn_regr = _rpn_losses(config, model.rpn(fmap), y_rpn)
+        (l_rpn_cls + l_rpn_regr).backward()
+        opt.rpn.step()
+
+        # 2. Proposals from the updated parameters.
+        if trunk_trainable:
+            fmap = model.features(images)
+        with torch.no_grad():
+            rpn_cls, rpn_regr = model.rpn(fmap)
+        pt, roi_mask = _proposals_and_roi_targets(config, rpn_cls, rpn_regr, batch, draws, consts,
+                                                  sample_valid)
+
+        # 3. Detector update, skipped on the device without a valid RoI.
+        opt.det.zero_grad()
+        l_det_cls, l_det_regr, acc = _detector_losses(model, config, fmap, pt, roi_mask,
+                                                      draws.head_masks)
+        (l_det_cls + l_det_regr).backward()
+        opt.det.step(gate=roi_mask.sum() > 0)
+        state.step += 1
+        return _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid)
+
+    return train_step
+
+
+def make_step(state: TrainState, config: Config, trunk_trainable: bool | None = None):
+    """The train step of ``config.train_schedule``."""
+    if config.train_schedule == "alternating":
+        return make_alternating_train_step(state, config, trunk_trainable)
+    return make_train_step(state, config, trunk_trainable)
 
 
 def make_eval_step(state: TrainState, config: Config):

@@ -1,16 +1,20 @@
 """Train state and the trainability partition.
 
-The trunk below the fine-tuning cut (the stem and stage 2 of ResNet50)
-never trains; the rest of the trunk trains only with ``base_net_trainable``
-(``base_net_cont_trainable`` when resuming); the RPN and detector heads
-always train.  The JAX package names its flax modules ``conv1``,
-``bn_conv1``, ``s2a``..``s2c`` under ``trunk``; the port's modules carry
-the same names (``models/bridge.py`` maps only ``rpn`` to ``rpn_head``).
+The trunk below the fine-tuning cut (the stem and stage 2 of ResNet50,
+blocks 1-2 of VGG16) never trains; the rest of the trunk trains only with
+``base_net_trainable`` (``base_net_cont_trainable`` when resuming); the RPN
+and detector heads always train.  The port's modules carry the JAX
+package's flax names (``models/bridge.py`` maps only ``rpn`` to
+``rpn_head``).
 
-Parameters outside the trainable set get ``requires_grad=False``, and the
-Adam optimizer (``torch.optim.Adam``, eps 1e-8: the update of
-``optax.adam``) holds only the trainable set, so it keeps no moments for the
-rest.
+Parameters outside the trainable set get ``requires_grad=False``.  Adam
+is :class:`GatedAdam` (``optax.adam``'s update, its step count on the
+device), which keeps no moments for them.  The joint schedule updates the
+trainable set with one.  The alternating schedule has two, as the JAX
+package's ``make_phase_optimizer``: the RPN phase owns the trainable trunk
+and the RPN head, the detector phase the trainable trunk and the detector
+head (:class:`PhaseAdams`); the detector phase skips a batch with no valid
+RoI through the gate, without reading anything back to the host.
 """
 
 from __future__ import annotations
@@ -29,20 +33,114 @@ FROZEN_PREFIXES = {
 }
 
 
-def not_ported_schedule(schedule: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"train_schedule={schedule!r}: the alternating schedule is not ported yet "
-        "(ROADMAP Queue 1 item 12, the next training slice)"
-    )
+SCHEDULES = ("joint", "alternating")
+
+
+class GatedAdam:
+    """``optax.adam`` over ``params`` with its state on the device: the step
+    count (int32), and the first and second moments.  :meth:`step` takes an
+    optional device bool ``gate``; where it is False, neither the
+    parameters nor the state move, and nothing is read back to the host.
+    A parameter without a gradient updates as one with a zero gradient, as
+    optax does."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
+        self.params = list(params)
+        self.betas, self.eps = betas, eps
+        dev = self.params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.exp_avg = [torch.zeros_like(p) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self._shut = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0], device=dev)
+        self._true = torch.ones((), dtype=torch.bool, device=dev)
+        self.lr = lr
+
+    @property
+    def lr(self) -> float:
+        return self._lr
+
+    @lr.setter
+    def lr(self, lr: float) -> None:
+        # The factors with the gate open, uploaded here and not in a step:
+        # an upload from pageable memory waits for the card.
+        b1, b2 = self.betas
+        self._lr = lr
+        self._open = torch.tensor([b1, b2, 1.0 - b1, 1.0 - b2, -lr], device=self.count.device)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, gate: torch.Tensor | None = None) -> None:
+        b1, b2 = self.betas
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        gate = self._true if gate is None else gate
+        # Open: m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2, p -= lr m^ /
+        # (sqrt(v^) + eps), in optax's order of operations.  Shut: factors
+        # 1, 1, 0, 0, 0, so nothing moves.
+        keep1, keep2, take1, take2, neg_lr = torch.where(gate, self._open, self._shut).unbind()
+        torch._foreach_mul_(self.exp_avg, keep1)
+        torch._foreach_add_(self.exp_avg, torch._foreach_mul(grads, take1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, take2)
+        torch._foreach_mul_(self.exp_avg_sq, keep2)
+        torch._foreach_add_(self.exp_avg_sq, sq)
+        self.count.add_(gate.to(torch.int32))
+        # Bias corrections of the count; at least one, so moments that
+        # never moved (zero) divide by a finite number.
+        n = self.count.clamp_min(1).float()
+        bc1 = 1.0 - torch.pow(b1, n)
+        bc2 = 1.0 - torch.pow(b2, n)
+        denom = torch._foreach_div(self.exp_avg_sq, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(self.exp_avg, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_mul_(upd, neg_lr)
+        torch._foreach_add_(self.params, upd)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "exp_avg": list(self.exp_avg),
+                "exp_avg_sq": list(self.exp_avg_sq), "n_params": len(self.params), "lr": self.lr}
+
+    def load_state_dict(self, state: dict) -> None:
+        """The moments and the count; the learning rate stays this one's."""
+        if state["n_params"] != len(self.params):
+            raise ValueError(f"Adam state for {state['n_params']} parameters, "
+                             f"this optimizer has {len(self.params)}")
+        with torch.no_grad():
+            self.count.copy_(state["count"])
+            for dst, src in zip(self.exp_avg + self.exp_avg_sq,
+                                list(state["exp_avg"]) + list(state["exp_avg_sq"])):
+                dst.copy_(src)
+
+
+@dataclasses.dataclass
+class PhaseAdams:
+    """The alternating schedule's two Adam states: ``rpn`` over the
+    trainable trunk and the RPN head, ``det`` over the trainable trunk and
+    the detector head."""
+
+    rpn: GatedAdam
+    det: GatedAdam
+
+    def state_dict(self) -> dict:
+        return {"rpn": self.rpn.state_dict(), "det": self.det.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.rpn.load_state_dict(state["rpn"])
+        self.det.load_state_dict(state["det"])
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters and frozen statistics), the optimizer over
-    its trainable set, and the number of optimizer steps taken."""
+    its trainable set (a :class:`PhaseAdams` for the alternating schedule),
+    and the number of optimizer steps taken."""
 
     model: FasterRCNN
-    optimizer: torch.optim.Optimizer
+    optimizer: GatedAdam | PhaseAdams
     step: int = 0
 
 
@@ -71,21 +169,30 @@ def set_trainable(model: FasterRCNN, network: str, base_net_trainable: bool) -> 
     return params
 
 
-def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+def make_phase_optimizers(model: FasterRCNN, learning_rate: float) -> PhaseAdams:
+    """The alternating schedule's Adam states over the parameters that
+    ``requires_grad``: each phase leaves out the other phase's head."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    rpn = [p for n, p in named if not n.startswith("head.")]
+    det = [p for n, p in named if not n.startswith("rpn_head.")]
+    return PhaseAdams(GatedAdam(rpn, learning_rate), GatedAdam(det, learning_rate))
 
 
 def create_train_state(config: Config, generator: torch.Generator, device,
                        learning_rate: float = 5e-5, base_net_trainable: bool | None = None,
                        model: FasterRCNN | None = None) -> TrainState:
     """A seeded model (or ``model``) on ``device`` with Adam over its
-    trainable set."""
-    if config.train_schedule != "joint":
-        raise not_ported_schedule(config.train_schedule)
+    trainable set: one state for the joint ``config.train_schedule``, the
+    two phase states for the alternating one."""
+    schedule = config.train_schedule
+    if schedule not in SCHEDULES:
+        raise ValueError(f"train_schedule {schedule!r} is not one of {SCHEDULES}")
     if base_net_trainable is None:
         base_net_trainable = config.base_net_trainable
     if model is None:
         model = init_weights(build_model(config), generator)
     model = model.to(device)
     params = set_trainable(model, config.network, base_net_trainable)
-    return TrainState(model, make_optimizer(params, learning_rate))
+    if schedule == "alternating":
+        return TrainState(model, make_phase_optimizers(model, learning_rate))
+    return TrainState(model, GatedAdam(params, learning_rate))

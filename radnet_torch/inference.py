@@ -1,10 +1,11 @@
 """Inference engine: tiled panel prediction with the cascade on the device.
 
 Batches of tile canvases run the tile cascade
-(:meth:`RADNet._predict_tiles_impl`): centring, ResNet50 trunk, RPN,
-proposal decode + NMS, RoI pooling, the stage-5 head, class-specific decode
-and per-class NMS.  The host then lifts the boxes to panel coordinates and
-merges them across tiles (cluster-average NMS) and across image types.
+(:meth:`RADNet._predict_tiles_impl`): centring, the trunk (ResNet50 or
+VGG16), RPN, proposal decode + NMS, RoI pooling, the RoI head,
+class-specific decode and per-class NMS.  The host then lifts the boxes to
+panel coordinates and merges them across tiles (cluster-average NMS) and
+across image types.
 
 A panel's windows reach the cascade by one of four paths
 (:meth:`RADNet._dispatch_tiles`):
@@ -13,7 +14,8 @@ A panel's windows reach the cascade by one of four paths
   is downscaled once by ``img_size / tile_size`` on the device and the
   ``img_size`` windows are sliced onto zero canvases.  A grey panel ships
   one channel and its ``(T, S, S)`` canvases run the fused grey stem
-  (``ops/grey_stem.py``); a colour panel runs the 3-channel stem;
+  (``ops/grey_stem.py``) on ResNet50, and are repeated to 3 channels on
+  the device for VGG16; a colour panel runs the 3-channel trunk;
 * full resolution (``infer_panel_prescale=False``): each ``tile_size``
   window is sliced from the panel on the device and resized by two matrix
   products;
@@ -154,9 +156,9 @@ class RADNet:
 
     @functools.cached_property
     def _grey_consts(self) -> StemConsts:
-        """The grey stem's constants for the square canvas, folded once from
-        the trunk's stem parameters: ``k7`` in the values of the compute
-        type, and the centring as its compact table."""
+        """The grey stem's constants for the square canvas (ResNet50), folded
+        once from the trunk's stem parameters: ``k7`` in the values of the
+        compute type, and the centring as its compact table."""
         trunk = self.model.trunk
         bn = {k: getattr(trunk.bn_conv1, k) for k in ("gamma", "beta", "mean", "var")}
         consts = stem_constants(trunk.conv1.weight, trunk.conv1.bias, bn, self.C.canvas_size,
@@ -168,10 +170,14 @@ class RADNet:
     # ------------------------------------------------------------------ #
     def _features(self, images: torch.Tensor) -> torch.Tensor:
         """Canvases -> channels-last feature map.  ``images`` is one of:
-        uint8 ``(T, S, S)`` grey canvases (the grey stem); uint8 ``(T, H, W,
-        3)`` canvases; float32 ``(T, H, W, 3)`` canvases already centred."""
+        uint8 ``(T, S, S)`` grey canvases (ResNet50: the grey stem; VGG16:
+        the channel repeated three times on the device, as the JAX package
+        builds its canvases); uint8 ``(T, H, W, 3)`` canvases; float32 ``(T,
+        H, W, 3)`` canvases already centred."""
         if images.dim() == 3:
-            return self.model.features_grey(images, self._grey_consts)
+            if self.model.network == "resnet50":
+                return self.model.features_grey(images, self._grey_consts)
+            images = images[..., None].expand(*images.shape, 3)
         return self.model.features(preprocess_on_device(images))
 
     def _proposals(self, fmap: torch.Tensor, valid_wh: torch.Tensor,

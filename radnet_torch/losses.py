@@ -6,7 +6,9 @@
 * ``y_det_regr`` = cat([labels (4K), coords * std (4K)]), K = n_classes - 1.
 
 Every loss is a masked sum over the mask's sum plus ``1e-4`` per element,
-with weights 1.0, in float32.
+with weights 1.0, in float32.  Probabilities are clipped as ``jnp.clip``
+differentiates a clip: a value exactly at a bound (a saturated sigmoid or
+softmax) passes half its gradient.
 """
 
 from __future__ import annotations
@@ -14,6 +16,13 @@ from __future__ import annotations
 import torch
 
 EPSILON = 1e-4
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``x`` clipped to [lo, hi] by max and min, whose gradients split a tie
+    evenly, as JAX's do (``Tensor.clamp`` passes all of it).  The bounds are
+    CPU scalars, so nothing is uploaded."""
+    return torch.minimum(torch.maximum(x, torch.tensor(lo)), torch.tensor(hi))
 
 
 def _smooth_l1(x: torch.Tensor) -> torch.Tensor:
@@ -39,7 +48,7 @@ def rpn_loss_cls(y_true: torch.Tensor, y_pred: torch.Tensor, num_anchors: int) -
     2A), ``y_pred`` (B, H, W, A) after the sigmoid."""
     valid = y_true[..., :num_anchors]
     label = y_true[..., num_anchors:]
-    p = y_pred.float().clamp(1e-7, 1.0 - 1e-7)
+    p = _clip(y_pred.float(), 1e-7, 1.0 - 1e-7)
     bce = -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
     return _masked_mean(valid * bce, valid)
 
@@ -58,7 +67,7 @@ def class_loss_regr(y_true: torch.Tensor, y_pred: torch.Tensor, num_classes: int
 def class_loss_cls(y_true: torch.Tensor, y_pred: torch.Tensor,
                    roi_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Categorical cross-entropy over RoIs, ``y_pred`` after the softmax."""
-    p = y_pred.float().clamp(1e-7, 1.0)
+    p = _clip(y_pred.float(), 1e-7, 1.0)
     ce = -(y_true * torch.log(p)).sum(-1)  # (B, R)
     if roi_mask is None:
         return ce.mean()

@@ -8,9 +8,11 @@ numpy arrays.  Names are the flax module names joined with dots
 * conv kernels HWIO -> OIHW (the 1x1 convs keep flax's ``(1, 1, Cin,
   Cout)`` layout, so they take the same transpose);
 * dense kernels ``(in, out)`` -> ``(out, in)``;
-* frozen batch norm keeps gamma / beta / mean / var.
+* frozen batch norm keeps gamma / beta / mean / var (ResNet50; VGG16 has
+  no batch statistics).
 
-Any key the architecture does not have, or any key it has that the trees
+The network is read from the trees: VGG16's have ``trunk.block1_conv1``.
+Any key that network does not have, or any key it has that the trees
 lack, raises ``KeyError``.
 """
 
@@ -36,12 +38,12 @@ def _name(path: tuple) -> str:
     return ".".join((_TOP.get(path[0], path[0]),) + tuple(path[1:]))
 
 
-@functools.lru_cache(maxsize=1)
-def _expected_keys() -> frozenset:
+@functools.lru_cache(maxsize=2)
+def _expected_keys(network: str) -> frozenset:
     from radnet_torch.models.detector import FasterRCNN
 
     with torch.device("meta"):
-        model = FasterRCNN("resnet50", n_classes=3, num_anchors=3)
+        model = FasterRCNN(network, n_classes=3, num_anchors=3)
     return frozenset(model.state_dict().keys())
 
 
@@ -68,7 +70,8 @@ def state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         out[_name(path)] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
-    want = _expected_keys()
+    network = "vgg16" if "block1_conv1" in params.get("trunk", {}) else "resnet50"
+    want = _expected_keys(network)
     extra = sorted(set(out) - want)
     missing = sorted(want - set(out))
     if extra or missing:

@@ -78,3 +78,31 @@ def test_losses_are_zero_without_targets(data):
     y = torch.zeros_like(torch.from_numpy(data["y_rpn_regr"]))
     assert float(tl.rpn_loss_regr(y, torch.from_numpy(data["rpn_regr"]), A)) == 0.0
     assert float(tl.rpn_loss_cls(torch.zeros(B, H, H, 2 * A), torch.from_numpy(data["rpn_cls"]), A)) == 0.0
+
+
+@pytest.mark.parametrize("fn", ["rpn_loss_cls", "class_loss_cls"])
+def test_gradient_at_the_clip_bounds_matches_jax(data, fn):
+    """Probabilities exactly at a clip bound (a saturated sigmoid or softmax)
+    pass half their gradient, as jnp.clip's do (Tensor.clamp passes all of
+    it): within 1e-5 relative, as the gradient 1 / (1 - p) at p = 1 - 1e-7
+    is 8e6 times float32's rounding of 1 - p."""
+    import jax
+
+    d = dict(data)
+    if fn == "rpn_loss_cls":
+        p = d["rpn_cls"].copy()
+        p[0, 0, 0, :4] = (1e-7, np.float32(1.0 - 1e-7), 1.0, 0.0)
+        p[1, 1, 1, :] = np.float32(1.0 - 1e-7)
+        t_args, j_args = _both(dict(d, rpn_cls=p), "y_rpn_cls", "rpn_cls")
+        extra = (A,)
+    else:
+        p = d["det_cls"].copy()
+        p[0, :3] = np.eye(K + 1, dtype=np.float32)[:3]  # exactly 0 and 1
+        p[2, 0] = (1e-7, 0.5, 0.5)
+        t_args, j_args = _both(dict(d, det_cls=p), "y_class", "det_cls")
+        extra = ()
+    pred = t_args[1].clone().requires_grad_(True)
+    getattr(tl, fn)(t_args[0], pred, *extra).backward()
+    want = np.asarray(jax.grad(lambda x: getattr(jl, fn)(j_args[0], x, *extra))(j_args[1]))
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(pred.grad.numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max())

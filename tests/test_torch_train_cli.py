@@ -164,7 +164,11 @@ def test_train_then_cont_train_then_predict(dataset):
     assert isinstance(dets, list)
 
 
-def test_training_clis_default_to_cuda_and_refuse_alternating(dataset):
+def test_training_clis_default_to_cuda_and_refuse_alternating(dataset, tmp_path):
+    """Both CLIs default to the card.  ``--train-schedule alternating`` is
+    ported (it was refused, naming ROADMAP Queue 1 item 12, before): one
+    step of it on the ResNet50 writes the schedule into config.json and a
+    checkpoint with the two phase Adam states."""
     root, _, cfg_path = dataset
     base = _args(root, cfg_path)[2:]  # no --device
     if not torch.cuda.is_available():
@@ -172,9 +176,15 @@ def test_training_clis_default_to_cuda_and_refuse_alternating(dataset):
             ttrain.main(base + ["--config-json", str(cfg_path), "--allow-random-init"])
         with pytest.raises(RuntimeError, match="CUDA"):
             tcont.main(base + ["--model-name", "any"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        ttrain.main(_args(root, cfg_path) + ["--config-json", str(cfg_path), "--allow-random-init",
-                                             "--train-schedule", "alternating"])
+    args = _args(root, cfg_path) + ["--no-validation", "--epoch-length", "1"]
+    args[args.index("--models-path") + 1] = str(tmp_path / "models")
+    assert ttrain.main(args + ["--config-json", str(cfg_path), "--allow-random-init",
+                               "--train-schedule", "alternating", "--model-name", "alt",
+                               "--n-epochs", "1"]) == 0
+    model_dir = tmp_path / "models" / "faster_rcnn_resnet50_alt"
+    assert json.loads((model_dir / "config.json").read_text())["train_schedule"] == "alternating"
+    state = torch.load(model_dir / "ckpt_last" / "train_state.pt", weights_only=True)
+    assert set(state["optimizer"]) == {"rpn", "det"} and int(state["optimizer"]["det"]["count"]) <= 1
 
 
 def test_cont_train_resumes_adam_and_step_when_partition_unchanged(dataset, tmp_path):
@@ -192,8 +202,8 @@ def test_cont_train_resumes_adam_and_step_when_partition_unchanged(dataset, tmp_
     steps = [json.loads(line)["step"] for line in open(model_dir / "metrics.jsonl")]
     assert steps == [0, 1]  # Adam's moments and the step count resumed
     state = torch.load(model_dir / "ckpt_last" / "train_state.pt", weights_only=True)
-    assert state["step"] == 2 and state["optimizer"]["state"]
-    assert state["optimizer"]["param_groups"][0]["lr"] == 2e-5  # cont_train's rate, not train's
+    assert state["step"] == 2 and int(state["optimizer"]["count"]) == 2
+    assert state["optimizer"]["lr"] == 2e-5  # cont_train's rate, not train's
     with open(model_dir / "record.csv", newline="") as f:
         rows = list(csv.DictReader(f))
     assert len(rows) == 2 and rows[0]["val_total_loss"] == ""

@@ -142,13 +142,13 @@ def test_two_adam_steps_match_jax(setup):
 
 
 def test_adam_update_matches_optax(setup):
-    """torch.optim.Adam over the trainable set against optax's masked adam,
+    """GatedAdam over the trainable set against optax's masked adam,
     on identical gradients, two updates: within 1e-7 absolute."""
     cfg, model, params, bstats, batch = setup
     tx = make_optimizer(params, cfg, LR, True)
     opt_state = tx.init(params)
     tmodel = port_model(cfg, params, bstats)
-    opt = tstate.make_optimizer(tstate.set_trainable(tmodel, "resnet50", True), LR)
+    opt = tstate.GatedAdam(tstate.set_trainable(tmodel, "resnet50", True), LR)
     jparams, adam = params, _jax_adam(tx)
     for i in range(2):
         _, grads = _jax_loss_and_grads(cfg, model, params, bstats, batch,
@@ -186,9 +186,20 @@ def test_trainability_partition_matches_jax(setup, trainable):
 
 
 def test_alternating_schedule_raises_naming_roadmap(setup):
+    """The alternating schedule is ported (it raised, naming ROADMAP Queue 1
+    item 12, before): its state holds the two phase Adam states; a schedule
+    that does not exist raises, naming the two that do."""
     cfg = torch_config(setup[0])
     cfg.train_schedule = "alternating"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    state = tstate.create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert isinstance(state.optimizer, tstate.PhaseAdams)
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    rpn = {names[id(p)] for p in state.optimizer.rpn.params}
+    det = {names[id(p)] for p in state.optimizer.det.params}
+    assert rpn == {n for n in names.values() if n.startswith("rpn_head.")}  # trunk frozen
+    assert det == {n for n in names.values() if n.startswith("head.")}
+    cfg.train_schedule = "cyclic"
+    with pytest.raises(ValueError, match="alternating"):
         tstate.create_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
 
 

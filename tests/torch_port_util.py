@@ -1,5 +1,6 @@
 """Shared helpers of the tests that hold radnet_torch against radnet_tpu:
-one tiny ResNet50 config, its JAX init, and the same weights in the port."""
+the tiny ResNet50 and VGG16 configs, their JAX init, the same weights in the
+port, and JAX's random draws of a train step replayed into the port's."""
 
 import functools
 
@@ -19,11 +20,13 @@ def torch_config(cfg) -> TorchConfig:
     return TorchConfig.from_dict(cfg.to_dict())
 
 
-@functools.lru_cache(maxsize=4)
-def jax_resnet(seed: int = 0, decisive: bool = True):
-    """(config, flax model, params, batch_stats) of the tiny ResNet50, with
-    decisive score weights (tests/util.py) unless ``decisive`` is False."""
-    cfg = tiny_config("resnet50")
+@functools.lru_cache(maxsize=8)
+def jax_detector(network: str, seed: int = 0, decisive: bool = True, dtype: str = "float32"):
+    """(config, flax model, params, batch_stats) of the tiny ``network``,
+    computing in ``dtype``, with decisive score weights (tests/util.py)
+    unless ``decisive`` is False."""
+    cfg = tiny_config(network)
+    cfg.compute_dtype = dtype
     model = jax_build_model(cfg)
     state = create_train_state(model, cfg, jax.random.PRNGKey(seed))
     params = jax.device_get(state.params)
@@ -35,6 +38,16 @@ def jax_resnet(seed: int = 0, decisive: bool = True):
             k = params[top][leaf]["kernel"]
             params[top][leaf]["kernel"] = rng.normal(0.0, scale, k.shape).astype(np.float32)
     return cfg, model, params, jax.device_get(state.batch_stats)
+
+
+def jax_resnet(seed: int = 0, decisive: bool = True):
+    """:func:`jax_detector` of the tiny ResNet50."""
+    return jax_detector("resnet50", seed, decisive)
+
+
+def jax_vgg(seed: int = 0, decisive: bool = True, dtype: str = "float32"):
+    """:func:`jax_detector` of the tiny VGG16 (``vgg_fc_dim`` 256)."""
+    return jax_detector("vgg16", seed, decisive, dtype)
 
 
 def port_model(cfg, params, batch_stats):
