@@ -145,12 +145,44 @@ VGG16 (vgg_config(): the default Config with network="vgg16", vgg_fc_dim
                 the feature map's gradient within 0.1 (float32 flips ReLUs:
                 alternating_card_vs_cpu_phase's docstring).
 
-The last lines are the kernels JSON line (four kernels; launches over each
-kernel's main path: the served run, or cont_train for the backward; beside
-them the launches of the train, cont_train, test and test_rpn runs, and
-under "launches_vgg16" those of the VGG16 runs; each kernel's rows at the
-VGG16 shapes under "vgg16"), the nvidia-smi line, and {"ok": true,
-"device": {...}}.
+The int8 RoI head (infer_quantize="int8"), on the model dirs the float
+serve phases saved and the ones cli.train wrote:
+  int8_kernels  (beside phase 6) the quantizer (csrc/quantize_rows.cu) and
+                the int8 product (csrc/int8_gemm.cu) at every shape a
+                12-tile batch gives them (ResNet50's s5a.conv2a, conv_sc,
+                the 3x3 conv2b through the implicit im2col, conv2c,
+                s5b.conv2a; VGG16's fc1, fc2; M = 176 400 or 3600 rows):
+                q and scales bit-equal to the plain version, the int32 sums
+                bit-equal (every row at 8 samples, every 37th sample at the
+                full M), the float32 outputs bit-equal on every row (the
+                3x3's edge rows counted); device ms, plain ms and
+                torch._int_mm plus the dequantize beside each bound;
+  int8_serve    cli.serve --quantize int8 on the three panels: exactly 10
+                products and 19 quantizations a ResNet50 batch (2 and 4 a
+                VGG16 batch, vgg_int8_serve) besides the float path's
+                kernels;
+  int8_batch    one 12-tile batch: its launches, the RoI pool + head and
+                the batch timed in turns with the float head, the int8
+                head's device time by kernel, int8 against float
+                detections; the batch and a panel's dispatch under the
+                sync check (int8_batch_sync_free);
+  int8_predict  cli.predict --quantize int8 on the scan directory;
+  int8_card_vs_cpu  float32: the head on identical pooled inputs within
+                INT8_HEAD_LIMIT of its largest output, a 2-tile batch's
+                detections at most INT8_UNMATCHED_SHARE unmatched (limits
+                from scripts/int8_card_vs_cpu_probe.py's readings);
+  int8_test     cli.test --quantize int8 on the trained model (exact
+                launches a batch); a saved infer_quantize runs the int8
+                head, --quantize none does not.
+Each int8 phase runs for VGG16 too, named vgg_int8_*.
+
+The last lines are the kernels JSON line (six kernels; launches over each
+kernel's main path: the served run, cont_train for the backward, the int8
+served run for the int8 kernels; beside them the launches of the train,
+cont_train, test and test_rpn runs, under "launches_vgg16" those of the
+VGG16 runs and under "launches_int8" those of the int8 runs; each kernel's
+rows at the VGG16 shapes under "vgg16"), the nvidia-smi line, and {"ok":
+true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -174,6 +206,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PANEL_HW = (3000, 4400)
 N_PANELS = 3
+NO_INT8 = {"quantize_rows": 0, "int8_gemm": 0}  # launches of the float head's runs
 SEED = 0
 # (B, N, IoU threshold, box extent, unit, kind): the proposal NMS, the
 # per-class NMS, a ragged N, then the adversarial sets: a suppression chain as
@@ -1739,7 +1772,7 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
           f"cli.test did not write {pngs} and {svg}")
     check(len(seconds) == 2, f"cli.test printed no prediction times: {seconds}")
     check(n_b > 0 and batches.count(3) == n_b, f"cli.test batches {batches}: not all prescaled grey")
-    want = {"grey_stem": n_b, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0}
+    want = {"grey_stem": n_b, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0, **NO_INT8}
     check(launches_test == want, f"cli.test launches {launches_test}, want {want} for {n_b} batches")
 
     # --compare: against its own file parity holds; 0.01 more mAP fails it.
@@ -1805,7 +1838,7 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
     check(rc == 0 and len(recall) == 1 and len(t_props) == len(data) and all(map(os.path.isfile, rpn_pngs)),
           f"cli.test_rpn: rc {rc}, recall lines {recall}, {len(t_props)} of {len(data)} panels, "
           f"pngs {sum(map(os.path.isfile, rpn_pngs))}")
-    want = {"grey_stem": 0, "nms_fused": len(rpn_batches), "roi_pool": 0, "roi_pool_backward": 0}
+    want = {"grey_stem": 0, "nms_fused": len(rpn_batches), "roi_pool": 0, "roi_pool_backward": 0, **NO_INT8}
     check(len(rpn_batches) > 0 and launches_rpn == want,
           f"cli.test_rpn launches {launches_rpn}, want {want} for {len(rpn_batches)} tile batches")
     check(rc_td == 0 and all(os.path.isfile(os.path.join(viz, f"test_data_{i}.png")) for i in range(2)),
@@ -2570,7 +2603,7 @@ def vgg_serve_phase(tmp, cfg, dev, kind, smi):
           "serve_wall_s": serve_s, "launches": launches})
     check([r.get("path") for r in recs] == paths, f"serve output out of order: {recs}")
     check(all(len(r.get("detections", [])) > 0 for r in recs), "a VGG16 panel has no detections")
-    want = {"grey_stem": 0, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0}
+    want = {"grey_stem": 0, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0, **NO_INT8}
     check(n_b > 0 and launches == want, f"VGG16 serve launches {launches}, want {want} for {n_b} batches")
     return load_radnet(os.path.join(tmp, "models", "vgg"), device=dev), panel3, small, origins, launches, weights
 
@@ -2641,7 +2674,7 @@ def vgg_stages_phase(net, panel3, small, origins, kind, smi, errs) -> tuple:
           "panel_predict_ms": panel_wall_ms, "panel_device_busy_ms": panel_busy_ms,
           "panel_device_idle_share": 1.0 - panel_busy_ms / panel_wall_ms,
           "panel_host_ms": {"dispatch": (t1 - t0) * 1e3, "collect": (t2 - t1) * 1e3}})
-    want = {"grey_stem": 0, "nms_fused": 2, "roi_pool": 1, "roi_pool_backward": 0}
+    want = {"grey_stem": 0, "nms_fused": 2, "roi_pool": 1, "roi_pool_backward": 0, **NO_INT8}
     check(per_batch == want, f"a VGG16 batch launched {per_batch}, want {want}")
 
     sync_free_phase(net, images, panel3, phase="vgg_sync_free")
@@ -2730,7 +2763,7 @@ def vgg_evaluate_phase(tmp: str, dev, smi, serve_weights: dict, n_panels: int = 
           "sec_per_panel": seconds, "batches": n_b, "launches": launches, "mAP": acc.get("mAP"),
           "card_vs_cpu": shown})
     check(rc == 0 and "mAP" in acc, f"cli.test on the VGG16 model: rc {rc}, {sorted(acc)}")
-    want = {"grey_stem": 0, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0}
+    want = {"grey_stem": 0, "nms_fused": 2 * n_b, "roi_pool": n_b, "roi_pool_backward": 0, **NO_INT8}
     check(n_b > 0 and launches == want, f"VGG16 cli.test launches {launches}, want {want}")
     check(dets["n_card"] > 0 and dets["unmatched"] <= 0.05 * (dets["n_card"] + dets["n_cpu"]),
           f"VGG16 detections: {dets['unmatched']} unmatched card vs CPU")
@@ -2745,6 +2778,529 @@ def vgg_evaluate_phase(tmp: str, dev, smi, serve_weights: dict, n_panels: int = 
     check(gap <= VGG_PSEUDO_GT_MAP_LIMIT,
           f"VGG16 calibrated detections: pseudo-ground-truth mAP card vs CPU {gap} apart")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# The int8 RoI head (infer_quantize="int8"): its two kernels, then serve,
+# predict and test through it, on both backbones.
+# --------------------------------------------------------------------------- #
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
+# (layer, backbone, activation shape, its type, weight shape): the products a
+# 12-tile serving batch (3600 RoIs) runs; ResNet50's weights (O, C, kh, kw),
+# VGG16's (O, D).
+INT8_CASES = [
+    ("s5a.conv2a", "resnet50", (3600, 7, 7, 1024), "bfloat16", (512, 1024, 1, 1)),
+    ("s5a.conv_sc", "resnet50", (3600, 7, 7, 1024), "bfloat16", (2048, 1024, 1, 1)),
+    ("conv2b", "resnet50", (3600, 7, 7, 512), "bfloat16", (512, 512, 3, 3)),
+    ("conv2c", "resnet50", (3600, 7, 7, 512), "bfloat16", (2048, 512, 1, 1)),
+    ("s5b.conv2a", "resnet50", (3600, 7, 7, 2048), "bfloat16", (512, 2048, 1, 1)),
+    ("fc1", "vgg16", (3600, 25088), "bfloat16", (4096, 25088)),
+    ("fc2", "vgg16", (3600, 4096), "float32", (4096, 4096)),
+]
+# How often a serving batch runs each case's product (conv2b, conv2c and
+# s5b's conv2a stand for their twins in s5b and s5c) and quantizes its
+# activations (s5a.conv_sc reads s5a.conv2a's quantized input).
+INT8_BATCH_USES = {"s5a.conv2a": (1, 1), "s5a.conv_sc": (1, 0), "conv2b": (3, 3), "conv2c": (3, 3),
+                   "s5b.conv2a": (2, 2), "fc1": (1, 1), "fc2": (1, 1)}
+# Launches of one serving batch through the int8 head (a grey batch: one
+# grey stem on ResNet50): 10 products and 9 + 10 quantizations on
+# ResNet50's stage 5, 2 and 2 + 2 on VGG16's fc1 / fc2.
+INT8_PER_BATCH = {
+    "resnet50": {"nms_fused": 2, "roi_pool": 1, "grey_stem": 1, "roi_pool_backward": 0,
+                 "quantize_rows": 19, "int8_gemm": 10},
+    "vgg16": {"nms_fused": 2, "roi_pool": 1, "grey_stem": 0, "roi_pool_backward": 0,
+              "quantize_rows": 4, "int8_gemm": 2},
+}
+# Card against CPU through the int8 head, float32 (limits from readings of
+# scripts/int8_card_vs_cpu_probe.py, PERF.md section 6): the head's
+# outputs on identical pooled inputs, as a share of their largest magnitude,
+# and the detections of a 2-tile batch without a partner.
+# Readings (the probe on an NVIDIA H100 80GB HBM3 at 700.00 W, three weight
+# seeds a backbone): the head 1.1e-5 - 1.5e-5 apart (ResNet50), 3.3e-6 -
+# 4.0e-6 (VGG16); 1.1-2.8% of the detections unmatched at INT8_PROB_TOL.
+# With the product fed a map one column off (ResNet50) or rows one RoI off
+# (VGG16): the head 0.34-2.0 apart, 73% and 100% unmatched.
+INT8_HEAD_LIMIT = 1e-4
+INT8_UNMATCHED_SHARE = 0.10
+INT8_PROB_TOL = 0.05  # a detection's partner: the same class and box, confidences this close
+INT8_HEAD_ROIS = 64  # RoIs a tile in the head comparison, to keep the CPU side short
+
+
+def kernel_ms(fn, symbol: str) -> float:
+    """device_ms, or the CUDA-event median where the profiler saw no such
+    kernel."""
+    ms = device_ms(fn, symbol)
+    return ms if ms is not None else time_cuda(fn)
+
+
+def int8_case_inputs(case, dev, seed: int):
+    """Seeded activations (ReLU outputs; per-sample magnitudes over four
+    decades; sample 1 all zero, so its scale sits at the floor), weights
+    (lecun-normal, output channel 7 a hundred times larger) and a bias, all
+    made on the card."""
+    import math
+
+    import torch
+
+    _, _, a_shape, a_dtype, w_shape = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(a_shape, generator=g, device=dev).abs_()
+    x *= torch.logspace(-2, 2, a_shape[0], device=dev).view(-1, *[1] * (len(a_shape) - 1))
+    x[1] = 0.0
+    w = torch.randn(w_shape, generator=g, device=dev) / math.sqrt(math.prod(w_shape[1:]))
+    w[7] *= 100.0
+    bias = torch.randn(w_shape[0], generator=g, device=dev) * 0.1
+    return x.to(getattr(torch, a_dtype)), w, bias
+
+
+def int8_operands(x, w):
+    """(A as the kernel reads it, rows a sample, the weight's rows) of a
+    case: a 1x1 conv's map as (M, C) rows, a 3x3's as the map itself."""
+    from radnet_torch.ops import quant
+
+    wrows = quant.conv_weight_rows(w) if w.dim() == 4 else w.contiguous()
+    xq = quant.quantize_rows_cuda(x)
+    if x.dim() == 2:
+        return xq, 1, wrows
+    if w.shape[-1] == 3:
+        return xq, 49, wrows
+    return quant.Quantized(xq.q.reshape(-1, x.shape[-1]), xq.scale), 49, wrows
+
+
+def int8_kernel_checks(dev) -> dict:
+    """Phase int8_kernels: the quantizer and the int8 product at every shape
+    a serving batch gives them, against their plain versions: q and the
+    scales bit-equal (activations and weights); the int32 sums bit-equal on
+    every row at a small M (8 samples) and on every 37th sample at the full
+    M; the float32 outputs bit-equal on every row, the 3x3 conv's edge rows
+    among them; then each timed (device ms, plain ms, torch._int_mm plus the
+    dequantize as the library call) beside its bound.  Returns the kernels
+    line's two rows."""
+    import torch
+
+    from radnet_torch.ops import quant
+
+    rows = []
+    for i, case in enumerate(INT8_CASES):
+        name, backbone, a_shape, a_dtype, w_shape = case
+        x, w, bias = int8_case_inputs(case, dev, SEED + 40 + i)
+        a, rps, wrows = int8_operands(x, w)
+        xq = quant.quantize_rows_cuda(x)
+        xq_ref = quant.quantize_rows_plain(x)
+        wq, wq_ref = quant.quantize_rows_cuda(wrows), quant.quantize_rows_plain(wrows)
+        torch.cuda.synchronize()
+        for what, got, ref in (("activations", xq, xq_ref), ("weights", wq, wq_ref)):
+            check(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale),
+                  f"quantize_rows disagrees with its plain version on {name}'s {what}")
+        del xq_ref, wq_ref
+
+        out = quant.int8_gemm_cuda(a, wq, bias, rps)
+        ref = quant.int8_gemm_plain(a, wq, bias, rps)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        max_err = float(diff.max())
+        conv3 = a.q.dim() == 4
+        edge_rows = 0
+        if conv3:  # the rows of the 7 x 7 map's border, where taps fall off it
+            y = torch.arange(49, device=dev) // 7
+            xx = torch.arange(49, device=dev) % 7
+            border = ((y == 0) | (y == 6) | (xx == 0) | (xx == 6)).repeat(a_shape[0])
+            edge_rows = int(border.sum())
+            check(float(diff[border].max()) == 0.0, f"int8_gemm: {name}'s edge rows differ")
+        check(torch.equal(out, ref), f"int8_gemm disagrees with its plain version on {name}: "
+                                     f"max |diff| {max_err}")
+        del diff, ref
+
+        samples = torch.arange(0, a_shape[0], 37, device=dev)
+        small = slice(0, 8)
+        acc = quant.int8_gemm_acc_cuda(a.q, wq.q)
+        if conv3:
+            acc_rows = acc.reshape(a_shape[0], 49, -1)[samples].reshape(-1, acc.shape[-1])
+            ref_rows = quant.int8_gemm_acc_plain(a.q[samples], wq.q)
+            acc_small = quant.int8_gemm_acc_cuda(a.q[small].contiguous(), wq.q)
+            ref_small = quant.int8_gemm_acc_plain(a.q[small], wq.q)
+        else:
+            sel = (samples[:, None] * rps + torch.arange(rps, device=dev)).reshape(-1)
+            acc_rows, ref_rows = acc[sel], quant.int8_gemm_acc_plain(a.q[sel], wq.q)
+            acc_small = quant.int8_gemm_acc_cuda(a.q[: 8 * rps].contiguous(), wq.q)
+            ref_small = quant.int8_gemm_acc_plain(a.q[: 8 * rps], wq.q)
+        torch.cuda.synchronize()
+        check(torch.equal(acc_rows, ref_rows) and torch.equal(acc_small, ref_small),
+              f"int8_gemm's int32 sums disagree with the plain version's on {name}")
+        del acc, acc_rows, ref_rows
+
+        m, n, k = (a.q.shape[0] * (49 if conv3 else 1), wq.q.shape[0], wq.q.shape[1])
+        a2d = (lambda: quant.im2col_3x3(a.q)) if conv3 else (lambda: a.q)
+
+        def library(a2d=a2d, wq=wq, a=a, rps=rps, bias=bias):
+            return quant.dequantize(torch._int_mm(a2d(), wq.q.t()), a.scale, wq.scale, bias, rps)
+
+        lib_err = float((library() - out).abs().max())
+        g_bound, g_by = bound_ms(a.q.numel() + wq.q.numel() + 4 * (a.scale.numel() + 2 * n + m * n),
+                                 2.0 * m * n * k, INT8_OPS_PER_S)
+        x_bound, x_by = bound_ms(x.numel() * (x.element_size() + 1) + 4 * a_shape[0], 4.0 * x.numel())
+        w_bound, w_by = bound_ms(wrows.numel() * 5 + 4 * wrows.shape[0], 4.0 * wrows.numel())
+        row = {
+            "layer": name, "backbone": backbone, "m": m, "n": n, "k": k, "a_type": a_dtype,
+            "implicit_3x3": conv3, "edge_rows_compared": edge_rows,
+            "gemm_ms": kernel_ms(lambda: quant.int8_gemm_cuda(a, wq, bias, rps), "int8_gemm_kernel"),
+            "gemm_plain_ms": time_cuda(lambda: quant.int8_gemm_plain(a, wq, bias, rps), iters=3, warmup=1),
+            "gemm_library_ms": time_cuda(library, iters=5, warmup=1),
+            "gemm_library_max_abs_diff": lib_err,
+            "gemm_bound_ms": g_bound, "gemm_bound_by": g_by, "gemm_max_abs_err": max_err,
+            "quantize_x_ms": kernel_ms(lambda: quant.quantize_rows_cuda(x), "quantize_rows_kernel"),
+            "quantize_x_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(x), iters=3, warmup=1),
+            "quantize_x_bound_ms": x_bound, "quantize_x_bound_by": x_by,
+            "quantize_w_ms": kernel_ms(lambda: quant.quantize_rows_cuda(wrows), "quantize_rows_kernel"),
+            "quantize_w_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(wrows), iters=3, warmup=1),
+            "quantize_w_bound_ms": w_bound, "quantize_w_bound_by": w_by,
+        }
+        row["gemm_tops"] = 2.0 * m * n * k / row["gemm_ms"] / 1e9
+        emit({"phase": "int8_kernels", **row})
+        rows.append(row)
+        del x, w, a, xq, wq, out
+        torch.cuda.empty_cache()
+    return int8_kernel_rows(rows)
+
+
+def int8_kernel_rows(rows: list) -> dict:
+    """The kernels line's rows of the two int8 kernels: the numbers of one
+    serving batch of the ResNet50 head (each case as often as the batch
+    runs it), the VGG16 head's beside them, every case under "shapes"."""
+    def batch(backbone, keys, use):
+        out = {}
+        for key in keys:
+            out[key] = sum(r[key] * INT8_BATCH_USES[r["layer"]][use] for r in rows
+                           if r["backbone"] == backbone)
+        return out
+
+    gemm_keys = ("gemm_ms", "gemm_plain_ms", "gemm_library_ms", "gemm_bound_ms")
+    line = {}
+    for kernel, source, replaces, keys in (
+        ("int8_gemm", "radnet_torch/csrc/int8_gemm.cu", "radnet_tpu/models/quant.py:59", gemm_keys),
+        ("quantize_rows", "radnet_torch/csrc/quantize_rows.cu", "radnet_tpu/models/quant.py:45", None),
+    ):
+        per = {}
+        for backbone in ("resnet50", "vgg16"):
+            if keys:
+                b = batch(backbone, keys, 0)
+                per[backbone] = {"ms": b["gemm_ms"], "plain_ms": b["gemm_plain_ms"],
+                                 "library_ms": b["gemm_library_ms"], "bound_ms": b["gemm_bound_ms"]}
+            else:  # activations as often as they are quantized, weights once a product
+                xs = batch(backbone, ("quantize_x_ms", "quantize_x_plain_ms", "quantize_x_bound_ms"), 1)
+                ws = batch(backbone, ("quantize_w_ms", "quantize_w_plain_ms", "quantize_w_bound_ms"), 0)
+                per[backbone] = {"ms": xs["quantize_x_ms"] + ws["quantize_w_ms"],
+                                 "plain_ms": xs["quantize_x_plain_ms"] + ws["quantize_w_plain_ms"],
+                                 "library_ms": None,
+                                 "bound_ms": xs["quantize_x_bound_ms"] + ws["quantize_w_bound_ms"]}
+        # The batch's bound is a sum of its launches' bounds: it is bound by
+        # whichever of bytes and operations bounds the larger part of it.
+        by_key, bound_key = (("gemm_bound_by", "gemm_bound_ms") if keys
+                             else ("quantize_x_bound_by", "quantize_x_bound_ms"))
+        share = {"bytes": 0.0, "operations": 0.0}
+        for r in rows:
+            if r["backbone"] == "resnet50":
+                share[r[by_key]] += r[bound_key] * INT8_BATCH_USES[r["layer"]][0 if keys else 1]
+        line[kernel] = {
+            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+            **({"replaces_also": "radnet_tpu/models/quant.py:78 int8_dense (XLA's int8 conv and dot: "
+                                 "no Pallas kernel)"} if keys else
+               {"replaces_also": "no Pallas kernel: XLA's reduction and rounding"}),
+            "shape": "one 12-tile serving batch of the ResNet50 int8 head (3600 RoIs)",
+            **per["resnet50"], "bound_by": max(share, key=share.get), "bound_by_share": share,
+            "vgg16_batch": per["vgg16"],
+            "max_abs_err": max(r["gemm_max_abs_err"] for r in rows) if keys else 0.0,
+            "shapes": [{k: v for k, v in r.items()
+                        if (k.startswith("gemm") if keys else k.startswith("quantize"))
+                        or k in ("layer", "backbone", "m", "n", "k", "a_type", "implicit_3x3",
+                                 "edge_rows_compared")} for r in rows],
+        }
+    line["int8_gemm"]["library"] = ("torch._int_mm on (M, K) rows (a 3x3 conv's explicit im2col "
+                                     "first: pad and 9 slices) and the dequantize")
+    return line
+
+
+def tile_detections(out, n_fg: int) -> list:
+    """A tile cascade's (boxes, scores, valid) as detection dicts, the tile
+    folded into the class, for ``unmatched``."""
+    boxes, scores, valid = (t.cpu().numpy() for t in out)
+    dets = []
+    for t in range(boxes.shape[0]):
+        for k in range(n_fg):
+            for b, s in zip(boxes[t, k][valid[t, k]], scores[t, k][valid[t, k]]):
+                dets.append({"class": (t, k), "x1": b[0], "y1": b[1], "x2": b[2], "y2": b[3],
+                             "prob": float(s)})
+    return dets
+
+
+def int8_serve_phase(tmp, model_name, paths, network, dev, kind, smi, phase) -> dict:
+    """Phase int8_serve (and vgg_int8_serve): radnet_torch.cli.serve
+    --quantize int8 on a saved model dir over the serving panels, every
+    batch counted: the launches of INT8_PER_BATCH exactly, a grey stem
+    for each grey ResNet50 batch.  Returns the run's launches, batches and
+    panels/s."""
+    import torch
+
+    from radnet_torch.cli import serve
+    from radnet_torch.inference import RADNet
+    from radnet_torch.ops import cuda_kernels
+
+    cfg_tile = json.load(open(os.path.join(tmp, "models", model_name, "config.json")))["tile_size"]
+    cuda_kernels.reset_launch_counts()
+    out, err = Stamped(), Stamped(echo=sys.stderr)
+    real_stderr, sys.stderr = sys.stderr, err
+    t0 = time.perf_counter()
+    try:
+        with counting_calls(RADNet, "_predict_tiles_impl", lambda images, *_: images.dim()) as batches:
+            rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", model_name,
+                             "--warmup-size", str(cfg_tile), "--device", str(dev), "--quantize", "int8"],
+                            stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
+    finally:
+        sys.stderr = real_stderr
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(rc == 0, f"{phase}: serve --quantize int8 exited {rc}")
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    t_ready = next(t for t, line in zip(err.stamps, err.getvalue().splitlines()) if line == "READY")
+    results_s = [t - t_ready for t in out.stamps]
+    n_b = len(batches)
+    want = {k: v * n_b for k, v in INT8_PER_BATCH[network].items()}
+    if network == "resnet50":
+        want["grey_stem"] = batches.count(3)
+    emit({"phase": phase, "kind": kind, "nvidia_smi": smi, "network": network, "panels": len(recs),
+          "batches": n_b, "grey_batches": batches.count(3),
+          "detections": [len(r.get("detections", [])) for r in recs],
+          "panels_per_s": len(recs) / results_s[-1], "result_s_after_ready": results_s,
+          "serve_wall_s": serve_s, "launches": launches})
+    check([r.get("path") for r in recs] == paths, f"{phase}: serve output out of order: {recs}")
+    check(all(len(r.get("detections", [])) > 0 for r in recs), f"{phase}: a panel has no detections")
+    check(n_b > 0 and launches == want, f"{phase}: launches {launches}, want {want} for {n_b} batches")
+    return {"launches": launches, "batches": n_b, "panels_per_s": len(recs) / results_s[-1]}
+
+
+def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
+    """Phase int8_batch (and vgg_int8_batch): one 12-tile grey batch through
+    the int8 head: its launches exactly (INT8_PER_BATCH); the RoI pool +
+    head and the whole batch timed in turns with the float head (float,
+    int8, int8, float), the int8 head's device time by kernel; the batch and
+    a panel's dispatch under the sync check; and the int8 detections against
+    the float ones on the card.  Returns the per-batch launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from radnet_torch.ops import cuda_kernels
+
+    cfg, dev = net8.C, net8.device
+    valid_wh = torch.full((len(images), 2), float(cfg.img_size), device=dev)
+    with torch.inference_mode():
+        fmap = net8._features(images)
+        props = net8._proposals(fmap, valid_wh)
+    saved = launch_counts()
+    cuda_kernels.reset_launch_counts()
+    out8 = net8._predict_tiles_impl(images, valid_wh)
+    torch.cuda.synchronize()
+    per_batch = launch_counts()
+    for k in cuda_kernels.KERNELS:  # the served run's counts stay the reported ones
+        k.launches = saved[k.name]
+    check(per_batch == INT8_PER_BATCH[cfg.network],
+          f"{phase}: a batch launched {per_batch}, want {INT8_PER_BATCH[cfg.network]}")
+
+    times = {"int8": {"head": [], "batch": []}, "float": {"head": [], "batch": []}}
+    for which in ("float", "int8", "int8", "float"):
+        net = net8 if which == "int8" else netf
+        with torch.inference_mode():
+            times[which]["head"].append(time_cuda(lambda: net._head(fmap, props), iters=5, warmup=1))
+        times[which]["batch"].append(
+            time_cuda(lambda: net._predict_tiles_impl(images, valid_wh), iters=5, warmup=1))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            for _ in range(3):
+                net8._head(fmap, props)
+        torch.cuda.synchronize()
+    by_kernel = {"int8_gemm_kernel": 0.0, "quantize_rows_kernel": 0.0, "roi_pool_kernel": 0.0,
+                 "other": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = next((k for k in by_kernel if k in e.name), "other")
+            by_kernel[key] += (e.time_range.end - e.time_range.start) / 3e3
+    outf = netf._predict_tiles_impl(images, valid_wh)
+    n_fg = cfg.n_classes - 1
+    d8, df = tile_detections(out8, n_fg), tile_detections(outf, n_fg)
+    emit({"phase": phase, "kind": kind, "nvidia_smi": smi, "network": cfg.network,
+          "batch_tiles": len(images), "rois": int(props.boxes.shape[0] * props.boxes.shape[1]),
+          "launches_per_batch": per_batch,
+          "roi_pool_head_ms": {k: statistics.median(v["head"]) for k, v in times.items()},
+          "batch_ms": {k: statistics.median(v["batch"]) for k, v in times.items()},
+          "turns_ms": times, "int8_head_device_ms_by_kernel": by_kernel,
+          "detections_int8": len(d8), "detections_float": len(df),
+          "int8_vs_float_unmatched": unmatched(d8, df, INT8_PROB_TOL),
+          "int8_vs_float_unmatched_at_1e-3": unmatched(d8, df)})
+    check(len(d8) > 0, f"{phase}: the int8 batch found nothing")
+    sync_free_phase(net8, images, panel3, phase=f"{phase}_sync_free")
+    return per_batch
+
+
+def int8_card_vs_cpu(weights: dict, cfg, dev, images, head_rois: int = INT8_HEAD_ROIS) -> dict:
+    """The int8 head card against CPU, float32 (TF32 off): a 2-tile grey
+    batch's detections (how many of either side have no partner), and the
+    head alone on identical pooled inputs (the CPU's pool of the CPU's
+    proposals, ``head_rois`` a tile): the largest difference of the class
+    probabilities and of the box deltas, each as a share of its largest
+    magnitude."""
+    import torch
+
+    from radnet_torch.geometry import xyxy_to_xywh
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model
+    from radnet_torch.ops.roi_align import batched_roi_pool
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", infer_quantize="int8")
+    nets = []
+    for where in (dev, "cpu"):
+        m = build_model(cfg32)
+        m.load_state_dict(weights)
+        nets.append(RADNet(cfg32, m, device=where))
+    gpu, cpu = nets
+    torch.set_num_threads(os.cpu_count() or 1)
+    canv = images[2:4].cpu().contiguous()
+    wh = torch.full((2, 2), float(cfg32.img_size))
+    t0 = time.perf_counter()
+    got = tile_detections(gpu._predict_tiles_impl(canv.to(dev), wh.to(dev)), cfg32.n_classes - 1)
+    want = tile_detections(cpu._predict_tiles_impl(canv, wh), cfg32.n_classes - 1)
+    with torch.inference_mode():
+        fmap = cpu._features(canv)
+        rois = xyxy_to_xywh(cpu._proposals(fmap, wh).boxes[:, :head_rois]).contiguous()
+        pooled = batched_roi_pool(fmap.permute(0, 2, 3, 1).contiguous(), rois,
+                                  pool_size=cpu.model.pool_size,
+                                  center_stride=cpu.model.pool_center_stride)
+        pooled = pooled.reshape((-1,) + pooled.shape[2:])
+        want_h = cpu.model.head(pooled, quantize=True)
+        got_h = [t.cpu() for t in gpu.model.head(pooled.to(dev), quantize=True)]
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)) for g, w in zip(got_h, want_h)]
+    return {"detections_card": len(got), "detections_cpu": len(want),
+            "unmatched": unmatched(got, want, INT8_PROB_TOL),
+            "unmatched_by_prob_tol": {str(t): unmatched(got, want, t) for t in (1e-3, 1e-2, 5e-2, 2.0)},
+            "head_rois": int(pooled.shape[0]), "head_cls_rel": rel[0], "head_regr_rel": rel[1],
+            "seconds": time.perf_counter() - t0}
+
+
+def int8_card_vs_cpu_phase(weights: dict, cfg, dev, images, phase: str) -> dict:
+    """Phase int8_card_vs_cpu (and vgg_int8_card_vs_cpu): int8_card_vs_cpu,
+    gated at INT8_HEAD_LIMIT and INT8_UNMATCHED_SHARE.  float32 noise moves
+    some quantized values by a step where the two sides' trunks differ in
+    the last bit, so the detections match at INT8_PROB_TOL, not at the
+    float head's 1e-3."""
+    r = int8_card_vs_cpu(weights, cfg, dev, images)
+    emit({"phase": phase, "network": cfg.network, "dtype": "float32", "tf32": False, **r,
+          "head_limit": INT8_HEAD_LIMIT, "unmatched_share_limit": INT8_UNMATCHED_SHARE})
+    pooled = r["detections_card"] + r["detections_cpu"]
+    check(pooled > 0, f"{phase}: no detections")
+    check(r["unmatched"] <= INT8_UNMATCHED_SHARE * pooled,
+          f"{phase}: {r['unmatched']} of {pooled} int8 detections unmatched card vs CPU")
+    check(max(r["head_cls_rel"], r["head_regr_rel"]) <= INT8_HEAD_LIMIT,
+          f"{phase}: the int8 head card vs CPU {r['head_cls_rel']}, {r['head_regr_rel']} "
+          f"apart on identical inputs (limit {INT8_HEAD_LIMIT})")
+    return r
+
+
+def int8_predict_phase(tmp, model_name, scan, network, dev, kind, smi, phase) -> dict:
+    """Phase int8_predict (and vgg_int8_predict): radnet_torch.cli.predict
+    --quantize int8 on a scan directory: INT8_PER_BATCH's launches for each
+    RoI pool, and detections written."""
+    import torch
+
+    from radnet_torch.cli import predict
+    from radnet_torch.ops import cuda_kernels
+
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = predict.main(["--models-path", os.path.join(tmp, "models"), "--model-name", model_name,
+                           "--scan-data-path", scan, "--device", str(dev), "--quantize", "int8"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    with open(os.path.join(scan, "arrays", "predictions.json")) as f:
+        preds = json.load(f)
+    emit({"phase": phase, "kind": kind, "nvidia_smi": smi, "network": network,
+          "detections": len(preds), "wall_s": wall_s, "launches": launches})
+    n_b = launches["roi_pool"]
+    per = INT8_PER_BATCH[network]
+    check(rc == 0 and len(preds) > 0, f"{phase}: rc {rc}, {len(preds)} detections")
+    check(n_b > 0 and all(launches[k] == per[k] * n_b for k in ("nms_fused", "quantize_rows", "int8_gemm")),
+          f"{phase}: launches {launches} for {n_b} batches")
+    return launches
+
+
+def int8_test_phase(tmp, network, dev, smi, phase, n_panels: int) -> dict:
+    """Phase int8_test (and vgg_int8_test): radnet_torch.cli.test
+    --quantize int8 on the model cli.train wrote, over the first
+    ``n_panels`` of the evaluate phase's test set (INT8_PER_BATCH's
+    launches a batch); then, on a copy whose config.json saves
+    infer_quantize "int8", cli.test over 2 panels runs the int8 head with no
+    flag and not with --quantize none."""
+    import shutil
+
+    from radnet_torch.cli import test
+    from radnet_torch.inference import RADNet
+    from radnet_torch.ops import cuda_kernels
+
+    models = os.path.join(tmp, "train_models")
+    name = TRAIN_RUNS[network][1]
+    d = os.path.join(tmp, "data")
+    base = ["--test-annot", os.path.join(d, "test.csv"), "--test-data", os.path.join(d, "test"),
+            "--device", str(dev), "--models-path", models]
+    cuda_kernels.reset_launch_counts()
+    with counting_calls(RADNet, "_predict_tiles_impl", lambda images, *_: images.dim()) as batches:
+        rc, stdout, test_s = run_cli(test.main, base + ["--model-name", name, "--quantize", "int8",
+                                                        "--limit", str(n_panels)])
+    launches = launch_counts()
+    with open(os.path.join(models, name, "test_accuracy.json")) as f:
+        acc = json.load(f)
+    n_b = len(batches)
+    want = {k: v * n_b for k, v in INT8_PER_BATCH[network].items()}
+    if network == "resnet50":
+        want["grey_stem"] = batches.count(3)
+    saved = name + "_int8"
+    shutil.copytree(os.path.join(models, name), os.path.join(models, saved))
+    cfg_path = os.path.join(models, saved, "config.json")
+    raw = json.load(open(cfg_path))
+    raw["infer_quantize"] = "int8"
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    by_flag = {}
+    for flags in ([], ["--quantize", "none"]):
+        cuda_kernels.reset_launch_counts()
+        rc2, _, _ = run_cli(test.main, base + ["--model-name", saved, "--limit", "2"] + flags)
+        check(rc2 == 0, f"{phase}: cli.test {flags} on a saved int8 config exited {rc2}")
+        by_flag[" ".join(flags) or "(saved)"] = launch_counts()
+    emit({"phase": phase, "nvidia_smi": smi, "network": network, "panels": n_panels, "wall_s": test_s,
+          "batches": n_b, "launches": launches, "mAP": acc.get("mAP"),
+          "saved_int8_config_launches": by_flag})
+    check(rc == 0 and "mAP" in acc, f"{phase}: cli.test --quantize int8: rc {rc}, {sorted(acc)}")
+    check(n_b > 0 and launches == want, f"{phase}: launches {launches}, want {want} for {n_b} batches")
+    check(by_flag["(saved)"]["int8_gemm"] > 0 and by_flag["--quantize none"]["int8_gemm"] == 0
+          and by_flag["--quantize none"]["quantize_rows"] == 0,
+          f"{phase}: a saved infer_quantize and --quantize none: {by_flag}")
+    return launches
+
+
+def int8_phases(tmp, model_name, paths, scan, net, images, panel3, weights, dev, kind, smi,
+                prefix: str = "") -> dict:
+    """The int8 serving path of one backbone, on the model dir the float
+    serve phase saved: serve, one batch (turns with the float head, the sync
+    check), predict, card vs CPU.  Returns the launches of each run."""
+    from radnet_torch.inference import load_radnet
+
+    network = net.C.network
+    served = int8_serve_phase(tmp, model_name, paths, network, dev, kind, smi, f"{prefix}int8_serve")
+    net8 = load_radnet(os.path.join(tmp, "models", model_name), device=dev, quantize="int8")
+    per_batch = int8_batch_phase(net8, net, images, panel3, kind, smi, f"{prefix}int8_batch")
+    predicted = int8_predict_phase(tmp, model_name, scan, network, dev, kind, smi, f"{prefix}int8_predict")
+    int8_card_vs_cpu_phase(weights, net.C, dev, images, f"{prefix}int8_card_vs_cpu")
+    return {"serve": served["launches"], "batch": per_batch, "predict": predicted}
 
 
 def main() -> int:
@@ -2782,6 +3338,7 @@ def main() -> int:
     errs["roi_pool_backward"] = roi_backward_checks(dev, earlier)
     vgg_errs = vgg_kernel_checks(dev)
     kernels_line = timings(dev, errs, earlier)
+    kernels_line.update(int8_kernel_checks(dev))
 
     # 7-8. the main path through serve, per-stage times, then predict.
     cfg, vcfg = Config(), vgg_config()
@@ -2795,6 +3352,12 @@ def main() -> int:
         # 9. card vs CPU, float32, TF32 off.
         card_vs_cpu_phase(net, images, dev)
         serve_weights = {k: v.detach().cpu() for k, v in net.model.state_dict().items()}
+
+        # The int8 head on the same model dir: served, one batch, predict,
+        # card vs CPU.
+        paths = [os.path.join(tmp, f"panel{k}.png") for k in range(N_PANELS)]
+        int8_launches = {"resnet50": int8_phases(tmp, "smoke", paths, os.path.join(tmp, "scan"), net,
+                                                 images, panel3, serve_weights, dev, kind, smi)}
         del net, images
 
         # VGG16: served, staged, sync-free, predicted, card vs CPU.
@@ -2804,6 +3367,9 @@ def main() -> int:
                                                             vgg_errs)
         vgg_predict = vgg_predict_phase(tmp, vnet, kind, smi)
         card_vs_cpu_phase(vnet, vimages, dev, kinds=("grey",), phase="vgg_card_vs_cpu")
+        paths = [os.path.join(tmp, f"vgg_panel{k}.png") for k in range(N_PANELS)]
+        int8_launches["vgg16"] = int8_phases(tmp, "vgg", paths, os.path.join(tmp, "scan_vgg"), vnet,
+                                             vimages, panel3, vgg_weights, dev, kind, smi, prefix="vgg_")
         del vnet, vimages
 
     # 10-16. training and evaluation: the CLIs, per-step numbers, sync-free,
@@ -2811,8 +3377,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_phase(tmp, dev, smi)
         evaluated = evaluate_phase(tmp, dev, smi, serve_weights)
+        int8_launches["resnet50"]["test"] = int8_test_phase(tmp, "resnet50", dev, smi, "int8_test",
+                                                            N_TEST_PANELS)
         vgg_trained = train_phase(tmp, dev, smi, "vgg16", phase="vgg_train")
         vgg_test = vgg_evaluate_phase(tmp, dev, smi, vgg_weights)
+        int8_launches["vgg16"]["test"] = int8_test_phase(tmp, "vgg16", dev, smi, "vgg_int8_test", 6)
         batch, samples_per_s = training_batch(tmp, cfg, dev)
     train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier)
     train_sync_free_phase(batch, cfg, dev)
@@ -2848,9 +3417,15 @@ def main() -> int:
                                "train": vgg_trained["train"]["launches"][name],
                                "cont_train": vgg_trained["cont_train"]["launches"][name],
                                "test": vgg_test[name]}
+        k["launches_int8"] = {net: {run: counts[name] for run, counts in runs.items()}
+                              for net, runs in int8_launches.items()}
         if name in launches:  # the served run is the serving kernels' main path
             k["launches"] = launches[name]
             k["launches_per_batch"] = per_batch[name]
+    # The int8 kernels' main path is the int8 serving run of ResNet50.
+    for name in ("int8_gemm", "quantize_rows"):
+        kernels_line[name]["launches"] = int8_launches["resnet50"]["serve"][name]
+        kernels_line[name]["launches_per_batch"] = int8_launches["resnet50"]["batch"][name]
     # The backward's main path is the trainable-trunk run of cont_train.
     kernels_line["roi_pool_backward"]["launches"] = trained["cont_train"]["launches"]["roi_pool_backward"]
     print(json.dumps({"kernels": list(kernels_line.values())}), flush=True)

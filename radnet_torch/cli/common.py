@@ -1,5 +1,5 @@
-"""Shared CLI helpers: the model directory, detection drawing, and the
-training CLIs' shared flags, data and pipelines."""
+"""Shared CLI helpers: the model directory, the inference CLIs' --quantize,
+detection drawing, and the training CLIs' shared flags, data and pipelines."""
 
 from __future__ import annotations
 
@@ -12,6 +12,25 @@ import numpy as np
 
 def model_dir(models_path: str, model_name: str) -> str:
     return os.path.join(models_path, model_name)
+
+
+def add_quantize_arg(p: argparse.ArgumentParser) -> None:
+    """The serving-time quantization flag of the inference CLIs."""
+    p.add_argument(
+        "--quantize", choices=["int8", "none"], default=None,
+        help="run the RoI head in int8 (the quantizer and int8 product kernels of "
+        "radnet_torch/csrc; measure the mAP delta first). 'none' overrides a saved "
+        "config.infer_quantize; default: whatever the model dir's config.json says",
+    )
+
+
+def quantize_from_args(args) -> str | None:
+    """``load_radnet``'s ``quantize``: None keeps the saved setting, "none"
+    clears it ("")."""
+    q = getattr(args, "quantize", None)
+    if q is None:
+        return None
+    return "" if q == "none" else q
 
 
 def draw_rectangle(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color,

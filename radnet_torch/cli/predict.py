@@ -18,7 +18,8 @@ import json
 import sys
 from pathlib import Path
 
-from radnet_torch.cli.common import draw_detections, draw_rectangle, model_dir
+from radnet_torch.cli.common import (add_quantize_arg, draw_detections, draw_rectangle,
+                                     model_dir, quantize_from_args)
 from radnet_torch.cli.serve import detections_to_json
 from radnet_torch.data.png import read_png, write_png
 
@@ -54,7 +55,7 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument("--n-devices", type=int, default=None, help="not ported yet")
     p.add_argument("--model-parallel", type=int, default=None, help="not ported yet")
-    p.add_argument("--quantize", choices=["int8", "none"], default=None, help="not ported yet")
+    add_quantize_arg(p)
     return p
 
 
@@ -64,11 +65,10 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     if args.n_devices or args.model_parallel:
         raise NotImplementedError("--n-devices/--model-parallel are not ported yet (ROADMAP Queue 1 item 13)")
-    if args.quantize:
-        raise NotImplementedError("--quantize is not ported yet (ROADMAP Queue 1 item 9)")
 
     print("\n\nMaking predictions.")
-    radnet = load_radnet(model_dir(args.models_path, args.model_name), device=args.device)
+    radnet = load_radnet(model_dir(args.models_path, args.model_name), device=args.device,
+                         quantize=quantize_from_args(args))
     images = [read_png(str(resolve_type_path(args.scan_data_path, t))) for t in radnet.C.img_types]
     detections = radnet.predict(images)
 

@@ -34,6 +34,8 @@ from collections import deque
 
 import numpy as np
 
+from radnet_torch.cli.common import add_quantize_arg, quantize_from_args
+
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -52,6 +54,7 @@ def build_argparser() -> argparse.ArgumentParser:
         "--device", default="cuda",
         help="torch device (default cuda; without a card pass --device cpu)",
     )
+    add_quantize_arg(p)
     return p
 
 
@@ -76,7 +79,8 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     args = build_argparser().parse_args(argv)
     stdin = sys.stdin if stdin is None else stdin
     stdout = sys.stdout if stdout is None else stdout
-    radnet = load_radnet(os.path.join(args.models_path, args.model_name), device=args.device)
+    radnet = load_radnet(os.path.join(args.models_path, args.model_name), device=args.device,
+                         quantize=quantize_from_args(args))
 
     if args.warmup_size:
         s = args.warmup_size

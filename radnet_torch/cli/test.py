@@ -30,7 +30,8 @@ import time
 
 import numpy as np
 
-from radnet_torch.cli.common import draw_detections, model_dir
+from radnet_torch.cli.common import (add_quantize_arg, draw_detections, model_dir,
+                                     quantize_from_args)
 from radnet_torch.data.dataset import get_data, get_image
 from radnet_torch.data.png import write_png
 from radnet_torch.evaluation import evaluate_detections, evaluate_detections_multi
@@ -62,7 +63,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; without a card pass --device cpu)")
     p.add_argument("--n-devices", type=int, default=None, help="not ported yet")
     p.add_argument("--model-parallel", type=int, default=None, help="not ported yet")
-    p.add_argument("--quantize", choices=["int8", "none"], default=None, help="not ported yet")
+    add_quantize_arg(p)
     return p
 
 
@@ -145,12 +146,10 @@ def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     if args.n_devices or args.model_parallel:
         raise NotImplementedError("--n-devices/--model-parallel are not ported yet (ROADMAP Queue 1 item 13)")
-    if args.quantize:
-        raise NotImplementedError("--quantize is not ported yet (ROADMAP Queue 1 item 9)")
     model_path = model_dir(args.models_path, args.model_name)
 
     print("\n\nMaking predictions on TEST data.")
-    radnet = load_radnet(model_path, device=args.device)
+    radnet = load_radnet(model_path, device=args.device, quantize=quantize_from_args(args))
     data_test, _, _ = get_data(args.test_annot, args.test_data, radnet.C.img_types)
     if args.limit:
         data_test = data_test[: args.limit]

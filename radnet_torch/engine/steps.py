@@ -172,10 +172,13 @@ def _proposals_and_roi_targets(config: Config, rpn_cls, rpn_regr, batch: dict, d
     return pt, pt.roi_valid.float() * sample_valid[:, None]
 
 
-def _detector_losses(model: FasterRCNN, config: Config, fmap, pt, roi_mask, masks):
+def _detector_losses(model: FasterRCNN, config: Config, fmap, pt, roi_mask, masks,
+                     deterministic: bool = False):
     """(class loss, regression loss, accuracy) of the RoI head on the
-    sampled RoIs; ``masks``: the head's dropout masks, or None."""
-    det_cls, det_regr = model.roi_heads(fmap, pt.rois, masks=masks)
+    sampled RoIs; ``masks``: the head's dropout masks, or None.  A
+    ``deterministic`` pass (the eval step) runs the int8 head where the model
+    has one, as the JAX package's eval step does; training runs it float."""
+    det_cls, det_regr = model.roi_heads(fmap, pt.rois, masks=masks, quantize=deterministic)
     return (losses.class_loss_cls(pt.y_class, det_cls, roi_mask),
             losses.class_loss_regr(pt.y_regr, det_regr, config.n_classes - 1, roi_mask),
             losses.detector_accuracy(pt.y_class, det_cls, roi_mask))
@@ -211,7 +214,8 @@ def compute_losses(model: FasterRCNN, config: Config, batch: dict, draws: StepDr
     pt, roi_mask = _proposals_and_roi_targets(config, rpn_cls, rpn_regr, batch, draws, consts,
                                               sample_valid)
     l_det_cls, l_det_regr, acc = _detector_losses(
-        model, config, fmap, pt, roi_mask, None if deterministic else draws.head_masks)
+        model, config, fmap, pt, roi_mask, None if deterministic else draws.head_masks,
+        deterministic)
     metrics = _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid)
     return l_rpn_cls + l_rpn_regr + l_det_cls + l_det_regr, metrics
 

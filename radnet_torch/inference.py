@@ -204,7 +204,7 @@ class RADNet:
             prop_boxes = prop_boxes[:, : cfg.max_head_rois]
             prop_valid = prop_valid[:, : cfg.max_head_rois]
         rois = xyxy_to_xywh(prop_boxes)
-        det_cls, det_regr = self.model.roi_heads(fmap, rois)
+        det_cls, det_regr = self.model.roi_heads(fmap, rois, quantize=True)
         return det_cls, det_regr, rois, prop_valid
 
     def _detections(self, det_cls, det_regr, rois, prop_valid):
@@ -570,10 +570,15 @@ def save_weights(model_dir: str, model: FasterRCNN) -> str:
     return path
 
 
-def load_radnet(model_dir: str, device="cuda") -> RADNet:
-    """Build a RADNet from a model directory written by :func:`save_radnet`."""
+def load_radnet(model_dir: str, device="cuda", quantize: str | None = None) -> RADNet:
+    """Build a RADNet from a model directory written by :func:`save_radnet`.
+    ``quantize``: serving-time override of ``config.infer_quantize`` ("int8"
+    runs the RoI head in int8, ``""`` clears a saved value, None keeps it);
+    the weights are the same either way."""
     device = resolve_device(device)
     config = Config.load(os.path.join(model_dir, "config.json"))
+    if quantize is not None:
+        config.infer_quantize = quantize or None
     path = os.path.join(model_dir, WEIGHTS_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(

@@ -31,13 +31,20 @@ from radnet_torch.ops.roi_align import batched_roi_pool
 
 class FasterRCNN(nn.Module):
     def __init__(self, network: str, n_classes: int, num_anchors: int,
-                 dtype: torch.dtype = torch.bfloat16, vgg_fc_dim: int = 4096):
+                 dtype: torch.dtype = torch.bfloat16, vgg_fc_dim: int = 4096,
+                 head_quant: str | None = None):
         super().__init__()
+        if head_quant not in (None, "int8"):
+            raise ValueError(f"infer_quantize must be None or 'int8', not {head_quant!r}")
         self.network = network
         self.dtype = dtype
+        # "int8": the RoI head runs quantized where roi_heads is asked to
+        # (inference, the eval step); training always runs it float.
+        self.head_quant = head_quant
+        quant = head_quant == "int8"
         if network == "vgg16":
             self.trunk = vgg.VGG16Trunk(dtype=dtype)
-            self.head = vgg.VGG16RoIHead(n_classes, dtype=dtype, fc_dim=vgg_fc_dim)
+            self.head = vgg.VGG16RoIHead(n_classes, dtype=dtype, fc_dim=vgg_fc_dim, quantize=quant)
             self.pool_size = vgg.POOL_SIZE
             self.pool_center_stride = 1
             channels = vgg.FEATURE_CHANNELS
@@ -45,7 +52,7 @@ class FasterRCNN(nn.Module):
             self.trunk = resnet.ResNet50Trunk(dtype=dtype)
             # 7x7 pool on the even centres of the 14x14 grid, feeding the
             # pre-strided head.
-            self.head = resnet.ResNet50RoIHead(n_classes, dtype=dtype)
+            self.head = resnet.ResNet50RoIHead(n_classes, dtype=dtype, quantize=quant)
             self.pool_size = resnet.POOL_SIZE // 2
             self.pool_center_stride = 2
             channels = resnet.FEATURE_CHANNELS
@@ -71,11 +78,15 @@ class FasterRCNN(nn.Module):
         """Feature map -> (objectness (B, h, w, A), deltas (B, h, w, 4A))."""
         return self.rpn_head(fmap)
 
-    def roi_heads(self, fmap: torch.Tensor, rois_xywh: torch.Tensor, masks=None):
+    def roi_heads(self, fmap: torch.Tensor, rois_xywh: torch.Tensor, masks=None, *,
+                  quantize: bool = False):
         """Pool + classify RoIs: (class probs (B, R, n_classes), box deltas
         (B, R, 4 * (n_classes - 1))).  ``masks``: the VGG16 head's two
         dropout masks, bool ``(B * R, fc_dim)``; None runs it deterministic
-        (the ResNet50 head has no dropout)."""
+        (the ResNet50 head has no dropout).  ``quantize``: the caller runs
+        deterministic (inference, the eval step), so a model built with
+        ``head_quant="int8"`` runs its head in int8; the train step passes
+        False.  The head takes the NHWC pool."""
         b, r = rois_xywh.shape[:2]
         fmap_nhwc = fmap.permute(0, 2, 3, 1).contiguous()
         pooled = batched_roi_pool(
@@ -83,24 +94,22 @@ class FasterRCNN(nn.Module):
             pool_size=self.pool_size, center_stride=self.pool_center_stride,
         )
         pooled = pooled.reshape((b * r,) + pooled.shape[2:])
-        if self.network == "vgg16":  # the dense head flattens the NHWC pool
-            cls, regr = self.head(pooled, masks)
+        int8 = quantize and self.head_quant == "int8"
+        if self.network == "vgg16":
+            cls, regr = self.head(pooled, masks, quantize=int8)
         else:
-            cls, regr = self.head(pooled.permute(0, 3, 1, 2))
+            cls, regr = self.head(pooled, quantize=int8)
         return cls.reshape(b, r, -1), regr.reshape(b, r, -1)
 
 
 def build_model(config: Config) -> FasterRCNN:
-    if config.infer_quantize:
-        raise NotImplementedError(
-            "infer_quantize: the int8 RoI head is not ported yet (ROADMAP Queue 1 item 9)"
-        )
     return FasterRCNN(
         network=config.network,
         n_classes=config.n_classes,
         num_anchors=config.n_anchors,
         dtype=getattr(torch, config.compute_dtype),
         vgg_fc_dim=config.vgg_fc_dim,
+        head_quant=config.infer_quantize or None,
     )
 
 

@@ -1,4 +1,5 @@
-"""Shared layers: the frozen batch norm and a conv that computes in a set type.
+"""Shared layers: the frozen batch norm, and a conv and a dense layer that
+compute in a set type.
 
 Activations are NCHW tensors, in ``torch.channels_last`` memory format on
 the trunk.  Parameters are float32; a layer casts them to its compute type
@@ -26,10 +27,19 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, b = self.affine(x.dtype)
+        return x * k[:, None, None] + b[:, None, None]
+
+    def nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """The same on channels-last ``(..., C)`` values."""
+        k, b = self.affine(x.dtype)
+        return x * k + b
+
+    def affine(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(k, b)`` in ``dtype``."""
         k = self.gamma / torch.sqrt(self.var + self.eps)
         b = self.beta - self.mean * k
-        dt = x.dtype
-        return x * k.to(dt)[:, None, None] + b.to(dt)[:, None, None]
+        return k.to(dtype), b.to(dtype)
 
 
 class Conv(nn.Module):
@@ -49,3 +59,18 @@ class Conv(nn.Module):
         dt = self.dtype
         y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
         return y + self.bias.to(dt)[:, None, None]
+
+
+class Dense(nn.Module):
+    """``x @ W^T`` in ``dtype``, then the bias added in ``dtype`` (flax's
+    ``Dense`` with float32 parameters and a compute type)."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)

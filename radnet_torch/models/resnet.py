@@ -8,7 +8,11 @@ pool already sampled the even positions of the 14x14 grid, so s5a's
 stride-2 1x1 convs run at stride 1 on a 7x7 input.
 
 Convs compute in the model's type (bf16 on the card) with float32
-parameters; convolutions themselves are cuDNN's.
+parameters; convolutions themselves are cuDNN's.  A head built with
+``quantize`` can also run every stage-5 conv in int8 (``models/quant.py``),
+deterministic only, on the NHWC pool: each int8 conv gives float32, which
+is cast to the model's type before its batch norm, as the JAX package's
+``FrozenBatchNorm`` casts.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from radnet_torch.models.layers import Conv, FrozenBatchNorm
+from radnet_torch.models.quant import QuantConv
+from radnet_torch.ops import quant
 
 FEATURE_CHANNELS = 1024
 POOL_SIZE = 14
@@ -27,18 +33,20 @@ class Bottleneck(nn.Module):
     """Bottleneck residual block, with a projection shortcut if ``project``."""
 
     def __init__(self, cin: int, filters: tuple[int, int, int], stride: int = 1,
-                 project: bool = False, dtype: torch.dtype = torch.float32):
+                 project: bool = False, dtype: torch.dtype = torch.float32,
+                 quantize: bool = False):
         super().__init__()
         f1, f2, f3 = filters
-        self.conv2a = Conv(cin, f1, 1, stride=stride, dtype=dtype)
+        conv = QuantConv if quantize else Conv
+        self.conv2a = conv(cin, f1, 1, stride=stride, dtype=dtype)
         self.bn2a = FrozenBatchNorm(f1)
-        self.conv2b = Conv(f1, f2, 3, padding=1, dtype=dtype)
+        self.conv2b = conv(f1, f2, 3, padding=1, dtype=dtype)
         self.bn2b = FrozenBatchNorm(f2)
-        self.conv2c = Conv(f2, f3, 1, dtype=dtype)
+        self.conv2c = conv(f2, f3, 1, dtype=dtype)
         self.bn2c = FrozenBatchNorm(f3)
         self.project = project
         if project:
-            self.conv_sc = Conv(cin, f3, 1, stride=stride, dtype=dtype)
+            self.conv_sc = conv(cin, f3, 1, stride=stride, dtype=dtype)
             self.bn_sc = FrozenBatchNorm(f3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +54,18 @@ class Bottleneck(nn.Module):
         y = F.relu(self.bn2b(self.conv2b(y)))
         y = self.bn2c(self.conv2c(y))
         sc = self.bn_sc(self.conv_sc(x)) if self.project else x
+        return F.relu(y + sc)
+
+    def int8(self, x: torch.Tensor) -> torch.Tensor:
+        """The block with int8 convs on NHWC ``x`` in the model's type; the
+        batch norms, ReLUs and the sum run in that type.  ``x`` is quantized
+        once for ``conv2a`` and the projection, which read the same values."""
+        dt = x.dtype
+        xq = quant.quantize_rows(x)
+        y = F.relu(self.bn2a.nhwc(self.conv2a.int8(xq).to(dt)))
+        y = F.relu(self.bn2b.nhwc(self.conv2b.int8(y).to(dt)))
+        y = self.bn2c.nhwc(self.conv2c.int8(y).to(dt))
+        sc = self.bn_sc.nhwc(self.conv_sc.int8(xq).to(dt)) if self.project else x
         return F.relu(y + sc)
 
 
@@ -97,23 +117,34 @@ class ResNet50Trunk(nn.Module):
 
 
 class ResNet50RoIHead(nn.Module):
-    """Stage 5 over pooled RoIs: ``(N, 1024, 7, 7)`` -> (class probs ``(N,
+    """Stage 5 over pooled RoIs: ``(N, 7, 7, 1024)`` -> (class probs ``(N,
     n_classes)`` float32, box deltas ``(N, 4 * (n_classes - 1))`` float32).
 
     Pre-strided: the RoI pool samples the even positions of the 14x14 grid,
     so s5a's 1x1 entry convs run at stride 1."""
 
-    def __init__(self, n_classes: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, n_classes: int, dtype: torch.dtype = torch.float32,
+                 quantize: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.s5a = Bottleneck(FEATURE_CHANNELS, (512, 512, 2048), project=True, dtype=dtype)
-        self.s5b = Bottleneck(2048, (512, 512, 2048), dtype=dtype)
-        self.s5c = Bottleneck(2048, (512, 512, 2048), dtype=dtype)
+        self.quantize = quantize
+        kw = {"dtype": dtype, "quantize": quantize}
+        self.s5a = Bottleneck(FEATURE_CHANNELS, (512, 512, 2048), project=True, **kw)
+        self.s5b = Bottleneck(2048, (512, 512, 2048), **kw)
+        self.s5c = Bottleneck(2048, (512, 512, 2048), **kw)
         self.dense_class = nn.Linear(2048, n_classes)
         self.dense_regress = nn.Linear(2048, 4 * (n_classes - 1))
 
-    def forward(self, rois: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x = self.s5c(self.s5b(self.s5a(rois.to(self.dtype))))
+    def forward(self, rois: torch.Tensor, quantize: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """``rois``: the NHWC pool ``(N, 7, 7, 1024)``.  ``quantize``: the
+        stage-5 convs in int8 (a head built with ``quantize``)."""
+        x = rois.to(self.dtype)
+        if quantize:
+            if not self.quantize:
+                raise ValueError("the int8 head needs a head built with quantize")
+            x = self.s5c.int8(self.s5b.int8(self.s5a.int8(x.contiguous()))).permute(0, 3, 1, 2)
+        else:  # an NCHW view of channels-last memory, as the int8 result
+            x = self.s5c(self.s5b(self.s5a(x.permute(0, 3, 1, 2))))
         x = F.avg_pool2d(x, 7, stride=7).flatten(1).float()
         cls = torch.softmax(self.dense_class(x), dim=-1)
         regr = self.dense_regress(x)

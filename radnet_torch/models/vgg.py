@@ -13,7 +13,10 @@ by 1/0.5 as flax's ``Dropout`` does.  Without masks the head is
 deterministic (inference, validation).
 
 The convs and ``fc1``/``fc2`` compute in the model's type (bf16 on the
-card) with float32 parameters; the output layers run in float32.
+card) with float32 parameters; the output layers run in float32.  A head
+built with ``quantize`` can also run ``fc1``/``fc2`` in int8
+(``models/quant.py``), deterministic only: both then take and give float32,
+as the JAX package's ``QuantDense`` does.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from radnet_torch.models.layers import Conv
+from radnet_torch.models.layers import Conv, Dense
+from radnet_torch.models.quant import QuantDense
 
 FEATURE_CHANNELS = 512
 POOL_SIZE = 7
@@ -58,21 +62,6 @@ class VGG16Trunk(nn.Module):
         return x
 
 
-class Dense(nn.Module):
-    """``x @ W^T`` in ``dtype``, then the bias added in ``dtype`` (flax's
-    ``Dense`` with float32 parameters and a compute type)."""
-
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
-
-
 def dropout(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     """Kept values scaled by 1 / KEEP_PROB, the rest zero; identity without
     a mask."""
@@ -85,20 +74,32 @@ class VGG16RoIHead(nn.Module):
     """``(N, 7, 7, 512)`` pooled RoIs (NHWC) -> (class probs ``(N,
     n_classes)`` float32, box deltas ``(N, 4 * (n_classes - 1))`` float32)."""
 
-    def __init__(self, n_classes: int, dtype: torch.dtype = torch.float32, fc_dim: int = 4096):
+    def __init__(self, n_classes: int, dtype: torch.dtype = torch.float32, fc_dim: int = 4096,
+                 quantize: bool = False):
         super().__init__()
         self.dtype = dtype
         self.fc_dim = fc_dim
-        self.fc1 = Dense(POOL_SIZE * POOL_SIZE * FEATURE_CHANNELS, fc_dim, dtype=dtype)
-        self.fc2 = Dense(fc_dim, fc_dim, dtype=dtype)
+        self.quantize = quantize
+        dense = QuantDense if quantize else Dense
+        self.fc1 = dense(POOL_SIZE * POOL_SIZE * FEATURE_CHANNELS, fc_dim, dtype=dtype)
+        self.fc2 = dense(fc_dim, fc_dim, dtype=dtype)
         self.dense_class = nn.Linear(fc_dim, n_classes)
         self.dense_regress = nn.Linear(fc_dim, 4 * (n_classes - 1))
 
-    def forward(self, rois: torch.Tensor, masks=None) -> tuple[torch.Tensor, torch.Tensor]:
-        m1, m2 = masks if masks is not None else (None, None)
+    def forward(self, rois: torch.Tensor, masks=None,
+                quantize: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """``quantize``: ``fc1``/``fc2`` in int8 (a head built with
+        ``quantize``, no dropout masks)."""
         x = rois.reshape(rois.shape[0], -1)  # (row, column, channel) order
-        x = dropout(F.relu(self.fc1(x)), m1)
-        x = dropout(F.relu(self.fc2(x)), m2)
+        if quantize:
+            if not self.quantize or masks is not None:
+                raise ValueError("the int8 head needs a head built with quantize and no dropout")
+            x = F.relu(self.fc1.int8(x.to(self.dtype)))
+            x = F.relu(self.fc2.int8(x))
+        else:
+            m1, m2 = masks if masks is not None else (None, None)
+            x = dropout(F.relu(self.fc1(x)), m1)
+            x = dropout(F.relu(self.fc2(x)), m2)
         x = x.float()
         cls = torch.softmax(self.dense_class(x), dim=-1)
         regr = self.dense_regress(x)

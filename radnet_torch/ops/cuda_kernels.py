@@ -155,8 +155,22 @@ ROI_POOL_BACKWARD = CudaKernel(
     headers=("roi_taps.cuh",),
 )
 
-KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD]
-# The kernels the serving cascade launches; training adds the backward.
+QUANTIZE_ROWS = CudaKernel(
+    "quantize_rows.cu",
+    "radnet_quantize_rows",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+)
+
+INT8_GEMM = CudaKernel(
+    "int8_gemm.cu",
+    "radnet_int8_gemm",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8,
+    extra_flags=("--fmad=false",),
+)
+
+KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD, QUANTIZE_ROWS, INT8_GEMM]
+# The kernels the serving cascade launches; training adds the backward, the
+# int8 head (infer_quantize="int8") the quantizer and the int8 product.
 SERVING_KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
 
 

@@ -1,0 +1,244 @@
+"""Int8 arithmetic of the RoI head: symmetric quantization and the int8 conv
+and dense products, as ``radnet_tpu/models/quant.py`` computes them.
+
+* Weights: one scale an output channel, ``amax / 127`` over its reduction
+  axes; activations: one scale a sample (an RoI), over all its values.
+* ``q = clip(round_half_even(x / scale), -127, 127)`` as int8, with ``scale
+  = max(amax, 1e-12) / 127`` in float32 and a true division.
+* The product accumulates in int32 and comes out as ``float32(acc) * (sx *
+  sw)``, then ``+ bias`` where the layer has one.
+
+Two kernels do the work on the card: ``csrc/quantize_rows.cu`` (one scale a
+row) and ``csrc/int8_gemm.cu`` (the int8 product with the dequantize and the
+bias in its epilogue, reading a 3x3 SAME conv's im2col implicitly).  Each has
+a plain version here, which the wrappers :func:`quantize_rows` and
+:func:`int8_gemm` run for CPU tensors; for CUDA tensors they launch the
+kernel or raise.  The plain products are float64 matrix products, exact
+since every partial sum is an integer below 127^2 * 25088 < 2^53.
+
+Layouts: activations NHWC; a conv weight as the port stores it, ``(O, C, kh,
+kw)``, is quantized as ``(O, kh * kw * C)`` rows, K in the (ky, kx, c) order
+of JAX's HWIO; a dense weight ``(O, D)`` as it is.  Nothing here is
+differentiated: the int8 head runs only at inference and in the eval step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from radnet_torch.ops import cuda_kernels
+
+
+class Quantized(NamedTuple):
+    """Rows of int8 values and one float32 scale a row."""
+
+    q: torch.Tensor  # int8, (R, ...) : the leading axis is the row
+    scale: torch.Tensor  # float32, (R,)
+
+
+def quantize_sym(x: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over ``dims`` (kept as size-1 dims):
+    ``(q int8, scale float32)`` with ``x ~= q * scale``, bit-equal to
+    ``radnet_tpu.models.quant.quantize_sym``."""
+    x = x.float()
+    amax = x.abs().amax(dim=dims, keepdim=True)
+    # Tensor divisors: on a CUDA tensor, division by a Python scalar is a
+    # multiply by its reciprocal, which rounds differently.
+    scale = amax.clamp_min(1e-12) / torch.full((), 127.0, device=x.device)
+    q = torch.round(x / scale).clamp(-127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+# --------------------------------------------------------------------------- #
+# Kernel A: one scale a row.
+# --------------------------------------------------------------------------- #
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def quantize_rows_plain(x: torch.Tensor) -> Quantized:
+    """``x`` (R, ...) -> int8 ``q`` of ``x``'s shape and a ``(R,)`` scale,
+    one a row over all of its values."""
+    q, scale = quantize_sym(x, tuple(range(1, x.dim())))
+    return Quantized(q, scale.reshape(-1))
+
+
+def quantize_rows_cuda(x: torch.Tensor) -> Quantized:
+    """Launch ``csrc/quantize_rows.cu``; same contract as
+    :func:`quantize_rows_plain` for float32 or bfloat16 ``x`` whose rows
+    hold a multiple of 16 values."""
+    if not x.is_cuda:
+        raise ValueError("quantize_rows_cuda needs a CUDA tensor")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"quantize_rows_cuda takes float32 or bfloat16, not {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("quantize_rows_cuda needs a contiguous, 16-byte aligned tensor")
+    rows = x.shape[0]
+    length = x.numel() // max(rows, 1)
+    if rows == 0 or length == 0 or length % 16:
+        raise ValueError(f"quantize_rows_cuda needs rows of a multiple of 16 values, not "
+                         f"{tuple(x.shape)}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    cuda_kernels.QUANTIZE_ROWS.launch(cuda_kernels.ptr(x), cuda_kernels.ptr(q),
+                                      cuda_kernels.ptr(scale), rows, length, _DTYPE_CODE[x.dtype])
+    return Quantized(q, scale)
+
+
+def quantize_rows(x: torch.Tensor) -> Quantized:
+    """One scale a row: the plain version for CPU tensors, the kernel for
+    CUDA."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    return quantize_rows_cuda(x)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel B: the int8 product and its epilogue.
+# --------------------------------------------------------------------------- #
+def im2col_3x3(q: torch.Tensor) -> torch.Tensor:
+    """``(R, H, W, C)`` -> ``(R * H * W, 9 * C)``: each position's 3x3 SAME
+    window, zero outside the map, K in (ky, kx, c) order."""
+    r, h, w, c = q.shape
+    padded = F.pad(q, (0, 0, 1, 1, 1, 1))
+    taps = [padded[:, ky:ky + h, kx:kx + w] for ky in range(3) for kx in range(3)]
+    return torch.stack(taps, dim=3).reshape(r * h * w, 9 * c)
+
+
+def int8_gemm_acc_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 sums ``A @ B^T`` of int8 ``a`` (2-D rows or a 4-D map read
+    as its 3x3 im2col) and ``b`` (N, K), by a float64 matrix product: exact
+    in any order, every partial sum an integer below 2^53."""
+    rows = im2col_3x3(a) if a.dim() == 4 else a
+    return (rows.double() @ b.double().T).to(torch.int32)
+
+
+def dequantize(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+               bias: torch.Tensor | None, rows_per_sample: int) -> torch.Tensor:
+    """``float32(acc) * (sx[m / rows_per_sample] * sw) + bias``."""
+    scale = sx.repeat_interleave(rows_per_sample)[:, None] * sw[None, :]
+    out = acc.float() * scale
+    return out if bias is None else out + bias
+
+
+def int8_gemm_plain(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
+                    rows_per_sample: int = 1) -> torch.Tensor:
+    """float32 ``(M, N)`` product of quantized ``a`` and ``b`` with the
+    dequantize and bias.  ``a.q``: ``(M, K)`` rows, each ``rows_per_sample``
+    sharing one scale; or an ``(R, H, W, C)`` map read as its 3x3 SAME
+    im2col (one scale a map).  ``b.q``: ``(N, K)``."""
+    if a.q.dim() == 4:
+        rows_per_sample = a.q.shape[1] * a.q.shape[2]
+    acc = int8_gemm_acc_plain(a.q, b.q)
+    return dequantize(acc, a.scale, b.scale, bias, rows_per_sample)
+
+
+def _gemm_launch(a: Quantized, b: Quantized, bias, rows_per_sample: int,
+                 out_int32: bool) -> torch.Tensor:
+    aq, bq = a.q, b.q
+    tensors = [aq, a.scale, bq, b.scale] + ([] if bias is None else [bias])
+    if not all(t.is_cuda and t.device == aq.device for t in tensors):
+        raise ValueError("int8_gemm_cuda needs every tensor on one CUDA device")
+    if aq.dtype != torch.int8 or bq.dtype != torch.int8:
+        raise TypeError("int8_gemm_cuda takes int8 operands")
+    if any(t.dtype != torch.float32 for t in tensors[1::2] + ([] if bias is None else [bias])):
+        raise TypeError("int8_gemm_cuda takes float32 scales and bias")
+    if not all(t.is_contiguous() for t in tensors) or aq.data_ptr() % 16 or bq.data_ptr() % 16:
+        raise ValueError("int8_gemm_cuda needs contiguous operands, 16-byte aligned")
+    if bq.dim() != 2:
+        raise ValueError(f"B must be (N, K), not {tuple(bq.shape)}")
+    n, k = bq.shape
+    if aq.dim() == 4:
+        r, h, w, c = aq.shape
+        m, rows_per_sample, conv = r * h * w, h * w, (h, w, c)
+        if k != 9 * c or c % 16:
+            raise ValueError(f"3x3 im2col of C = {c} needs B of K = {9 * c} and C % 16 == 0, "
+                             f"not {tuple(bq.shape)}")
+        n_samples = r
+    elif aq.dim() == 2:
+        m, conv = aq.shape[0], (0, 0, 0)
+        if aq.shape[1] != k:
+            raise ValueError(f"A {tuple(aq.shape)} and B {tuple(bq.shape)} disagree on K")
+        if m % rows_per_sample:
+            raise ValueError(f"M = {m} is not a whole number of samples of {rows_per_sample}")
+        n_samples = m // rows_per_sample
+    else:
+        raise ValueError(f"A must be (M, K) rows or an (R, H, W, C) map, not {tuple(aq.shape)}")
+    if k % 64 or n % 2:
+        raise ValueError(f"int8_gemm_cuda needs K % 64 == 0 and N even, not K = {k}, N = {n}")
+    if a.scale.shape != (n_samples,) or b.scale.shape != (n,) or (
+            bias is not None and bias.shape != (n,)):
+        raise ValueError("scales or bias of the wrong shape")
+    out = torch.empty((m, n), dtype=torch.int32 if out_int32 else torch.float32, device=aq.device)
+    ptr = cuda_kernels.ptr
+    cuda_kernels.INT8_GEMM.launch(
+        ptr(aq), ptr(a.scale), ptr(bq), ptr(b.scale),
+        None if bias is None else ptr(bias), ptr(out),
+        m, n, k, rows_per_sample, *conv, int(out_int32),
+    )
+    return out
+
+
+def int8_gemm_cuda(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
+                   rows_per_sample: int = 1) -> torch.Tensor:
+    """Launch ``csrc/int8_gemm.cu``; same contract as :func:`int8_gemm_plain`."""
+    return _gemm_launch(a, b, bias, rows_per_sample, out_int32=False)
+
+
+def int8_gemm_acc_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's int32 sums, written as they are (no epilogue): the
+    counterpart of :func:`int8_gemm_acc_plain`, for checks."""
+    ones = torch.ones((a.shape[0],), dtype=torch.float32, device=a.device)
+    return _gemm_launch(Quantized(a, ones), Quantized(b, ones[:1].expand(b.shape[0]).contiguous()),
+                        None, 1, out_int32=True)
+
+
+def int8_gemm(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
+              rows_per_sample: int = 1) -> torch.Tensor:
+    """The int8 product with its epilogue: the plain version for CPU
+    tensors, the kernel for CUDA."""
+    if a.q.device.type == "cpu":
+        return int8_gemm_plain(a, b, bias, rows_per_sample)
+    return int8_gemm_cuda(a, b, bias, rows_per_sample)
+
+
+# --------------------------------------------------------------------------- #
+# The layers' products.
+# --------------------------------------------------------------------------- #
+def conv_weight_rows(weight: torch.Tensor) -> torch.Tensor:
+    """A conv weight ``(O, C, kh, kw)`` as ``(O, kh * kw * C)`` rows, K in
+    HWIO's (ky, kx, c) order."""
+    return weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1).contiguous()
+
+
+def int8_conv(x: torch.Tensor | Quantized, weight: torch.Tensor, bias: torch.Tensor | None = None,
+              padding: int = 0, stride: int = 1) -> torch.Tensor:
+    """NHWC conv in int8: ``x`` (N, H, W, C) float (or already quantized by
+    :func:`quantize_rows`, one scale a sample), ``weight`` (O, C, kh, kw) ->
+    float32 (N, H', W', O).  A 1x1 conv of any stride (VALID) or a 3x3 SAME
+    conv at stride 1, as the RoI head has them."""
+    xq = x if isinstance(x, Quantized) else quantize_rows(x)
+    wq = quantize_rows(conv_weight_rows(weight.float()))
+    n, h, w, c = xq.q.shape
+    o, _, kh, kw = weight.shape
+    if (kh, kw, padding) == (1, 1, 0):
+        q = xq.q
+        if stride != 1:  # the scale is the whole sample's, as in JAX
+            q = q[:, ::stride, ::stride].contiguous()
+        ho, wo = q.shape[1], q.shape[2]
+        out = int8_gemm(Quantized(q.reshape(n * ho * wo, c), xq.scale), wq, bias, ho * wo)
+    elif (kh, kw, padding, stride) == (3, 3, 1, 1):
+        ho, wo = h, w
+        out = int8_gemm(xq, wq, bias)
+    else:
+        raise ValueError(f"int8_conv runs 1x1 VALID and 3x3 SAME stride-1 convs, not "
+                         f"{kh}x{kw}, padding {padding}, stride {stride}")
+    return out.reshape(n, ho, wo, o)
+
+
+def int8_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` (N, D) float, ``weight`` (O, D) -> float32 (N, O) in int8, one
+    scale a row of ``x`` and an output channel of ``weight``."""
+    return int8_gemm(quantize_rows(x), quantize_rows(weight.float().contiguous()), bias)

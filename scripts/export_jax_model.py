@@ -12,8 +12,9 @@ layout.  ``config.json`` is left as it is, so the directory then loads in
 both packages.
 
 Runs on a host that has the JAX package (flax, orbax); the port itself
-never imports it.  Both backbones convert; int8 (``infer_quantize``)
-configurations are refused, since the port has no int8 head yet.
+never imports it.  Both backbones convert, with or without
+``infer_quantize``: the int8 head has the float model's parameters, and the
+field stays in ``config.json`` for the port to read.
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/export_jax_model.py models/faster_rcnn_resnet50_x
@@ -53,9 +54,6 @@ def export(model_dir: str) -> str:
     if unknown:
         raise SystemExit(f"{cfg_path}: fields the port's Config does not have: {unknown}")
     config = Config.from_dict(raw)
-    if config.infer_quantize:
-        raise SystemExit(f"{cfg_path}: infer_quantize={config.infer_quantize!r}; the int8 "
-                         "head is not ported yet (ROADMAP Queue 1 item 9)")
 
     ckpt = _resolve_checkpoint_path(os.path.join(model_dir, "ckpt_best"))
     if not os.path.isdir(ckpt):

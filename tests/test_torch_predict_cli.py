@@ -136,6 +136,6 @@ def test_predict_from_path_matches_jax(tmp_path, monkeypatch, use_img_type):
 
 
 def test_predict_cli_refuses_unported_flags(tmp_path):
-    for flags in (["--n-devices", "2"], ["--quantize", "int8"]):
+    for flags in (["--n-devices", "2"],):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpredict.main(["--scan-data-path", str(tmp_path), "--device", "cpu", *flags])

@@ -2,8 +2,8 @@
 
 ``scripts/export_jax_model.py`` turns a directory that the JAX package
 wrote (``Config.save`` + ``save_checkpoint(dir/"ckpt_best", state)``) into
-one the port loads: the same weights, ``ckpt_last`` as the fallback, int8
-configurations refused.  Then ``radnet_tpu.cli.test.main`` and
+one the port loads: the same weights, ``ckpt_last`` as the fallback, an
+int8 configuration's ``infer_quantize`` kept.  Then ``radnet_tpu.cli.test.main`` and
 ``radnet_torch.cli.test.main --device cpu`` evaluate the same small grey
 test set from that one directory: the same detections (boxes equal,
 confidences within 1e-5, as tests/test_torch_cascade.py), the same
@@ -98,13 +98,18 @@ def test_export_falls_back_to_ckpt_last_and_refuses_unported(jax_dir, tmp_path):
     for k in ("trunk.conv1.weight", "head.dense_class.weight"):
         torch.testing.assert_close(got[k], want[k].float(), rtol=0, atol=0)
 
-    # VGG16 exports now (tests/test_torch_vgg_cli.py); int8 is still refused.
-    for field, value, item in (("infer_quantize", "int8", "item 9"),):
-        raw = cfg.to_dict()
-        raw[field] = value
-        (d / "config.json").write_text(json.dumps(raw))
-        with pytest.raises(SystemExit, match=item):
-            export_jax_model.export(str(d))
+    # An int8 configuration exports the float model's weights and keeps its
+    # infer_quantize, which the port's load_radnet then reads.
+    raw = cfg.to_dict()
+    raw["infer_quantize"] = "int8"
+    (d / "config.json").write_text(json.dumps(raw))
+    export_jax_model.export(str(d))
+    got = torch.load(d / "model.pt", weights_only=True)
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k].float()) for k in want)
+    assert json.loads((d / "config.json").read_text())["infer_quantize"] == "int8"
+    net = load_radnet(str(d), device="cpu")
+    assert net.C.infer_quantize == "int8" and net.model.head_quant == "int8"
     raw = cfg.to_dict()
     raw["renamed_field"] = 1
     (d / "config.json").write_text(json.dumps(raw))
@@ -241,6 +246,6 @@ def test_compare_exit_codes_match_jax(jax_dir, test_set, cli_nets, tmp_path, bum
 
 
 def test_test_cli_refuses_unported_flags(tmp_path):
-    for flags in (["--n-devices", "2"], ["--model-parallel", "2"], ["--quantize", "int8"]):
+    for flags in (["--n-devices", "2"], ["--model-parallel", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             ttest.main(["--models-path", str(tmp_path), "--device", "cpu", *flags])
