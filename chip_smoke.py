@@ -148,22 +148,32 @@ VGG16 (vgg_config(): the default Config with network="vgg16", vgg_fc_dim
 The int8 RoI head (infer_quantize="int8"), on the model dirs the float
 serve phases saved and the ones cli.train wrote:
   int8_kernels  (beside phase 6) the quantizer (csrc/quantize_rows.cu) and
-                the int8 product (csrc/int8_gemm.cu) at every shape a
-                12-tile batch gives them (ResNet50's s5a.conv2a, conv_sc,
-                the 3x3 conv2b through the implicit im2col, conv2c,
-                s5b.conv2a; VGG16's fc1, fc2; M = 176 400 or 3600 rows):
-                q and scales bit-equal to the plain version, the int32 sums
-                bit-equal (every row at 8 samples, every 37th sample at the
-                full M), the float32 outputs bit-equal on every row (the
-                3x3's edge rows counted); device ms, plain ms and
-                torch._int_mm plus the dequantize beside each bound;
+                the int8 product (csrc/int8_gemm.cu: wgmma on a TMA-fed ring,
+                the dequantize, bias, batch norm, residual sum and ReLU in
+                its epilogue) at every shape a 12-tile batch gives them
+                (ResNet50's s5a.conv2a, conv_sc, the 3x3 conv2b through the
+                implicit im2col, conv2c, s5b.conv2a; VGG16's fc1, fc2; M =
+                176 400 or 3600 rows): q and scales bit-equal to the plain
+                version, the int32 sums bit-equal (every row at 8 samples,
+                every 37th sample at the full M), the outputs bit-equal on
+                every row under each epilogue of INT8_EPILOGUES (float32, its
+                ReLU, the batch norm in bf16 and float32 alone, with ReLU,
+                with the residual sum and ReLU; the 3x3's edge rows counted),
+                and the earlier kernel (csrc/earlier/int8_gemm_mma_sync.cu)
+                bit-equal to the float32 epilogue; device ms with the
+                epilogue the head runs at that layer beside the fused
+                function's bound, plain ms, the earlier kernel's ms and
+                torch._int_mm plus the dequantize and the eager cast, batch
+                norm, sum and ReLU passes;
   int8_serve    cli.serve --quantize int8 on the three panels: exactly 10
                 products and 19 quantizations a ResNet50 batch (2 and 4 a
                 VGG16 batch, vgg_int8_serve) besides the float path's
                 kernels;
   int8_batch    one 12-tile batch: its launches, the RoI pool + head and
                 the batch timed in turns with the float head, the int8
-                head's device time by kernel, int8 against float
+                head's device time by kernel, its device work pinned
+                (INT8_HEAD_KERNELS) and no elementwise op over its
+                activations (HEAD_ELEMENTWISE_OPS), int8 against float
                 detections; the batch and a panel's dispatch under the
                 sync check (int8_batch_sync_free);
   int8_predict  cli.predict --quantize int8 on the scan directory;
@@ -192,6 +202,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -748,8 +759,9 @@ def kernel_checks(dev) -> dict:
 def earlier_kernels() -> dict:
     """The earlier designs of the NMS (a byte relation in device memory), the
     RoI pool (one block per output cell), the grey stem (float32 products on
-    the CUDA cores, a full centring map) and the RoI-pool backward (float32
-    atomics into a zeroed map), kept in radnet_torch/csrc/earlier/ to be
+    the CUDA cores, a full centring map), the RoI-pool backward (float32
+    atomics into a zeroed map) and the int8 product (mma.sync tiles fed by
+    cp.async, a float32 output), kept in radnet_torch/csrc/earlier/ to be
     timed beside the current kernels."""
     import ctypes
 
@@ -767,6 +779,8 @@ def earlier_kernels() -> dict:
         "roi_pool_backward": CudaKernel(
             "earlier/roi_pool_backward_atomic.cu", "radnet_earlier_roi_pool_backward",
             [ptr] * 3 + [i32] * 8, extra_flags=("--fmad=false",), headers=("roi_taps.cuh",)),
+        "int8_gemm": CudaKernel("earlier/int8_gemm_mma_sync.cu", "radnet_int8_gemm",
+                                [ptr] * 6 + [i32] * 8, extra_flags=("--fmad=false",)),
     }
 
 
@@ -2785,18 +2799,23 @@ def vgg_evaluate_phase(tmp: str, dev, smi, serve_weights: dict, n_panels: int = 
 # predict and test through it, on both backbones.
 # --------------------------------------------------------------------------- #
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
-# (layer, backbone, activation shape, its type, weight shape): the products a
-# 12-tile serving batch (3600 RoIs) runs; ResNet50's weights (O, C, kh, kw),
-# VGG16's (O, D).
+# (layer, backbone, activation shape, its type, weight shape, the epilogue the
+# head runs): the products a 12-tile serving batch (3600 RoIs) runs;
+# ResNet50's weights (O, C, kh, kw), VGG16's (O, D).
 INT8_CASES = [
-    ("s5a.conv2a", "resnet50", (3600, 7, 7, 1024), "bfloat16", (512, 1024, 1, 1)),
-    ("s5a.conv_sc", "resnet50", (3600, 7, 7, 1024), "bfloat16", (2048, 1024, 1, 1)),
-    ("conv2b", "resnet50", (3600, 7, 7, 512), "bfloat16", (512, 512, 3, 3)),
-    ("conv2c", "resnet50", (3600, 7, 7, 512), "bfloat16", (2048, 512, 1, 1)),
-    ("s5b.conv2a", "resnet50", (3600, 7, 7, 2048), "bfloat16", (512, 2048, 1, 1)),
-    ("fc1", "vgg16", (3600, 25088), "bfloat16", (4096, 25088)),
-    ("fc2", "vgg16", (3600, 4096), "float32", (4096, 4096)),
+    ("s5a.conv2a", "resnet50", (3600, 7, 7, 1024), "bfloat16", (512, 1024, 1, 1), "bn_relu"),
+    ("s5a.conv_sc", "resnet50", (3600, 7, 7, 1024), "bfloat16", (2048, 1024, 1, 1), "bn"),
+    ("conv2b", "resnet50", (3600, 7, 7, 512), "bfloat16", (512, 512, 3, 3), "bn_relu"),
+    ("conv2c", "resnet50", (3600, 7, 7, 512), "bfloat16", (2048, 512, 1, 1), "bn_res_relu"),
+    ("s5b.conv2a", "resnet50", (3600, 7, 7, 2048), "bfloat16", (512, 2048, 1, 1), "bn_relu"),
+    ("fc1", "vgg16", (3600, 25088), "bfloat16", (4096, 25088), "relu"),
+    ("fc2", "vgg16", (3600, 4096), "float32", (4096, 4096), "relu"),
 ]
+# The epilogues every case is held to, (kind, the batch norm's type): float32
+# out, its ReLU, and the batch norm in bf16 and in float32 (the float32 model
+# int8_card_vs_cpu runs), alone, with ReLU, and with the residual sum and ReLU.
+INT8_EPILOGUES = [("float", None), ("relu", None)] + [
+    (kind, dt) for dt in ("bfloat16", "float32") for kind in ("bn", "bn_relu", "bn_res_relu")]
 # How often a serving batch runs each case's product (conv2b, conv2c and
 # s5b's conv2a stand for their twins in s5b and s5c) and quantizes its
 # activations (s5a.conv_sc reads s5a.conv2a's quantized input).
@@ -2822,6 +2841,18 @@ INT8_PER_BATCH = {
 # (VGG16): the head 0.34-2.0 apart, 73% and 100% unmatched.
 INT8_HEAD_LIMIT = 1e-4
 INT8_UNMATCHED_SHARE = 0.10
+# The PyTorch ops that would be separate passes over the head's activations.
+HEAD_ELEMENTWISE_OPS = {"aten::_to_copy", "aten::copy_", "aten::mul", "aten::mul_", "aten::add",
+                        "aten::add_", "aten::relu", "aten::relu_", "aten::clamp_min",
+                        "aten::clamp_min_", "aten::threshold", "aten::where"}
+# Device work (kernels, copies, fills) of one int8 RoI pool + head call
+# (device_work_per_call), pinned at the count read on an NVIDIA H100 80GB
+# HBM3: the RoI pool, the 10 / 2 products and the 19 / 4 quantizations, and
+# the small work beside them (each of ResNet50's ten batch norms' k and b
+# on (C,) vectors, the 3x3 weights' K-major copies, the boxes' conversion,
+# the average pool and the output layers).  A pass over the activations
+# put back between two products raises it.
+INT8_HEAD_KERNELS = {"resnet50": 114, "vgg16": 19}
 INT8_PROB_TOL = 0.05  # a detection's partner: the same class and box, confidences this close
 INT8_HEAD_ROIS = 64  # RoIs a tile in the head comparison, to keep the CPU side short
 
@@ -2842,7 +2873,7 @@ def int8_case_inputs(case, dev, seed: int):
 
     import torch
 
-    _, _, a_shape, a_dtype, w_shape = case
+    _, _, a_shape, a_dtype, w_shape, _ = case
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(a_shape, generator=g, device=dev).abs_()
     x *= torch.logspace(-2, 2, a_shape[0], device=dev).view(-1, *[1] * (len(a_shape) - 1))
@@ -2851,6 +2882,50 @@ def int8_case_inputs(case, dev, seed: int):
     w[7] *= 100.0
     bias = torch.randn(w_shape[0], generator=g, device=dev) * 0.1
     return x.to(getattr(torch, a_dtype)), w, bias
+
+
+def int8_epilogue_inputs(m: int, n: int, dev, seed: int) -> dict:
+    """A batch norm's (k, b) (k in [0.5, 1.5), b around 0: a share of the
+    outputs goes negative, so the ReLU acts) and an (m, n) residual, in
+    bf16 and float32, made on the card: {dtype name: (bn, residual)}."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.rand(n, generator=g, device=dev) + 0.5
+    b = torch.randn(n, generator=g, device=dev) * 0.5
+    res = torch.randn((m, n), generator=g, device=dev)
+    return {name: ((k.to(dt), b.to(dt)), res.to(dt))
+            for name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
+
+
+def int8_epilogue_kwargs(kind: str, epi: dict, dtype: str) -> dict:
+    """The epilogue keyword arguments of int8_gemm for ``kind`` ("float",
+    "relu", or "bn", "bn_relu", "bn_res_relu" with the batch norm and
+    residual of int8_epilogue_inputs in ``dtype``)."""
+    if kind in ("float", "relu"):
+        return {"relu": kind == "relu"}
+    bn, res = epi[dtype]
+    return {"bn": bn, "residual": res if kind == "bn_res_relu" else None, "relu": kind != "bn"}
+
+
+def earlier_int8_gemm(kernel, a, b, bias, rows_per_sample: int):
+    """The earlier int8 product (csrc/earlier/int8_gemm_mma_sync.cu) as its
+    wrapper ran it: float32 out, the dequantize and the bias."""
+    import torch
+
+    from radnet_torch.ops.cuda_kernels import ptr
+
+    aq, bq = a.q, b.q
+    n, k = bq.shape
+    if aq.dim() == 4:
+        r, h, w, c = aq.shape
+        m, rows_per_sample, conv = r * h * w, h * w, (h, w, c)
+    else:
+        m, conv = aq.shape[0], (0, 0, 0)
+    out = torch.empty((m, n), dtype=torch.float32, device=aq.device)
+    kernel.launch(ptr(aq), ptr(a.scale), ptr(bq), ptr(b.scale), None if bias is None else ptr(bias),
+                  ptr(out), m, n, k, rows_per_sample, *conv, 0)
+    return out
 
 
 def int8_operands(x, w):
@@ -2867,22 +2942,25 @@ def int8_operands(x, w):
     return quant.Quantized(xq.q.reshape(-1, x.shape[-1]), xq.scale), 49, wrows
 
 
-def int8_kernel_checks(dev) -> dict:
+def int8_kernel_checks(dev, earlier: dict) -> dict:
     """Phase int8_kernels: the quantizer and the int8 product at every shape
     a serving batch gives them, against their plain versions: q and the
     scales bit-equal (activations and weights); the int32 sums bit-equal on
     every row at a small M (8 samples) and on every 37th sample at the full
-    M; the float32 outputs bit-equal on every row, the 3x3 conv's edge rows
-    among them; then each timed (device ms, plain ms, torch._int_mm plus the
-    dequantize as the library call) beside its bound.  Returns the kernels
-    line's two rows."""
+    M; the outputs bit-equal on every row under each of INT8_EPILOGUES (the
+    3x3 conv's edge rows counted); the earlier kernel's float32 output
+    bit-equal to the new kernel's; then each timed with the epilogue the
+    head runs there (device ms, its bound, plain ms, the library path:
+    torch._int_mm, the dequantize and the eager epilogue passes), beside
+    the earlier kernel and the new one's float32 epilogue.  Returns the
+    kernels line's two rows."""
     import torch
 
     from radnet_torch.ops import quant
 
     rows = []
     for i, case in enumerate(INT8_CASES):
-        name, backbone, a_shape, a_dtype, w_shape = case
+        name, backbone, a_shape, a_dtype, w_shape, head_epi = case
         x, w, bias = int8_case_inputs(case, dev, SEED + 40 + i)
         a, rps, wrows = int8_operands(x, w)
         xq = quant.quantize_rows_cuda(x)
@@ -2894,22 +2972,37 @@ def int8_kernel_checks(dev) -> dict:
                   f"quantize_rows disagrees with its plain version on {name}'s {what}")
         del xq_ref, wq_ref
 
-        out = quant.int8_gemm_cuda(a, wq, bias, rps)
-        ref = quant.int8_gemm_plain(a, wq, bias, rps)
-        torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        max_err = float(diff.max())
         conv3 = a.q.dim() == 4
-        edge_rows = 0
+        m, n, k = (a.q.shape[0] * (49 if conv3 else 1), wq.q.shape[0], wq.q.shape[1])
+        border = None
         if conv3:  # the rows of the 7 x 7 map's border, where taps fall off it
             y = torch.arange(49, device=dev) // 7
             xx = torch.arange(49, device=dev) % 7
             border = ((y == 0) | (y == 6) | (xx == 0) | (xx == 6)).repeat(a_shape[0])
-            edge_rows = int(border.sum())
-            check(float(diff[border].max()) == 0.0, f"int8_gemm: {name}'s edge rows differ")
-        check(torch.equal(out, ref), f"int8_gemm disagrees with its plain version on {name}: "
-                                     f"max |diff| {max_err}")
-        del diff, ref
+        v_ref = quant.int8_gemm_plain(a, wq, bias, rps)  # float32: the plain epilogues start here
+        epi = int8_epilogue_inputs(m, n, dev, SEED + 60 + i)
+        max_err, equal = 0.0, {}
+        for kind, dt in INT8_EPILOGUES:
+            kw = int8_epilogue_kwargs(kind, epi, dt)
+            kind = kind if dt is None else f"{kind}_{dt}"
+            out = quant.int8_gemm_cuda(a, wq, bias, rps, **kw)
+            ref = quant.epilogue_plain(v_ref, **kw)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            max_err = max(max_err, float(diff.max()))
+            if border is not None:
+                check(float(diff[border].max()) == 0.0, f"int8_gemm: {name}'s edge rows differ ({kind})")
+            equal[kind] = bool(torch.equal(out, ref))
+            check(equal[kind], f"int8_gemm disagrees with its plain version on {name} under the "
+                               f"{kind} epilogue: max |diff| {float(diff.max())}")
+            if kind == "relu":
+                check(bool((out == 0).any()) and bool((out > 0).any()), f"{name}: the ReLU did nothing")
+            del out, ref, diff
+        out = quant.int8_gemm_cuda(a, wq, bias, rps)
+        old = earlier_int8_gemm(earlier["int8_gemm"], a, wq, bias, rps)
+        torch.cuda.synchronize()
+        check(torch.equal(old, out), f"the earlier int8 product disagrees with the new one on {name}")
+        del old
 
         samples = torch.arange(0, a_shape[0], 37, device=dev)
         small = slice(0, 8)
@@ -2927,24 +3020,36 @@ def int8_kernel_checks(dev) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(acc_rows, ref_rows) and torch.equal(acc_small, ref_small),
               f"int8_gemm's int32 sums disagree with the plain version's on {name}")
-        del acc, acc_rows, ref_rows
+        del acc, acc_rows, ref_rows, v_ref
 
-        m, n, k = (a.q.shape[0] * (49 if conv3 else 1), wq.q.shape[0], wq.q.shape[1])
+        head_kw = int8_epilogue_kwargs(head_epi, epi, a_dtype)
         a2d = (lambda: quant.im2col_3x3(a.q)) if conv3 else (lambda: a.q)
 
-        def library(a2d=a2d, wq=wq, a=a, rps=rps, bias=bias):
-            return quant.dequantize(torch._int_mm(a2d(), wq.q.t()), a.scale, wq.scale, bias, rps)
+        def library(a2d=a2d, wq=wq, a=a, rps=rps, bias=bias, kw=head_kw):
+            v = quant.dequantize(torch._int_mm(a2d(), wq.q.t()), a.scale, wq.scale, bias, rps)
+            return quant.epilogue_plain(v, **kw)
 
-        lib_err = float((library() - out).abs().max())
-        g_bound, g_by = bound_ms(a.q.numel() + wq.q.numel() + 4 * (a.scale.numel() + 2 * n + m * n),
+        fused = quant.int8_gemm_cuda(a, wq, bias, rps, **head_kw)
+        lib_err = float((library().float() - fused.float()).abs().max())
+        out_bytes = m * n * fused.element_size()
+        res = head_kw.get("residual")
+        g_bound, g_by = bound_ms(a.q.numel() + wq.q.numel() + 4 * (a.scale.numel() + 3 * n) + out_bytes
+                                 + (0 if res is None else res.numel() * res.element_size()),
                                  2.0 * m * n * k, INT8_OPS_PER_S)
         x_bound, x_by = bound_ms(x.numel() * (x.element_size() + 1) + 4 * a_shape[0], 4.0 * x.numel())
         w_bound, w_by = bound_ms(wrows.numel() * 5 + 4 * wrows.shape[0], 4.0 * wrows.numel())
+        del fused
         row = {
             "layer": name, "backbone": backbone, "m": m, "n": n, "k": k, "a_type": a_dtype,
-            "implicit_3x3": conv3, "edge_rows_compared": edge_rows,
-            "gemm_ms": kernel_ms(lambda: quant.int8_gemm_cuda(a, wq, bias, rps), "int8_gemm_kernel"),
-            "gemm_plain_ms": time_cuda(lambda: quant.int8_gemm_plain(a, wq, bias, rps), iters=3, warmup=1),
+            "implicit_3x3": conv3, "edge_rows_compared": int(border.sum()) if conv3 else 0,
+            "epilogues_equal": equal, "head_epilogue": head_epi,
+            "gemm_ms": kernel_ms(lambda: quant.int8_gemm_cuda(a, wq, bias, rps, **head_kw),
+                                 "int8_gemm_wgmma"),
+            "gemm_float_ms": kernel_ms(lambda: quant.int8_gemm_cuda(a, wq, bias, rps), "int8_gemm_wgmma"),
+            "gemm_earlier_ms": kernel_ms(lambda: earlier_int8_gemm(earlier["int8_gemm"], a, wq, bias, rps),
+                                         "int8_gemm_kernel"),
+            "gemm_plain_ms": time_cuda(lambda: quant.int8_gemm_plain(a, wq, bias, rps, **head_kw),
+                                       iters=3, warmup=1),
             "gemm_library_ms": time_cuda(library, iters=5, warmup=1),
             "gemm_library_max_abs_diff": lib_err,
             "gemm_bound_ms": g_bound, "gemm_bound_by": g_by, "gemm_max_abs_err": max_err,
@@ -2956,9 +3061,10 @@ def int8_kernel_checks(dev) -> dict:
             "quantize_w_bound_ms": w_bound, "quantize_w_bound_by": w_by,
         }
         row["gemm_tops"] = 2.0 * m * n * k / row["gemm_ms"] / 1e9
+        row["gemm_bound_share"] = g_bound / row["gemm_ms"]
         emit({"phase": "int8_kernels", **row})
         rows.append(row)
-        del x, w, a, xq, wq, out
+        del x, w, a, xq, wq, out, epi
         torch.cuda.empty_cache()
     return int8_kernel_rows(rows)
 
@@ -2974,7 +3080,8 @@ def int8_kernel_rows(rows: list) -> dict:
                            if r["backbone"] == backbone)
         return out
 
-    gemm_keys = ("gemm_ms", "gemm_plain_ms", "gemm_library_ms", "gemm_bound_ms")
+    gemm_keys = ("gemm_ms", "gemm_plain_ms", "gemm_library_ms", "gemm_bound_ms", "gemm_earlier_ms",
+                 "gemm_float_ms")
     line = {}
     for kernel, source, replaces, keys in (
         ("int8_gemm", "radnet_torch/csrc/int8_gemm.cu", "radnet_tpu/models/quant.py:59", gemm_keys),
@@ -2985,7 +3092,8 @@ def int8_kernel_rows(rows: list) -> dict:
             if keys:
                 b = batch(backbone, keys, 0)
                 per[backbone] = {"ms": b["gemm_ms"], "plain_ms": b["gemm_plain_ms"],
-                                 "library_ms": b["gemm_library_ms"], "bound_ms": b["gemm_bound_ms"]}
+                                 "library_ms": b["gemm_library_ms"], "bound_ms": b["gemm_bound_ms"],
+                                 "earlier_ms": b["gemm_earlier_ms"], "float_epilogue_ms": b["gemm_float_ms"]}
             else:  # activations as often as they are quantized, weights once a product
                 xs = batch(backbone, ("quantize_x_ms", "quantize_x_plain_ms", "quantize_x_bound_ms"), 1)
                 ws = batch(backbone, ("quantize_w_ms", "quantize_w_plain_ms", "quantize_w_bound_ms"), 0)
@@ -3003,8 +3111,10 @@ def int8_kernel_rows(rows: list) -> dict:
                 share[r[by_key]] += r[bound_key] * INT8_BATCH_USES[r["layer"]][0 if keys else 1]
         line[kernel] = {
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            **({"replaces_also": "radnet_tpu/models/quant.py:78 int8_dense (XLA's int8 conv and dot: "
-                                 "no Pallas kernel)"} if keys else
+            **({"replaces_also": "radnet_tpu/models/quant.py:78 int8_dense, and the stage-5 "
+                                 "FrozenBatchNorm, residual sum and ReLUs XLA fuses after them "
+                                 "(radnet_tpu/models/resnet.py:99-117; no Pallas kernel)",
+                "earlier_source": "radnet_torch/csrc/earlier/int8_gemm_mma_sync.cu"} if keys else
                {"replaces_also": "no Pallas kernel: XLA's reduction and rounding"}),
             "shape": "one 12-tile serving batch of the ResNet50 int8 head (3600 RoIs)",
             **per["resnet50"], "bound_by": max(share, key=share.get), "bound_by_share": share,
@@ -3013,10 +3123,12 @@ def int8_kernel_rows(rows: list) -> dict:
             "shapes": [{k: v for k, v in r.items()
                         if (k.startswith("gemm") if keys else k.startswith("quantize"))
                         or k in ("layer", "backbone", "m", "n", "k", "a_type", "implicit_3x3",
-                                 "edge_rows_compared")} for r in rows],
+                                 "edge_rows_compared", "epilogues_equal", "head_epilogue")}
+                       for r in rows],
         }
     line["int8_gemm"]["library"] = ("torch._int_mm on (M, K) rows (a 3x3 conv's explicit im2col "
-                                     "first: pad and 9 slices) and the dequantize")
+                                     "first: pad and 9 slices), the dequantize, then the head's "
+                                     "eager cast, batch norm, residual sum and ReLU passes")
     return line
 
 
@@ -3114,17 +3226,28 @@ def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
             times[which]["head"].append(time_cuda(lambda: net._head(fmap, props), iters=5, warmup=1))
         times[which]["batch"].append(
             time_cuda(lambda: net._predict_tiles_impl(images, valid_wh), iters=5, warmup=1))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         with torch.inference_mode():
             for _ in range(3):
                 net8._head(fmap, props)
         torch.cuda.synchronize()
-    by_kernel = {"int8_gemm_kernel": 0.0, "quantize_rows_kernel": 0.0, "roi_pool_kernel": 0.0,
+    by_kernel = {"int8_gemm_wgmma": 0.0, "quantize_rows_kernel": 0.0, "roi_pool_kernel": 0.0,
                  "other": 0.0}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             key = next((k for k in by_kernel if k in e.name), "other")
             by_kernel[key] += (e.time_range.end - e.time_range.start) / 3e3
+    # The head's activations leave each product in their final form: no
+    # elementwise PyTorch op (cast, batch norm, sum, ReLU) may read a tensor
+    # of 4096 values a RoI or more (VGG16's fc activations; ResNet50's stage
+    # 5 holds 25 088 or more; the pooled 2048 that the output layers read
+    # are below).
+    n_rois = int(props.boxes.shape[0] * props.boxes.shape[1])
+    passes = sorted({(e.name, str(e.input_shapes)) for e in prof.events()
+                     if e.device_type == DeviceType.CPU and e.name in HEAD_ELEMENTWISE_OPS
+                     and any(math.prod(sh) >= 4096 * n_rois for sh in e.input_shapes if sh)})
+    with torch.inference_mode():
+        head_kernels = device_work_per_call(lambda: net8._head(fmap, props))
     outf = netf._predict_tiles_impl(images, valid_wh)
     n_fg = cfg.n_classes - 1
     d8, df = tile_detections(out8, n_fg), tile_detections(outf, n_fg)
@@ -3134,10 +3257,15 @@ def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
           "roi_pool_head_ms": {k: statistics.median(v["head"]) for k, v in times.items()},
           "batch_ms": {k: statistics.median(v["batch"]) for k, v in times.items()},
           "turns_ms": times, "int8_head_device_ms_by_kernel": by_kernel,
+          "int8_head_device_kernels": head_kernels, "int8_head_elementwise_passes": passes,
           "detections_int8": len(d8), "detections_float": len(df),
           "int8_vs_float_unmatched": unmatched(d8, df, INT8_PROB_TOL),
           "int8_vs_float_unmatched_at_1e-3": unmatched(d8, df)})
     check(len(d8) > 0, f"{phase}: the int8 batch found nothing")
+    check(not passes, f"{phase}: elementwise passes over the int8 head's activations: {passes}")
+    check(head_kernels == INT8_HEAD_KERNELS[cfg.network],
+          f"{phase}: one int8 head call put {head_kernels} kernels, copies and fills on the card, "
+          f"want {INT8_HEAD_KERNELS[cfg.network]}")
     sync_free_phase(net8, images, panel3, phase=f"{phase}_sync_free")
     return per_batch
 
@@ -3338,7 +3466,7 @@ def main() -> int:
     errs["roi_pool_backward"] = roi_backward_checks(dev, earlier)
     vgg_errs = vgg_kernel_checks(dev)
     kernels_line = timings(dev, errs, earlier)
-    kernels_line.update(int8_kernel_checks(dev))
+    kernels_line.update(int8_kernel_checks(dev, earlier))
 
     # 7-8. the main path through serve, per-stage times, then predict.
     cfg, vcfg = Config(), vgg_config()

@@ -47,8 +47,9 @@ def _expected_keys(network: str) -> frozenset:
     return frozenset(model.state_dict().keys())
 
 
-def state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
-    """flax ``params`` + ``batch_stats`` -> ``{name: float32 tensor}``."""
+def tensors_from_flax(params: dict, batch_stats: dict) -> dict:
+    """flax ``params`` + ``batch_stats`` of any module of the detector ->
+    ``{name: float32 tensor}`` in the port's names and layouts, unchecked."""
     out: dict[str, torch.Tensor] = {}
     for path, a in _flatten(params):
         *mod, leaf = path
@@ -69,7 +70,13 @@ def state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
         if path[-1] not in ("gamma", "beta", "mean", "var"):
             raise KeyError(f"unexpected flax batch stat {'/'.join(path)}")
         out[_name(path)] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return out
 
+
+def state_dict_from_flax(params: dict, batch_stats: dict) -> dict:
+    """flax ``params`` + ``batch_stats`` of the detector -> its
+    ``{name: float32 tensor}``, every key the port's model has."""
+    out = tensors_from_flax(params, batch_stats)
     network = "vgg16" if "block1_conv1" in params.get("trunk", {}) else "resnet50"
     want = _expected_keys(network)
     extra = sorted(set(out) - want)

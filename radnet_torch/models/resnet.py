@@ -10,9 +10,9 @@ stride-2 1x1 convs run at stride 1 on a 7x7 input.
 Convs compute in the model's type (bf16 on the card) with float32
 parameters; convolutions themselves are cuDNN's.  A head built with
 ``quantize`` can also run every stage-5 conv in int8 (``models/quant.py``),
-deterministic only, on the NHWC pool: each int8 conv gives float32, which
-is cast to the model's type before its batch norm, as the JAX package's
-``FrozenBatchNorm`` casts.
+deterministic only, on the NHWC pool: each int8 conv's float32 result is
+cast to the model's type before its batch norm, as the JAX package's
+``FrozenBatchNorm`` casts, inside the product's epilogue.
 """
 
 from __future__ import annotations
@@ -57,16 +57,18 @@ class Bottleneck(nn.Module):
         return F.relu(y + sc)
 
     def int8(self, x: torch.Tensor) -> torch.Tensor:
-        """The block with int8 convs on NHWC ``x`` in the model's type; the
-        batch norms, ReLUs and the sum run in that type.  ``x`` is quantized
-        once for ``conv2a`` and the projection, which read the same values."""
+        """The block with int8 convs on NHWC ``x`` in the model's type.  Each
+        conv's product runs its batch norm, and the ReLU or the residual sum
+        and ReLU after it, in its epilogue, in that type (as the eager ops
+        round), so each conv writes the block's next tensor once.  ``x`` is
+        quantized once for ``conv2a`` and the projection, which read the
+        same values; ``conv2c`` adds the shortcut."""
         dt = x.dtype
         xq = quant.quantize_rows(x)
-        y = F.relu(self.bn2a.nhwc(self.conv2a.int8(xq).to(dt)))
-        y = F.relu(self.bn2b.nhwc(self.conv2b.int8(y).to(dt)))
-        y = self.bn2c.nhwc(self.conv2c.int8(y).to(dt))
-        sc = self.bn_sc.nhwc(self.conv_sc.int8(xq).to(dt)) if self.project else x
-        return F.relu(y + sc)
+        y = self.conv2a.int8(xq, bn=self.bn2a.affine(dt), relu=True)
+        sc = self.conv_sc.int8(xq, bn=self.bn_sc.affine(dt)) if self.project else x
+        y = self.conv2b.int8(y, bn=self.bn2b.affine(dt), relu=True)
+        return self.conv2c.int8(y, bn=self.bn2c.affine(dt), residual=sc, relu=True)
 
 
 def _stage(cin, filters, n_blocks, stride, prefix, dtype):

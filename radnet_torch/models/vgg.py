@@ -15,8 +15,8 @@ deterministic (inference, validation).
 The convs and ``fc1``/``fc2`` compute in the model's type (bf16 on the
 card) with float32 parameters; the output layers run in float32.  A head
 built with ``quantize`` can also run ``fc1``/``fc2`` in int8
-(``models/quant.py``), deterministic only: both then take and give float32,
-as the JAX package's ``QuantDense`` does.
+(``models/quant.py``), deterministic only: both then give float32, as the
+JAX package's ``QuantDense`` does, with the ReLU in the product's epilogue.
 """
 
 from __future__ import annotations
@@ -94,8 +94,8 @@ class VGG16RoIHead(nn.Module):
         if quantize:
             if not self.quantize or masks is not None:
                 raise ValueError("the int8 head needs a head built with quantize and no dropout")
-            x = F.relu(self.fc1.int8(x.to(self.dtype)))
-            x = F.relu(self.fc2.int8(x))
+            x = self.fc1.int8(x.to(self.dtype), relu=True)
+            x = self.fc2.int8(x, relu=True)
         else:
             m1, m2 = masks if masks is not None else (None, None)
             x = dropout(F.relu(self.fc1(x)), m1)

@@ -164,7 +164,7 @@ QUANTIZE_ROWS = CudaKernel(
 INT8_GEMM = CudaKernel(
     "int8_gemm.cu",
     "radnet_int8_gemm",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8,
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9,
     extra_flags=("--fmad=false",),
 )
 

@@ -9,8 +9,10 @@ and dense products, as ``radnet_tpu/models/quant.py`` computes them.
   sw)``, then ``+ bias`` where the layer has one.
 
 Two kernels do the work on the card: ``csrc/quantize_rows.cu`` (one scale a
-row) and ``csrc/int8_gemm.cu`` (the int8 product with the dequantize and the
-bias in its epilogue, reading a 3x3 SAME conv's im2col implicitly).  Each has
+row) and ``csrc/int8_gemm.cu`` (the int8 product on ``wgmma``, reading a 3x3
+SAME conv's im2col implicitly, with the dequantize, the bias and what the
+layer after it does in its epilogue: the frozen batch norm in the model's
+type, the residual sum and the ReLU, or a float32 ReLU).  Each has
 a plain version here, which the wrappers :func:`quantize_rows` and
 :func:`int8_gemm` run for CPU tensors; for CUDA tensors they launch the
 kernel or raise.  The plain products are float64 matrix products, exact
@@ -123,30 +125,68 @@ def dequantize(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
     return out if bias is None else out + bias
 
 
+BatchNorm = tuple[torch.Tensor, torch.Tensor]  # a frozen batch norm's (k, b), (N,) each, in its type
+
+
+def epilogue_dtype(m: int, n: int, bn: BatchNorm | None, residual: torch.Tensor | None) -> torch.dtype:
+    """The output type of an epilogue request on an (m, n) product: float32,
+    or the batch norm's type.  Raises on a request neither version takes."""
+    if bn is None:
+        if residual is not None:
+            raise ValueError("a residual needs the batch-norm epilogue (bn=(k, b))")
+        return torch.float32
+    k, b = bn
+    if k.dtype not in _DTYPE_CODE or b.dtype != k.dtype:
+        raise TypeError(f"the batch norm's k and b must share float32 or bfloat16, not {k.dtype}, {b.dtype}")
+    if k.shape != (n,) or b.shape != (n,):
+        raise ValueError(f"the batch norm's k {tuple(k.shape)} and b {tuple(b.shape)} must be ({n},)")
+    if residual is not None and (residual.shape != (m, n) or residual.dtype != k.dtype):
+        raise ValueError(f"residual {tuple(residual.shape)} {residual.dtype}, want ({m}, {n}) {k.dtype}")
+    return k.dtype
+
+
+def epilogue_plain(v: torch.Tensor, bn: BatchNorm | None = None, residual: torch.Tensor | None = None,
+                   relu: bool = False) -> torch.Tensor:
+    """The epilogue after the dequantize, as the eager layers compose it:
+    ``v`` cast to the batch norm's type, ``* k + b`` (``FrozenBatchNorm``),
+    ``+ residual``, then ReLU; without ``bn``, ReLU in float32."""
+    if bn is not None:
+        k, b = bn
+        v = v.to(k.dtype) * k + b
+        if residual is not None:
+            v = v + residual
+    return F.relu(v) if relu else v
+
+
 def int8_gemm_plain(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
-                    rows_per_sample: int = 1) -> torch.Tensor:
-    """float32 ``(M, N)`` product of quantized ``a`` and ``b`` with the
-    dequantize and bias.  ``a.q``: ``(M, K)`` rows, each ``rows_per_sample``
+                    rows_per_sample: int = 1, *, bn: BatchNorm | None = None,
+                    residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    """``(M, N)`` product of quantized ``a`` and ``b`` with the dequantize,
+    the bias and the epilogue (:func:`epilogue_plain`): float32, or the
+    batch norm's type.  ``a.q``: ``(M, K)`` rows, each ``rows_per_sample``
     sharing one scale; or an ``(R, H, W, C)`` map read as its 3x3 SAME
     im2col (one scale a map).  ``b.q``: ``(N, K)``."""
     if a.q.dim() == 4:
         rows_per_sample = a.q.shape[1] * a.q.shape[2]
+    epilogue_dtype(a.q.shape[0] * (rows_per_sample if a.q.dim() == 4 else 1), b.q.shape[0], bn, residual)
     acc = int8_gemm_acc_plain(a.q, b.q)
-    return dequantize(acc, a.scale, b.scale, bias, rows_per_sample)
+    return epilogue_plain(dequantize(acc, a.scale, b.scale, bias, rows_per_sample), bn, residual, relu)
 
 
-def _gemm_launch(a: Quantized, b: Quantized, bias, rows_per_sample: int,
-                 out_int32: bool) -> torch.Tensor:
+def _gemm_launch(a: Quantized, b: Quantized, bias, rows_per_sample: int, bn: BatchNorm | None = None,
+                 residual: torch.Tensor | None = None, relu: bool = False,
+                 out_int32: bool = False) -> torch.Tensor:
     aq, bq = a.q, b.q
     tensors = [aq, a.scale, bq, b.scale] + ([] if bias is None else [bias])
-    if not all(t.is_cuda and t.device == aq.device for t in tensors):
+    epi = ([] if bn is None else list(bn)) + ([] if residual is None else [residual])
+    if not all(t.is_cuda and t.device == aq.device for t in tensors + epi):
         raise ValueError("int8_gemm_cuda needs every tensor on one CUDA device")
     if aq.dtype != torch.int8 or bq.dtype != torch.int8:
         raise TypeError("int8_gemm_cuda takes int8 operands")
     if any(t.dtype != torch.float32 for t in tensors[1::2] + ([] if bias is None else [bias])):
         raise TypeError("int8_gemm_cuda takes float32 scales and bias")
-    if not all(t.is_contiguous() for t in tensors) or aq.data_ptr() % 16 or bq.data_ptr() % 16:
-        raise ValueError("int8_gemm_cuda needs contiguous operands, 16-byte aligned")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors + epi):
+        raise ValueError("int8_gemm_cuda needs contiguous tensors, 16-byte aligned")
     if bq.dim() != 2:
         raise ValueError(f"B must be (N, K), not {tuple(bq.shape)}")
     n, k = bq.shape
@@ -166,25 +206,33 @@ def _gemm_launch(a: Quantized, b: Quantized, bias, rows_per_sample: int,
         n_samples = m // rows_per_sample
     else:
         raise ValueError(f"A must be (M, K) rows or an (R, H, W, C) map, not {tuple(aq.shape)}")
-    if k % 64 or n % 2:
-        raise ValueError(f"int8_gemm_cuda needs K % 64 == 0 and N even, not K = {k}, N = {n}")
+    if k % 16 or n % 2:
+        raise ValueError(f"int8_gemm_cuda needs K % 16 == 0 and N even, not K = {k}, N = {n}")
     if a.scale.shape != (n_samples,) or b.scale.shape != (n,) or (
             bias is not None and bias.shape != (n,)):
         raise ValueError("scales or bias of the wrong shape")
-    out = torch.empty((m, n), dtype=torch.int32 if out_int32 else torch.float32, device=aq.device)
+    out_dtype = epilogue_dtype(m, n, bn, residual)
+    out = torch.empty((m, n), dtype=torch.int32 if out_int32 else out_dtype, device=aq.device)
     ptr = cuda_kernels.ptr
+
+    def opt(t):
+        return None if t is None else ptr(t)
+
+    # The kernel's epilogue kinds: float32, int32, the batch norm in bf16 or float32.
+    kind = 1 if out_int32 else 0 if bn is None else 2 if out_dtype == torch.bfloat16 else 3
     cuda_kernels.INT8_GEMM.launch(
-        ptr(aq), ptr(a.scale), ptr(bq), ptr(b.scale),
-        None if bias is None else ptr(bias), ptr(out),
-        m, n, k, rows_per_sample, *conv, int(out_int32),
+        ptr(aq), ptr(a.scale), ptr(bq), ptr(b.scale), opt(bias),
+        *((None, None) if bn is None else (ptr(bn[0]), ptr(bn[1]))), opt(residual), ptr(out),
+        m, n, k, rows_per_sample, *conv, kind, int(relu),
     )
     return out
 
 
 def int8_gemm_cuda(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
-                   rows_per_sample: int = 1) -> torch.Tensor:
+                   rows_per_sample: int = 1, *, bn: BatchNorm | None = None,
+                   residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
     """Launch ``csrc/int8_gemm.cu``; same contract as :func:`int8_gemm_plain`."""
-    return _gemm_launch(a, b, bias, rows_per_sample, out_int32=False)
+    return _gemm_launch(a, b, bias, rows_per_sample, bn, residual, relu)
 
 
 def int8_gemm_acc_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -196,12 +244,13 @@ def int8_gemm_acc_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_gemm(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
-              rows_per_sample: int = 1) -> torch.Tensor:
+              rows_per_sample: int = 1, *, bn: BatchNorm | None = None,
+              residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
     """The int8 product with its epilogue: the plain version for CPU
     tensors, the kernel for CUDA."""
     if a.q.device.type == "cpu":
-        return int8_gemm_plain(a, b, bias, rows_per_sample)
-    return int8_gemm_cuda(a, b, bias, rows_per_sample)
+        return int8_gemm_plain(a, b, bias, rows_per_sample, bn=bn, residual=residual, relu=relu)
+    return int8_gemm_cuda(a, b, bias, rows_per_sample, bn=bn, residual=residual, relu=relu)
 
 
 # --------------------------------------------------------------------------- #
@@ -214,31 +263,43 @@ def conv_weight_rows(weight: torch.Tensor) -> torch.Tensor:
 
 
 def int8_conv(x: torch.Tensor | Quantized, weight: torch.Tensor, bias: torch.Tensor | None = None,
-              padding: int = 0, stride: int = 1) -> torch.Tensor:
+              padding: int = 0, stride: int = 1, *, bn: BatchNorm | None = None,
+              residual: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
     """NHWC conv in int8: ``x`` (N, H, W, C) float (or already quantized by
     :func:`quantize_rows`, one scale a sample), ``weight`` (O, C, kh, kw) ->
-    float32 (N, H', W', O).  A 1x1 conv of any stride (VALID) or a 3x3 SAME
-    conv at stride 1, as the RoI head has them."""
+    (N, H', W', O), float32 or the batch norm's type, with the epilogue of
+    :func:`int8_gemm` (``residual`` (N, H', W', O)).  A 1x1 conv of any
+    stride (VALID) or a 3x3 SAME conv at stride 1, as the RoI head has
+    them."""
     xq = x if isinstance(x, Quantized) else quantize_rows(x)
     wq = quantize_rows(conv_weight_rows(weight.float()))
     n, h, w, c = xq.q.shape
     o, _, kh, kw = weight.shape
     if (kh, kw, padding) == (1, 1, 0):
-        q = xq.q
-        if stride != 1:  # the scale is the whole sample's, as in JAX
-            q = q[:, ::stride, ::stride].contiguous()
-        ho, wo = q.shape[1], q.shape[2]
-        out = int8_gemm(Quantized(q.reshape(n * ho * wo, c), xq.scale), wq, bias, ho * wo)
+        ho, wo = -(-h // stride), -(-w // stride)
     elif (kh, kw, padding, stride) == (3, 3, 1, 1):
         ho, wo = h, w
-        out = int8_gemm(xq, wq, bias)
     else:
         raise ValueError(f"int8_conv runs 1x1 VALID and 3x3 SAME stride-1 convs, not "
                          f"{kh}x{kw}, padding {padding}, stride {stride}")
+    if residual is not None:
+        if residual.shape != (n, ho, wo, o):
+            raise ValueError(f"residual {tuple(residual.shape)}, want {(n, ho, wo, o)}")
+        residual = residual.reshape(n * ho * wo, o)
+    epi = {"bn": bn, "residual": residual, "relu": relu}
+    if kh == 1:
+        q = xq.q
+        if stride != 1:  # the scale is the whole sample's, as in JAX
+            q = q[:, ::stride, ::stride].contiguous()
+        out = int8_gemm(Quantized(q.reshape(n * ho * wo, c), xq.scale), wq, bias, ho * wo, **epi)
+    else:
+        out = int8_gemm(xq, wq, bias, **epi)
     return out.reshape(n, ho, wo, o)
 
 
-def int8_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
+def int8_dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, *,
+               relu: bool = False) -> torch.Tensor:
     """``x`` (N, D) float, ``weight`` (O, D) -> float32 (N, O) in int8, one
-    scale a row of ``x`` and an output channel of ``weight``."""
-    return int8_gemm(quantize_rows(x), quantize_rows(weight.float().contiguous()), bias)
+    scale a row of ``x`` and an output channel of ``weight``; ReLU in
+    float32 if ``relu``."""
+    return int8_gemm(quantize_rows(x), quantize_rows(weight.float().contiguous()), bias, relu=relu)

@@ -41,13 +41,13 @@ def faulty_product(kind: str):
 
     real = quant.int8_gemm_cuda
 
-    def shifted(a, b, bias=None, rows_per_sample=1):
+    def shifted(a, b, bias=None, rows_per_sample=1, **epilogue):
         q = a.q
         if kind == "im2col_column" and q.dim() == 4:
             q = torch.roll(q, 1, dims=2).contiguous()
         elif kind == "rows" and q.dim() == 2:
             q = torch.roll(q, 1, dims=0).contiguous()
-        return real(quant.Quantized(q, a.scale), b, bias, rows_per_sample)
+        return real(quant.Quantized(q, a.scale), b, bias, rows_per_sample, **epilogue)
 
     quant.int8_gemm_cuda = shifted
     try:
