@@ -154,7 +154,9 @@ serve phases saved and the ones cli.train wrote:
                 (ResNet50's s5a.conv2a, conv_sc, the 3x3 conv2b through the
                 implicit im2col, conv2c, s5b.conv2a; VGG16's fc1, fc2; M =
                 176 400 or 3600 rows): q and scales bit-equal to the plain
-                version, the int32 sums bit-equal (every row at 8 samples,
+                version (activations as seeded, and with a seeded half of
+                them zero, as ReLU outputs, which the quantizer is timed
+                on), the int32 sums bit-equal (every row at 8 samples,
                 every 37th sample at the full M), the outputs bit-equal on
                 every row under each epilogue of INT8_EPILOGUES (float32, its
                 ReLU, the batch norm in bf16 and float32 alone, with ReLU,
@@ -174,8 +176,11 @@ serve phases saved and the ones cli.train wrote:
                 head's device time by kernel, its device work pinned
                 (INT8_HEAD_KERNELS) and no elementwise op over its
                 activations (HEAD_ELEMENTWISE_OPS), int8 against float
-                detections; the batch and a panel's dispatch under the
-                sync check (int8_batch_sync_free);
+                detections; the quantizer's device ms launch by launch in
+                the head beside the same kernel alone on the same inputs,
+                with each activation's share of zeros and seeded inputs of
+                its shape with and without zeros; the batch and a panel's
+                dispatch under the sync check (int8_batch_sync_free);
   int8_predict  cli.predict --quantize int8 on the scan directory;
   int8_card_vs_cpu  float32: the head on identical pooled inputs within
                 INT8_HEAD_LIMIT of its largest output, a 2-tile batch's
@@ -186,11 +191,27 @@ serve phases saved and the ones cli.train wrote:
                 head, --quantize none does not.
 Each int8 phase runs for VGG16 too, named vgg_int8_*.
 
+Pretrained backbone weights, on the training set of phase 11:
+  pretrained_train  radnet_torch.cli.train at the default Config
+                (base_net_weights="imagenet") with --weights and without
+                --allow-random-init: ResNet50 from a converted Keras file of
+                seeded full-width arrays (2 epochs of 8 steps, validation),
+                from a seeded torchvision resnet50 dict (2 steps), VGG16 with
+                the alternating schedule from a converted file (4 steps):
+                the "Loaded pretrained" line, every loaded tensor that does
+                not train bit-equal in model.pt to the host's mapping of the
+                file and trained ones moved, exactly one NMS and one RoI
+                forward a step or validation batch and nothing else, finite
+                losses and the four loss plots (SVG); the load's seconds and
+                the median gap between train steps; then without a file or
+                the flag, the exit with JAX's message.
+
 The last lines are the kernels JSON line (six kernels; launches over each
 kernel's main path: the served run, cont_train for the backward, the int8
 served run for the int8 kernels; beside them the launches of the train,
 cont_train, test and test_rpn runs, under "launches_vgg16" those of the
-VGG16 runs and under "launches_int8" those of the int8 runs; each kernel's
+VGG16 runs, under "launches_int8" those of the int8 runs and under
+"launches_pretrained_train" those of pretrained_train's runs; each kernel's
 rows at the VGG16 shapes under "vgg16"), the nvidia-smi line, and {"ok":
 true, "device": {...}}.
 """
@@ -1523,6 +1544,48 @@ TRAIN_RUNS = {
 }
 
 
+def training_cli_args(tmp: str, dev) -> list:
+    """The training CLIs' device, model and data arguments on the training
+    set under ``tmp``."""
+    d = os.path.join(tmp, "data")
+    return ["--device", str(dev), "--models-path", os.path.join(tmp, "train_models"),
+            "--train-annot", os.path.join(d, "train.csv"), "--train-data", os.path.join(d, "train"),
+            "--val-annot", os.path.join(d, "val.csv"), "--val-data", os.path.join(d, "val")]
+
+
+@contextlib.contextmanager
+def counting_steps():
+    """Counts the train steps and validation batches fit drives, and stamps
+    each train step's start (``train_step_t``): the CLIs import the step
+    factories when they run, so the factories are wrapped."""
+    from radnet_torch.engine import steps as engine_steps
+
+    calls = {"train_step": 0, "eval_step": 0, "train_step_t": []}
+    factories = {"make_train_step": "train_step", "make_alternating_train_step": "train_step",
+                 "make_eval_step": "eval_step"}
+    real = {f: getattr(engine_steps, f) for f in factories}
+
+    def counting(make, key):
+        def made(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def step(*a, **kw):
+                calls[key] += 1
+                if key == "train_step":
+                    calls["train_step_t"].append(time.perf_counter())
+                return fn(*a, **kw)
+            return step
+        return made
+
+    for f, key in factories.items():
+        setattr(engine_steps, f, counting(real[f], key))
+    try:
+        yield calls
+    finally:
+        for f in factories:
+            setattr(engine_steps, f, real[f])
+
+
 def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "train") -> dict:
     """Phase train: radnet_torch.cli.train (2 epochs, with validation) and
     cli.cont_train (1 epoch, trunk trainable) at the default config
@@ -1535,7 +1598,6 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
 
     from radnet_torch.cli import cont_train, train
     from radnet_torch.data.png import read_png
-    from radnet_torch.engine import steps as engine_steps
     from radnet_torch.inference import load_radnet
     from radnet_torch.ops import cuda_kernels, nms
 
@@ -1545,26 +1607,7 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
     if not os.path.isfile(os.path.join(d, "train.csv")):
         write_training_set(tmp)
     write_s = time.perf_counter() - t0
-    common = ["--device", str(dev), "--models-path", os.path.join(tmp, "train_models"),
-              "--train-annot", os.path.join(d, "train.csv"), "--train-data", os.path.join(d, "train"),
-              "--val-annot", os.path.join(d, "val.csv"), "--val-data", os.path.join(d, "val")]
-    # The CLIs import the step factories when they run: wrap them to count
-    # the train and validation batches that fit drives.
-    calls = {"train_step": 0, "eval_step": 0}
-    factories = {"make_train_step": "train_step", "make_alternating_train_step": "train_step",
-                 "make_eval_step": "eval_step"}
-    real = {f: getattr(engine_steps, f) for f in factories}
-
-    def counting(make, key):
-        def made(*args, **kwargs):
-            fn = make(*args, **kwargs)
-
-            def step(*a, **kw):
-                calls[key] += 1
-                return fn(*a, **kw)
-            return step
-        return made
-
+    common = training_cli_args(tmp, dev)
     out = {}
     model_dir = os.path.join(tmp, "train_models", name)
     dashboard = os.path.join(model_dir, "dashboard.html")
@@ -1577,16 +1620,9 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
             os.remove(dashboard)
         cuda_kernels.reset_launch_counts()
         nms.NMS_STATS.update(calls=0)
-        calls.update(train_step=0, eval_step=0)
-        for f, key in factories.items():
-            setattr(engine_steps, f, counting(real[f], key))
         t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(sys.stderr):
-                rc = fn(common + run_argv)
-        finally:
-            for f in factories:
-                setattr(engine_steps, f, real[f])
+        with counting_steps() as calls, contextlib.redirect_stdout(sys.stderr):
+            rc = fn(common + run_argv)
         torch.cuda.synchronize()
         out[run] = {"wall_s": time.perf_counter() - t0, "steps": steps, "epochs": epochs, "rc": rc,
                     "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
@@ -1635,6 +1671,226 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
           f"{phase}: cont_train launched the backward kernel "
           f"{out['cont_train']['launches']['roi_pool_backward']} times in {cont_len} steps")
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Pretrained backbone weights: cli.train from a converted Keras file and from a
+# torchvision dict, at full width.
+# --------------------------------------------------------------------------- #
+def keras_backbone_layers(network: str, seed: int) -> dict:
+    """Seeded arrays at every Keras layer name of ``network``'s backbone, as
+    ``scripts/h5_to_torch.py`` reads them from an ``.h5``: conv kernels HWIO
+    at lecun-normal scale and small biases; batch norm gamma in [0.5, 1.5),
+    small beta and mean, variance in [0.5, 2) (so the eps matters)."""
+    import torch
+
+    from radnet_torch.models import weights
+    from radnet_torch.models.bridge import _name
+    from radnet_torch.models.detector import FasterRCNN
+
+    with torch.device("meta"):
+        model = FasterRCNN(network, n_classes=7, num_anchors=9)
+    rng = np.random.default_rng(seed)
+    layers = {}
+    for keras_name, path, kind in weights._name_map(network):
+        mod = model.get_submodule(_name(path))
+        if kind == "conv":
+            o, i, h, w = mod.weight.shape
+            kernel = rng.standard_normal((h, w, i, o), dtype=np.float32) / np.float32(math.sqrt(h * w * i))
+            layers[keras_name] = [(f"{keras_name}/kernel:0", kernel),
+                                  (f"{keras_name}/bias:0", rng.normal(0, 0.01, o).astype(np.float32))]
+        else:
+            c = mod.gamma.shape[0]
+            layers[keras_name] = list(zip(
+                [f"{keras_name}/{n}:0" for n in ("gamma", "beta", "moving_mean", "moving_variance")],
+                [rng.uniform(0.5, 1.5, c).astype(np.float32), rng.normal(0, 0.05, c).astype(np.float32),
+                 rng.normal(0, 0.05, c).astype(np.float32), rng.uniform(0.5, 2.0, c).astype(np.float32)]))
+    return layers
+
+
+def torchvision_resnet50_dict(seed: int, var_range: tuple[float, float] = (0.5, 2.0)) -> dict:
+    """A seeded state_dict of torchvision's resnet50 layout at full width
+    (its fc layer included, which the port does not load); every batch
+    norm's running variance is uniform in ``var_range``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, out_c, in_c, k):
+        sd[name + ".weight"] = torch.from_numpy(
+            rng.standard_normal((out_c, in_c, k, k), dtype=np.float32) / np.float32(math.sqrt(in_c * k * k)))
+
+    def bn(name, c):
+        for f, (lo, hi) in (("weight", (0.5, 1.5)), ("bias", (-0.05, 0.05)), ("running_mean", (-0.05, 0.05)),
+                            ("running_var", var_range)):
+            sd[f"{name}.{f}"] = torch.from_numpy(rng.uniform(lo, hi, c).astype(np.float32))
+        sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    for layer, blocks, mid, out in ((1, 3, 64, 256), (2, 4, 128, 512), (3, 6, 256, 1024), (4, 3, 512, 2048)):
+        in_c = {1: 64, 2: 256, 3: 512, 4: 1024}[layer]
+        for i in range(blocks):
+            src, c_in = f"layer{layer}.{i}", in_c if i == 0 else out
+            for j, (ci, co, k) in enumerate(((c_in, mid, 1), (mid, mid, 3), (mid, out, 1)), start=1):
+                conv(f"{src}.conv{j}", co, ci, k)
+                bn(f"{src}.bn{j}", co)
+            if i == 0:
+                conv(f"{src}.downsample.0", out, c_in, 1)
+                bn(f"{src}.downsample.1", out)
+    sd["fc.weight"] = torch.from_numpy(rng.normal(0, 0.01, (1000, 2048)).astype(np.float32))
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+# JAX's apply_pretrained_weights refusal at the default Config, word for word.
+PRETRAINED_REFUSAL = (
+    "base_net_weights='imagenet' is set but no weight file was found (looked at --weights and the "
+    "conventional locations; see models/weights.py). resnet50 with FrozenBatchNorm is NOT trainable "
+    "from random init; provide --weights or pass --allow-random-init.")
+# The arms of pretrained_train: the weight file, cli.train's arguments past
+# the data and the file, epochs, steps an epoch, validation.
+PRETRAINED_RUNS = {
+    "resnet50_keras": ("keras", "resnet50", ["--model-name", "pre_keras"], 2, 8, True),
+    "resnet50_torchvision": ("torchvision", "resnet50", ["--model-name", "pre_tv"], 1, 2, False),
+    "vgg16_keras": ("keras", "vgg16", ["--network", "vgg16", "--train-schedule", "alternating",
+                                       "--model-name", "pre_vgg"], 1, 4, False),
+}
+
+
+def pretrained_train_phase(tmp: str, dev, smi) -> dict:
+    """Phase pretrained_train: radnet_torch.cli.train at the default Config
+    (base_net_weights="imagenet", bf16, batch 8) with --weights and no
+    --allow-random-init, on the training set under ``tmp``: ResNet50 from a
+    converted Keras file (2 epochs of 8 steps, validation), from a
+    torchvision dict (2 steps), and VGG16 with the alternating schedule
+    from a converted file (4 steps).  Each run prints the "Loaded
+    pretrained" line; every loaded tensor that does not train (the frozen
+    trunk, every batch norm) reaches model.pt bit-equal to the host's
+    mapping of the file, and the trained ones moved; exactly one NMS and one
+    RoI forward a step or validation batch, no grey stem, no backward; the
+    losses are finite and the four loss plots drawn.  Then the run without a
+    file or the flag stops with JAX's message.  Returns each run's launch
+    counts."""
+    import csv
+    import xml.etree.ElementTree as ET
+
+    import torch
+
+    from radnet_torch.cli import train
+    from radnet_torch.config import Config
+    from radnet_torch.engine.train_state import trainability_labels
+    from radnet_torch.models import weights
+    from radnet_torch.models.bridge import _name
+    from radnet_torch.models.detector import build_model
+    from radnet_torch.ops import cuda_kernels, nms
+
+    common = training_cli_args(tmp, dev)
+    out = {}
+    for arm, (source, network, argv, epochs, epoch_len, val) in PRETRAINED_RUNS.items():
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, f"{arm}.pt")
+        cfg = dataclasses.replace(Config(), network=network)
+        host = build_model(cfg)  # the host's mapping of the file, to compare with
+        if source == "keras":
+            layers = keras_backbone_layers(network, SEED + 300)
+            weights.save_keras_layers(path, layers)
+            del layers
+            weights.load_keras_layers(weights.read_weight_file(path)[1], host, network)
+            loaded_modules = {_name(p) for _, p, _ in weights._name_map(network)}
+            loaded = [k for k in host.state_dict() if k.rsplit(".", 1)[0] in loaded_modules]
+        else:
+            sd = torchvision_resnet50_dict(SEED + 301)
+            torch.save(sd, path)
+            weights.load_torchvision_resnet50(sd, host)
+            loaded = [k for k in host.state_dict() if k.startswith(("trunk.", "head.s5"))
+                      and not k.endswith(".bias")]  # torchvision's convs have no bias
+        want = {k: host.state_dict()[k] for k in loaded}
+        make_s = time.perf_counter() - t0
+
+        load_s = []
+        real_load = weights.maybe_load_pretrained
+
+        def timed_load(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real_load(*a, **k)
+            finally:
+                load_s.append(time.perf_counter() - t)
+
+        cuda_kernels.reset_launch_counts()
+        nms.NMS_STATS.update(calls=0)
+        run_argv = common + argv + ["--weights", path, "--n-epochs", str(epochs),
+                                    "--epoch-length", str(epoch_len)] + ([] if val else ["--no-validation"])
+        weights.maybe_load_pretrained = timed_load
+        try:
+            with counting_steps() as calls:
+                rc, text, wall = run_cli(train.main, run_argv)
+        finally:
+            weights.maybe_load_pretrained = real_load
+        launches = launch_counts()
+        model_dir = os.path.join(tmp, "train_models", f"faster_rcnn_{network}_{argv[-1]}")
+        trained = torch.load(os.path.join(model_dir, "model.pt"), weights_only=True)
+        labels = trainability_labels(host, network, cfg.base_net_trainable)
+        frozen = [k for k in loaded if labels.get(k, "frozen") == "frozen"]
+        moved = [k for k in loaded if k not in frozen and not torch.equal(trained[k], want[k])]
+        unequal = [k for k in frozen if not torch.equal(trained[k], want[k])]
+        with open(os.path.join(model_dir, "record.csv"), newline="") as f:
+            record = list(csv.DictReader(f))
+        losses = [float(r[k]) for r in record for k in ("total_loss", "val_total_loss") if r[k] != ""]
+        plots = {}
+        for name in ("accuracy", "rpn_loss", "detector_loss", "total_loss"):
+            try:
+                plots[name] = ET.parse(os.path.join(model_dir, "viz", f"{name}.svg")).getroot().tag
+            except (OSError, ET.ParseError) as e:
+                plots[name] = repr(e)
+        stamps = calls["train_step_t"]
+        gaps = [1e3 * (b - a) for e in range(epochs) for a, b in
+                zip(stamps[e * epoch_len: (e + 1) * epoch_len], stamps[e * epoch_len + 1: (e + 1) * epoch_len])]
+        steps, val_batches = calls["train_step"], calls["eval_step"]
+        line = f"Loaded pretrained base-net weights from {path}"
+        out[arm] = {"source": source, "network": network, "schedule": "alternating" if "alternating" in argv
+                    else "joint", "rc": rc, "wall_s": wall, "file_s": make_s, "load_s": load_s,
+                    "steps": steps, "val_batches": val_batches, "step_gap_ms_median":
+                    statistics.median(gaps) if gaps else None, "step_gaps_ms": gaps,
+                    "launches": launches, "nms_calls": nms.NMS_STATS["calls"],
+                    "loaded_tensors": len(loaded), "frozen_bit_equal": len(frozen) - len(unequal),
+                    "frozen": len(frozen), "trained_moved": len(moved), "trained": len(loaded) - len(frozen),
+                    "record_total_loss": losses, "plots": plots,
+                    "loaded_line": line in text.getvalue(),
+                    "torchvision_warning": "WARNING: loaded torchvision weights" in text.getvalue()}
+        emit({"phase": "pretrained_train", "arm": arm, "nvidia_smi": smi, **out[arm]})
+        check(rc == 0, f"pretrained_train: {arm} exited {rc}")
+        check(out[arm]["loaded_line"], f"pretrained_train: {arm} printed no '{line}'")
+        check(out[arm]["torchvision_warning"] == (source == "torchvision"),
+              f"pretrained_train: {arm}: the torchvision warning {'missing' if source == 'torchvision' else 'printed'}")
+        check(len(load_s) == 1, f"pretrained_train: {arm}: {len(load_s)} weight loads")
+        check(not unequal, f"pretrained_train: {arm}: frozen loaded tensors changed: {unequal[:5]}")
+        check(moved or len(loaded) == len(frozen),
+              f"pretrained_train: {arm}: none of the {len(loaded) - len(frozen)} trained tensors moved")
+        check(steps == epochs * epoch_len and (val_batches > 0) == val,
+              f"pretrained_train: {arm}: {steps} steps, {val_batches} validation batches")
+        want_k = steps + val_batches  # one proposal NMS and one RoI-pool forward a batch
+        check(launches["nms_fused"] == want_k and out[arm]["nms_calls"] == want_k
+              and launches["roi_pool"] == want_k and launches["grey_stem"] == 0
+              and launches["roi_pool_backward"] == 0,
+              f"pretrained_train: {arm}: launches {launches} for {steps} steps + {val_batches} batches")
+        check(losses and all(math.isfinite(v) for v in losses), f"pretrained_train: {arm}: losses {losses}")
+        check(all(t.endswith("svg") for t in plots.values()), f"pretrained_train: {arm}: plots {plots}")
+        del host, want, trained
+        os.remove(path)
+
+    # No file and no --allow-random-init: the run stops with JAX's message.
+    try:
+        rc, text, _ = run_cli(train.main, common + ["--model-name", "pre_none", "--n-epochs", "1",
+                                                    "--epoch-length", "1", "--no-validation"])
+        refusal = f"exited {rc}"
+    except SystemExit as e:
+        refusal = str(e)
+    emit({"phase": "pretrained_train", "arm": "refusal", "message": refusal})
+    check(refusal == PRETRAINED_REFUSAL, f"pretrained_train: without a file: {refusal!r}")
+    return {arm: o["launches"] for arm, o in out.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -2865,8 +3121,9 @@ def kernel_ms(fn, symbol: str) -> float:
 
 
 def int8_case_inputs(case, dev, seed: int):
-    """Seeded activations (ReLU outputs; per-sample magnitudes over four
-    decades; sample 1 all zero, so its scale sits at the floor), weights
+    """Seeded activations (|N(0, 1)|, non-negative as ReLU outputs but with
+    no zero; per-sample magnitudes over four decades; sample 1 all zero, so
+    its scale sits at the floor), weights
     (lecun-normal, output channel 7 a hundred times larger) and a bias, all
     made on the card."""
     import math
@@ -2949,11 +3206,13 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
     every row at a small M (8 samples) and on every 37th sample at the full
     M; the outputs bit-equal on every row under each of INT8_EPILOGUES (the
     3x3 conv's edge rows counted); the earlier kernel's float32 output
-    bit-equal to the new kernel's; then each timed with the epilogue the
-    head runs there (device ms, its bound, plain ms, the library path:
+    bit-equal to the new kernel's; the quantizer also on the activations
+    with a seeded half of their values zeroed, as the head's ReLU outputs
+    are; then each timed with the epilogue the head runs there (device ms, its bound, plain ms, the library path:
     torch._int_mm, the dequantize and the eager epilogue passes), beside
-    the earlier kernel and the new one's float32 epilogue.  Returns the
-    kernels line's two rows."""
+    the earlier kernel and the new one's float32 epilogue, the quantizer on
+    the half-zero activations (and on the unzeroed ones beside).  Returns
+    the kernels line's two rows."""
     import torch
 
     from radnet_torch.ops import quant
@@ -2962,15 +3221,21 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
     for i, case in enumerate(INT8_CASES):
         name, backbone, a_shape, a_dtype, w_shape, head_epi = case
         x, w, bias = int8_case_inputs(case, dev, SEED + 40 + i)
+        # The head quantizes ReLU outputs (int8_batch's quantizer_in_head: 15-52%
+        # zeros), and zeros slow the kernel: it is timed on x with a seeded half
+        # of its values zeroed, as a ReLU leaves them, and on x itself beside.
+        gz = torch.Generator(device=dev).manual_seed(SEED + 80 + i)
+        xr = x.masked_fill(torch.rand(x.shape, generator=gz, device=dev) < 0.5, 0)
         a, rps, wrows = int8_operands(x, w)
         xq = quant.quantize_rows_cuda(x)
-        xq_ref = quant.quantize_rows_plain(x)
-        wq, wq_ref = quant.quantize_rows_cuda(wrows), quant.quantize_rows_plain(wrows)
-        torch.cuda.synchronize()
-        for what, got, ref in (("activations", xq, xq_ref), ("weights", wq, wq_ref)):
+        wq = quant.quantize_rows_cuda(wrows)
+        for what, v, got in (("activations", x, xq), ("ReLU-output activations", xr, quant.quantize_rows_cuda(xr)),
+                             ("weights", wrows, wq)):
+            ref = quant.quantize_rows_plain(v)
+            torch.cuda.synchronize()
             check(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale),
                   f"quantize_rows disagrees with its plain version on {name}'s {what}")
-        del xq_ref, wq_ref
+            del got, ref
 
         conv3 = a.q.dim() == 4
         m, n, k = (a.q.shape[0] * (49 if conv3 else 1), wq.q.shape[0], wq.q.shape[1])
@@ -3053,8 +3318,10 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
             "gemm_library_ms": time_cuda(library, iters=5, warmup=1),
             "gemm_library_max_abs_diff": lib_err,
             "gemm_bound_ms": g_bound, "gemm_bound_by": g_by, "gemm_max_abs_err": max_err,
-            "quantize_x_ms": kernel_ms(lambda: quant.quantize_rows_cuda(x), "quantize_rows_kernel"),
-            "quantize_x_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(x), iters=3, warmup=1),
+            "quantize_x_ms": kernel_ms(lambda: quant.quantize_rows_cuda(xr), "quantize_rows_kernel"),
+            "quantize_x_zero_share": float((xr == 0).float().mean()),
+            "quantize_x_no_zeros_ms": kernel_ms(lambda: quant.quantize_rows_cuda(x), "quantize_rows_kernel"),
+            "quantize_x_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(xr), iters=3, warmup=1),
             "quantize_x_bound_ms": x_bound, "quantize_x_bound_by": x_by,
             "quantize_w_ms": kernel_ms(lambda: quant.quantize_rows_cuda(wrows), "quantize_rows_kernel"),
             "quantize_w_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(wrows), iters=3, warmup=1),
@@ -3064,7 +3331,7 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
         row["gemm_bound_share"] = g_bound / row["gemm_ms"]
         emit({"phase": "int8_kernels", **row})
         rows.append(row)
-        del x, w, a, xq, wq, out, epi
+        del x, xr, w, a, xq, wq, out, epi
         torch.cuda.empty_cache()
     return int8_kernel_rows(rows)
 
@@ -3095,9 +3362,11 @@ def int8_kernel_rows(rows: list) -> dict:
                                  "library_ms": b["gemm_library_ms"], "bound_ms": b["gemm_bound_ms"],
                                  "earlier_ms": b["gemm_earlier_ms"], "float_epilogue_ms": b["gemm_float_ms"]}
             else:  # activations as often as they are quantized, weights once a product
-                xs = batch(backbone, ("quantize_x_ms", "quantize_x_plain_ms", "quantize_x_bound_ms"), 1)
+                xs = batch(backbone, ("quantize_x_ms", "quantize_x_no_zeros_ms", "quantize_x_plain_ms",
+                                      "quantize_x_bound_ms"), 1)
                 ws = batch(backbone, ("quantize_w_ms", "quantize_w_plain_ms", "quantize_w_bound_ms"), 0)
                 per[backbone] = {"ms": xs["quantize_x_ms"] + ws["quantize_w_ms"],
+                                 "no_zeros_ms": xs["quantize_x_no_zeros_ms"] + ws["quantize_w_ms"],
                                  "plain_ms": xs["quantize_x_plain_ms"] + ws["quantize_w_plain_ms"],
                                  "library_ms": None,
                                  "bound_ms": xs["quantize_x_bound_ms"] + ws["quantize_w_bound_ms"]}
@@ -3115,7 +3384,9 @@ def int8_kernel_rows(rows: list) -> dict:
                                  "FrozenBatchNorm, residual sum and ReLUs XLA fuses after them "
                                  "(radnet_tpu/models/resnet.py:99-117; no Pallas kernel)",
                 "earlier_source": "radnet_torch/csrc/earlier/int8_gemm_mma_sync.cu"} if keys else
-               {"replaces_also": "no Pallas kernel: XLA's reduction and rounding"}),
+               {"replaces_also": "no Pallas kernel: XLA's reduction and rounding",
+                "inputs": "activations with a seeded half of their values zero, as ReLU outputs; "
+                          "no_zeros_ms: the same values with none zeroed"}),
             "shape": "one 12-tile serving batch of the ResNet50 int8 head (3600 RoIs)",
             **per["resnet50"], "bound_by": max(share, key=share.get), "bound_by_share": share,
             "vgg16_batch": per["vgg16"],
@@ -3202,7 +3473,7 @@ def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.ops import cuda_kernels, quant
 
     cfg, dev = net8.C, net8.device
     valid_wh = torch.full((len(images), 2), float(cfg.img_size), device=dev)
@@ -3226,17 +3497,32 @@ def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
             times[which]["head"].append(time_cuda(lambda: net._head(fmap, props), iters=5, warmup=1))
         times[which]["batch"].append(
             time_cuda(lambda: net._predict_tiles_impl(images, valid_wh), iters=5, warmup=1))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
-        with torch.inference_mode():
-            for _ in range(3):
-                net8._head(fmap, props)
-        torch.cuda.synchronize()
+    quantized = []  # (shape, dtype) of each quantizer launch, in launch order
+    real_q = quant.quantize_rows_cuda
+
+    def recording(x):
+        quantized.append((list(x.shape), str(x.dtype).removeprefix("torch.")))
+        return real_q(x)
+
+    quant.quantize_rows_cuda = recording
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            with torch.inference_mode():
+                for _ in range(3):
+                    net8._head(fmap, props)
+            torch.cuda.synchronize()
+    finally:
+        quant.quantize_rows_cuda = real_q
     by_kernel = {"int8_gemm_wgmma": 0.0, "quantize_rows_kernel": 0.0, "roi_pool_kernel": 0.0,
                  "other": 0.0}
+    q_events = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             key = next((k for k in by_kernel if k in e.name), "other")
             by_kernel[key] += (e.time_range.end - e.time_range.start) / 3e3
+            if key == "quantize_rows_kernel":
+                q_events.append((e.time_range.start, (e.time_range.end - e.time_range.start) / 1e3))
+    quantizer = quantizer_in_head(net8, fmap, props, quantized, sorted(q_events))
     # The head's activations leave each product in their final form: no
     # elementwise PyTorch op (cast, batch norm, sum, ReLU) may read a tensor
     # of 4096 values a RoI or more (VGG16's fc activations; ResNet50's stage
@@ -3257,6 +3543,7 @@ def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
           "roi_pool_head_ms": {k: statistics.median(v["head"]) for k, v in times.items()},
           "batch_ms": {k: statistics.median(v["batch"]) for k, v in times.items()},
           "turns_ms": times, "int8_head_device_ms_by_kernel": by_kernel,
+          "quantizer_in_head": quantizer,
           "int8_head_device_kernels": head_kernels, "int8_head_elementwise_passes": passes,
           "detections_int8": len(d8), "detections_float": len(df),
           "int8_vs_float_unmatched": unmatched(d8, df, INT8_PROB_TOL),
@@ -3268,6 +3555,55 @@ def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
           f"want {INT8_HEAD_KERNELS[cfg.network]}")
     sync_free_phase(net8, images, panel3, phase=f"{phase}_sync_free")
     return per_batch
+
+
+def quantizer_in_head(net8, fmap, props, quantized: list, events: list) -> dict:
+    """The quantizer's device ms a launch inside the profiled head calls
+    (``events``: (start, ms) of every quantize_rows_kernel, ``quantized``:
+    each launch's input shape and type, both in launch order), averaged over
+    the calls by position in a call, beside the same kernel timed alone
+    (device_ms) on the very input that position quantized in one more head
+    call; for each activation, its share of zeros and the kernel alone on
+    seeded values of its shape with no zero and with half of them zero."""
+    import torch
+
+    from radnet_torch.ops import quant
+
+    inputs = []
+    real_q = quant.quantize_rows_cuda
+
+    def keeping(x):
+        inputs.append(x)
+        return real_q(x)
+
+    quant.quantize_rows_cuda = keeping
+    try:
+        with torch.inference_mode():
+            net8._head(fmap, props)
+    finally:
+        quant.quantize_rows_cuda = real_q
+    n = len(inputs)
+    out = {"launches_profiled": len(quantized), "kernel_events": len(events), "launches_a_call": n}
+    if not n or len(events) != len(quantized) or len(quantized) % n:
+        out["event_ms"] = [ms for _, ms in events]  # not attributable launch by launch
+        return out
+    calls = len(quantized) // n
+    rows = []
+    for j, x in enumerate(inputs):
+        row = {"input": j, "shape": quantized[j][0], "dtype": quantized[j][1],
+               "head_ms": statistics.mean(events[c * n + j][1] for c in range(calls)),
+               "alone_ms": kernel_ms(lambda x=x: real_q(x), "quantize_rows_kernel")}
+        if x.dim() > 2:  # an activation: its zeros, and seeded values of its shape with and without
+            row["zero_share"] = float((x == 0).float().mean())
+            for key, y in (("alone_no_zeros_ms", torch.randn_like(x).abs_().add_(1e-3)),
+                           ("alone_half_zeros_ms", torch.randn_like(x).relu_())):
+                row[key] = kernel_ms(lambda y=y: real_q(y), "quantize_rows_kernel")
+                del y
+        rows.append(row)
+    del inputs
+    out.update(by_input=rows, head_ms=sum(r["head_ms"] for r in rows),
+               alone_ms=sum(r["alone_ms"] for r in rows))
+    return out
 
 
 def int8_card_vs_cpu(weights: dict, cfg, dev, images, head_rois: int = INT8_HEAD_ROIS) -> dict:
@@ -3510,6 +3846,7 @@ def main() -> int:
         vgg_trained = train_phase(tmp, dev, smi, "vgg16", phase="vgg_train")
         vgg_test = vgg_evaluate_phase(tmp, dev, smi, vgg_weights)
         int8_launches["vgg16"]["test"] = int8_test_phase(tmp, "vgg16", dev, smi, "vgg_int8_test", 6)
+        pretrained = pretrained_train_phase(tmp, dev, smi)
         batch, samples_per_s = training_batch(tmp, cfg, dev)
     train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier)
     train_sync_free_phase(batch, cfg, dev)
@@ -3547,6 +3884,7 @@ def main() -> int:
                                "test": vgg_test[name]}
         k["launches_int8"] = {net: {run: counts[name] for run, counts in runs.items()}
                               for net, runs in int8_launches.items()}
+        k["launches_pretrained_train"] = {arm: counts[name] for arm, counts in pretrained.items()}
         if name in launches:  # the served run is the serving kernels' main path
             k["launches"] = launches[name]
             k["launches_per_batch"] = per_batch[name]

@@ -9,11 +9,19 @@ existing model directory is refused.
 
 Both backbones (``--network resnet50|vgg16``) and both schedules
 (``--train-schedule joint|alternating``).  Runs on the card unless
-``--device cpu``.  Not ported yet, and refused: ``--weights`` (Keras
-ImageNet backbone weights) and ``--n-devices`` / ``--model-parallel``.  A
-ResNet50 config that names ``base_net_weights`` needs
-``--allow-random-init``, since no weight file can be loaded; VGG16 trains
-from random init with a warning.
+``--device cpu``.  Pretrained backbone weights load right after the train
+state is made (``apply_pretrained_weights``): ``--weights`` and the
+conventional locations are searched (``models/weights.py``), for a Keras
+``.h5`` converted by ``scripts/h5_to_torch.py`` or a torchvision
+``resnet50`` state_dict.  When ``base_net_weights`` is set and no file is
+found, ResNet50 stops (frozen batch norm at its identity init cannot train;
+``--allow-random-init`` overrides) and VGG16 trains from random init with a
+warning.  Not ported yet, and refused: ``--n-devices`` /
+``--model-parallel``.
+
+Example (on the card, the default config from converted Keras weights):
+  python scripts/h5_to_torch.py resnet50_notop.h5 resnet50.pt   # where h5py is
+  python -m radnet_torch.cli.train --weights resnet50.pt --model-name r50
 
 Example (CPU, a tiny run):
   python -m radnet_torch.cli.train --device cpu --config-json cfg.json \\
@@ -44,28 +52,43 @@ def build_argparser() -> argparse.ArgumentParser:
                         "proposals from the updated RPN, then a detector update with its own Adam")
     p.add_argument("--config-json", default=None, help="a Config JSON replacing the defaults")
     p.add_argument("--weights", default=None,
-                   help="not ported: Keras .h5 backbone weights (ROADMAP Queue 1 item 12)")
+                   help="a Keras .h5 converted by scripts/h5_to_torch.py, or a torchvision "
+                        "resnet50 state_dict, with pretrained backbone weights (searched in "
+                        "addition to the conventional locations)")
     p.add_argument("--allow-random-init", action="store_true",
-                   help="train from the seeded random init although base_net_weights is set")
+                   help="proceed from random init even when base_net_weights is set but no "
+                        "weight file is found (resnet50 + FrozenBatchNorm is NOT trainable "
+                        "from random init - see models/weights.py)")
     return p
 
 
-def check_pretrained(config, weights, allow_random_init: bool) -> None:
-    """The port loads no backbone weight file yet: refuse ``--weights``, and
-    a ResNet50 that names ``base_net_weights`` without
-    ``--allow-random-init`` (frozen batch norm at its identity init is not
-    trainable from scratch)."""
-    if weights:
-        raise SystemExit("--weights: loading Keras .h5 backbone weights is not ported yet "
-                         "(ROADMAP Queue 1 item 12)")
-    if config.base_net_weights is None:
-        return
-    msg = (f"base_net_weights={config.base_net_weights!r} is set but the port loads no "
-           f"weight file yet (ROADMAP Queue 1 item 12).")
-    if config.network == "resnet50" and not allow_random_init:
-        raise SystemExit(msg + " resnet50 with frozen batch norm is not trainable from "
-                         "random init; pass --allow-random-init to train anyway.")
-    print("WARNING: " + msg + " Training from random init.")
+def apply_pretrained_weights(config, state, weights=None, allow_random_init=False):
+    """Load pretrained backbone weights into the train state's model, in
+    place, and return the state.  When ``base_net_weights`` is configured
+    but no file is found, resnet50 training FAILS by default: with
+    FrozenBatchNorm the random-init batch statistics are identity garbage
+    and the model cannot train (``allow_random_init`` overrides; vgg16 only
+    warns)."""
+    from radnet_torch.models.weights import maybe_load_pretrained
+
+    search = (weights,) if weights else ()
+    src = maybe_load_pretrained(config, state.model, search_paths=search)
+    if src is not None:
+        print(f"Loaded pretrained base-net weights from {src}")
+        return state
+    if config.base_net_weights is not None:
+        msg = (
+            f"base_net_weights={config.base_net_weights!r} is set but no "
+            f"weight file was found (looked at --weights and the "
+            f"conventional locations; see models/weights.py)."
+        )
+        if config.network == "resnet50" and not allow_random_init:
+            raise SystemExit(
+                msg + " resnet50 with FrozenBatchNorm is NOT trainable from "
+                "random init; provide --weights or pass --allow-random-init."
+            )
+        print("WARNING: " + msg + " Training from random init.")
+    return state
 
 
 def main(argv=None) -> int:
@@ -89,7 +112,6 @@ def main(argv=None) -> int:
         config.batch_size = args.batch_size
     if args.train_schedule:
         config.train_schedule = args.train_schedule
-    check_pretrained(config, args.weights, args.allow_random_init)
 
     data_train, class_count, data_val = training_data(args, config)
 
@@ -111,6 +133,8 @@ def main(argv=None) -> int:
 
     state = create_train_state(config, torch.Generator().manual_seed(args.seed), device,
                                learning_rate=args.lr)
+    state = apply_pretrained_weights(config, state, weights=args.weights,
+                                     allow_random_init=args.allow_random_init)
     train_step = make_step(state, config)
     eval_step = make_eval_step(state, config) if data_val is not None else None
     train_batches, val_factory = training_pipelines(args, config, data_train, class_count,

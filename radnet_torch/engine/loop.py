@@ -14,9 +14,9 @@ The observable contract of the JAX package's ``engine/loop.py``:
   save also writes ``model.pt``.
 
 Step metrics stay on the device during an epoch and are fetched once at
-its end.  When the run ends, ``dashboard.html`` is rendered from the two
-logs (``utils/dashboard.py``); the JAX package's matplotlib loss plots are
-not drawn (ROADMAP Queue 1 item 12).
+its end.  When the run ends, the loss plots are written into ``viz/``
+(``engine/plots.py``) and ``dashboard.html`` is rendered from the two logs
+(``utils/dashboard.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from radnet_torch.config import Config
 from radnet_torch.engine import checkpoint as ckpt
+from radnet_torch.engine.plots import save_training_plots
 from radnet_torch.engine.steps import METRIC_KEYS, draw_step
 from radnet_torch.engine.train_state import TrainState
 from radnet_torch.inference import WEIGHTS_FILE
@@ -246,10 +247,11 @@ def fit(
     try:
         saver.close()
     finally:
-        # Every epoch completed: close the logs and render the dashboard
-        # even if the last checkpoint flush failed.
+        # Every epoch completed: close the logs, draw the plots and render
+        # the dashboard even if the last checkpoint flush failed.
         metrics_log.close()
         events.close()
+        save_training_plots(record, os.path.join(model_path, "viz"))
         try:
             generate_dashboard(model_path)
         except Exception as e:  # a dashboard never fails a training run

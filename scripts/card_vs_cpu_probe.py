@@ -11,8 +11,17 @@ their mAPs against the panel's boxes and against every second CPU
 detection) for several weight seeds and panels, then with the RoI pool's
 output moved one column on the card.  One JSON line per reading.
 
+``--stages``: where card and CPU part on one reading (weight seed
+``STAGES_SEED``, test panel ``STAGES_PANEL``: the reading that left 17 of 237
+detections unmatched).  The CPU runs the panel again with the card's output of each
+stage in turn put in place of its own (the prescaled panel, then the
+feature map, the proposals, the head's outputs), each with every earlier
+stage's too; the first stage whose card output brings the CPU's detections
+to the card's is where the two part.  Per stage it also reports how far
+apart the card and the CPU are on identical inputs.
+
 Card only (it needs chip_smoke.py beside it at the repo root):
-  python3 scripts/card_vs_cpu_probe.py
+  python3 scripts/card_vs_cpu_probe.py [--stages]
 """
 
 from __future__ import annotations
@@ -76,12 +85,108 @@ def evaluate_reading(cs, weights, cfg, dev, data, k: int, **tags) -> dict:
             "map_pseudo_gt_cpu": d["map_pseudo_gt_cpu"]}
 
 
+STAGES = ("prescale_panel", "features", "proposals", "head")  # RADNet methods, "_" + name
+STAGES_SEED, STAGES_PANEL = 11, 0  # the reading --stages takes apart (seed added to chip_smoke.SEED)
+
+
+def stage_reading(cs, weights, cfg, dev, panel) -> dict:
+    """The float32 (TF32 off) detections of ``panel`` on the card, and on the
+    CPU with the card's output of the first k of ``STAGES`` in place of its
+    own, for k = 0..4 (``unmatched_fed``: how many of either side have no
+    partner).  At each k the CPU's stage k also runs beside the card's on
+    the same input (``gaps``): the prescaled panels' differing pixels, the
+    feature maps' largest difference, the proposal sets' unmatched boxes,
+    the head's largest differences and the tile detections each side makes
+    from its own head outputs (unmatched at a 1e-3 confidence tolerance),
+    over all of the panel's batches."""
+    import dataclasses
+
+    import torch
+
+    from radnet_torch.inference import RADNet
+    from radnet_torch.models.detector import build_model
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", infer_tile_batch=4)
+
+    def net(where):
+        m = build_model(cfg32)
+        m.load_state_dict(weights)
+        return RADNet(cfg32, m, device=where)
+
+    def moved(x, where):
+        if isinstance(x, torch.Tensor):
+            return x.to(where)
+        if isinstance(x, tuple):
+            items = [moved(t, where) for t in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        return x
+
+    gaps = {"prescale_panel": {"pixels": 0, "levels": 0}, "features": {"max_abs": 0.0, "max": 0.0},
+            "proposals": {"unmatched": 0, "boxes": 0},
+            "head": {"cls_max_abs": 0.0, "regr_max_abs": 0.0, "tile_detections_unmatched": 0,
+                     "tile_detections": 0}}
+
+    def record(stage, theirs, mine, cpu):
+        g = gaps[stage]
+        if stage == "prescale_panel":
+            d = (theirs[0].int() - mine[0].int()).abs()
+            g["pixels"] += int((d > 0).sum())
+            g["levels"] = max(g["levels"], int(d.max()))
+        elif stage == "features":
+            g["max_abs"] = max(g["max_abs"], float((theirs - mine).abs().max()))
+            g["max"] = max(g["max"], float(theirs.abs().max()))
+        elif stage == "proposals":
+            missing, total = cs.proposal_sets_unmatched(theirs, mine)
+            g["unmatched"] += missing
+            g["boxes"] += total
+        else:  # and each side's tile detections (score cut, per-class NMS) from its own outputs
+            g["cls_max_abs"] = max(g["cls_max_abs"], float((theirs[0] - mine[0]).abs().max()))
+            g["regr_max_abs"] = max(g["regr_max_abs"], float((theirs[1] - mine[1]).abs().max()))
+            n_fg = cfg32.n_classes - 1
+            d_card = cs.tile_detections(card._detections(*moved(theirs, dev)), n_fg)
+            d_cpu = cs.tile_detections(cpu._detections(*mine), n_fg)
+            g["tile_detections_unmatched"] += cs.unmatched(d_card, d_cpu)
+            g["tile_detections"] += len(d_card) + len(d_cpu)
+
+    def wrapped(stage, real, card_fn, fed):
+        def fn(*args):
+            theirs = moved(card_fn(*moved(args, dev)), "cpu")
+            if fed:
+                return theirs
+            mine = real(*args)
+            record(stage, theirs, mine, real.__self__)
+            return mine
+        return fn
+
+    card = net(dev)
+    want = card.predict([panel])
+    out = {"n_card": len(want), "unmatched_fed": {}}
+    for k in range(len(STAGES) + 1):
+        cpu = net("cpu")
+        for i, stage in enumerate(STAGES[: k + 1]):
+            setattr(cpu, "_" + stage, wrapped(stage, getattr(cpu, "_" + stage), getattr(card, "_" + stage),
+                                              fed=i < k))
+        got = cpu.predict([panel])
+        out["unmatched_fed"]["+".join(STAGES[:k]) or "none"] = cs.unmatched(got, want)
+        if k == 0:
+            out["n_cpu"] = len(got)
+    out["gaps"] = gaps
+    return out
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
     import chip_smoke as cs
     from radnet_torch.config import Config
     from radnet_torch.data.dataset import get_data
+
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--stages", action="store_true",
+                   help="only the stage reading of weight seed STAGES_SEED on test panel STAGES_PANEL")
+    args = p.parse_args()
 
     if not torch.cuda.is_available():
         print("card_vs_cpu_probe: needs a CUDA card", file=sys.stderr)
@@ -96,6 +201,17 @@ def main() -> int:
                             capture_output=True, text=True).stdout.strip(), flush=True)
     vcfg = cs.vgg_config()
     with tempfile.TemporaryDirectory() as tmp:
+        if args.stages:
+            cs.write_split(tmp, "test", [cs.SEED + 200 + k for k in range(N_EVAL_PANELS)])
+            d = os.path.join(tmp, "data")
+            data, _, _ = get_data(os.path.join(d, "test.csv"), os.path.join(d, "test"), vcfg.img_types)
+            from radnet_torch.data.dataset import get_image
+
+            w = calibrated_vgg_weights(cs, vcfg, dev, cs.SEED + STAGES_SEED)
+            r = stage_reading(cs, w, vcfg, dev, get_image(data[STAGES_PANEL]["filepath"], vcfg.img_types))
+            print(json.dumps({"reading": "stages", "seed": cs.SEED + STAGES_SEED, "panel": STAGES_PANEL, **r}),
+                  flush=True)
+            return 0
         cs.write_training_set(tmp)
         cs.write_split(tmp, "test", [cs.SEED + 200 + k for k in range(N_EVAL_PANELS)])
         batch, _ = cs.training_batch(tmp, Config(), dev)
