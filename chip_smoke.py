@@ -154,9 +154,15 @@ serve phases saved and the ones cli.train wrote:
                 (ResNet50's s5a.conv2a, conv_sc, the 3x3 conv2b through the
                 implicit im2col, conv2c, s5b.conv2a; VGG16's fc1, fc2; M =
                 176 400 or 3600 rows): q and scales bit-equal to the plain
-                version (activations as seeded, and with a seeded half of
-                them zero, as ReLU outputs, which the quantizer is timed
-                on), the int32 sums bit-equal (every row at 8 samples,
+                version and to the earlier quantizer
+                (csrc/earlier/quantize_rows_two_pass.cu) on the activations
+                as seeded, with a seeded half of them zero, as ReLU outputs
+                (which both quantizers are timed on, the unzeroed ones
+                beside), and on the weights; both quantizers also on the
+                special values of quantize_special_inputs (all-zero rows,
+                signed zeros, subnormals, half-way values, rows of 200 KB
+                to 917 KB over clusters of 2, 4 and 8 CTAs with the max in
+                the last CTA's slice); the int32 sums bit-equal (every row at 8 samples,
                 every 37th sample at the full M), the outputs bit-equal on
                 every row under each epilogue of INT8_EPILOGUES (float32, its
                 ReLU, the batch norm in bf16 and float32 alone, with ReLU,
@@ -781,9 +787,10 @@ def earlier_kernels() -> dict:
     """The earlier designs of the NMS (a byte relation in device memory), the
     RoI pool (one block per output cell), the grey stem (float32 products on
     the CUDA cores, a full centring map), the RoI-pool backward (float32
-    atomics into a zeroed map) and the int8 product (mma.sync tiles fed by
-    cp.async, a float32 output), kept in radnet_torch/csrc/earlier/ to be
-    timed beside the current kernels."""
+    atomics into a zeroed map), the int8 product (mma.sync tiles fed by
+    cp.async, a float32 output) and the quantizer (one block a row, each
+    row read twice), kept in radnet_torch/csrc/earlier/ to be timed beside
+    the current kernels."""
     import ctypes
 
     from radnet_torch.ops.cuda_kernels import CudaKernel
@@ -802,7 +809,24 @@ def earlier_kernels() -> dict:
             [ptr] * 3 + [i32] * 8, extra_flags=("--fmad=false",), headers=("roi_taps.cuh",)),
         "int8_gemm": CudaKernel("earlier/int8_gemm_mma_sync.cu", "radnet_int8_gemm",
                                 [ptr] * 6 + [i32] * 8, extra_flags=("--fmad=false",)),
+        "quantize_rows": CudaKernel("earlier/quantize_rows_two_pass.cu", "radnet_earlier_quantize_rows",
+                                    [ptr] * 3 + [i32, ctypes.c_longlong, i32]),
     }
+
+
+def earlier_quantize_rows(kernel, x):
+    """The earlier quantizer (csrc/earlier/quantize_rows_two_pass.cu) as its
+    wrapper ran it: one block a row of ``x`` (R, ...)."""
+    import torch
+
+    from radnet_torch.ops import quant
+    from radnet_torch.ops.cuda_kernels import ptr
+
+    rows = x.shape[0]
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    kernel.launch(ptr(x), ptr(q), ptr(scale), rows, x.numel() // rows, quant._DTYPE_CODE[x.dtype])
+    return quant.Quantized(q, scale)
 
 
 def earlier_roi_backward(kernel, g, rois, map_hw, *, pool_size, center_stride):
@@ -3199,10 +3223,83 @@ def int8_operands(x, w):
     return quant.Quantized(xq.q.reshape(-1, x.shape[-1]), xq.scale), 49, wrows
 
 
+def check_quantizers(x, earlier_kernel, what: str) -> None:
+    """The quantizer bit-equal, q and scales, to its plain version and to
+    the earlier design on ``x``."""
+    import torch
+
+    from radnet_torch.ops import quant
+
+    got = quant.quantize_rows_cuda(x)
+    ref = quant.quantize_rows_plain(x)
+    old = earlier_quantize_rows(earlier_kernel, x)
+    torch.cuda.synchronize()
+    check(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale),
+          f"quantize_rows disagrees with its plain version on {what}")
+    check(torch.equal(old.q, got.q) and torch.equal(old.scale, got.scale),
+          f"the earlier quantizer disagrees with the new one on {what}")
+
+
+# The special-value rows' types and lengths: 49 x 2048 values (200 KB in bf16,
+# a cluster of 2 CTAs; 401 KB in float32, a cluster of 4) and the longest rows
+# the plan takes (8 slices of 112 KiB, a cluster of 8).
+QUANT_SPECIAL_SHAPES = [("bfloat16", 49 * 2048), ("float32", 49 * 2048),
+                        ("bfloat16", 8 * 57344), ("float32", 8 * 28672)]
+QUANT_SPECIAL_ROWS = ["all zero", "all -0.0", "signed zeros among normal values", "subnormals only",
+                      "subnormals among normal values", "half-way values (scale 2^-3)",
+                      "max at the last value", "negative max at the last value",
+                      "max at the first value of the last CTA's slice",
+                      "half zero, signed", "half zero, signed", "half zero, signed"]
+
+
+def quantize_special_inputs(dtype_name: str, length: int, dev, seed: int):
+    """Seeded rows of ``length`` values of the kinds the quantizer treats
+    apart, one a row in the order of QUANT_SPECIAL_ROWS, made on the card:
+    zeros of both signs, subnormals (|x| < 2^-126), half-way values (the
+    max 127 * 2^-3 makes the scale 2^-3 exactly, and every other value is
+    an odd multiple of 2^-4, so x / scale lies half-way between two
+    integers), and the row's max where the last CTA of its cluster holds
+    it."""
+    import torch
+
+    from radnet_torch.ops import quant
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal():
+        return torch.randn(length, generator=g, device=dev)
+
+    def coin():
+        return torch.rand(length, generator=g, device=dev) < 0.5
+
+    def signed_zeros():
+        return torch.copysign(torch.zeros(length, device=dev), normal())
+
+    x = torch.stack([normal() for _ in QUANT_SPECIAL_ROWS])
+    x[0] = 0.0
+    x[1] = -0.0
+    x[2] = torch.where(coin(), signed_zeros(), x[2])
+    x[3] = normal() * 1e-39
+    x[4] = torch.where(coin(), normal() * 1e-39, x[4])
+    n = torch.randint(-127, 127, (length,), generator=g, device=dev)
+    x[5] = (2 * n + 1).float() / 16
+    x[5, length // 3] = 127 / 8
+    plan = quant.quantize_plan(length, dt)
+    x[6, -1] = 1000.0
+    x[7, -1] = -1000.0
+    x[8, (plan.cluster - 1) * plan.slice_values] = 1000.0
+    for r in range(9, 12):
+        x[r] = torch.where(coin(), signed_zeros(), x[r])
+    return x.to(dt), plan
+
+
 def int8_kernel_checks(dev, earlier: dict) -> dict:
     """Phase int8_kernels: the quantizer and the int8 product at every shape
-    a serving batch gives them, against their plain versions: q and the
-    scales bit-equal (activations and weights); the int32 sums bit-equal on
+    a serving batch gives them, against their plain versions: first the
+    quantizer and its earlier design on quantize_special_inputs at each of
+    QUANT_SPECIAL_SHAPES; then q and the scales bit-equal to the plain
+    version and the earlier design (activations and weights); the int32 sums bit-equal on
     every row at a small M (8 samples) and on every 37th sample at the full
     M; the outputs bit-equal on every row under each of INT8_EPILOGUES (the
     3x3 conv's edge rows counted); the earlier kernel's float32 output
@@ -3211,11 +3308,20 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
     are; then each timed with the epilogue the head runs there (device ms, its bound, plain ms, the library path:
     torch._int_mm, the dequantize and the eager epilogue passes), beside
     the earlier kernel and the new one's float32 epilogue, the quantizer on
-    the half-zero activations (and on the unzeroed ones beside).  Returns
-    the kernels line's two rows."""
+    the half-zero activations (and on the unzeroed ones beside) in turns
+    with its earlier design.  Returns the kernels line's two rows."""
     import torch
 
     from radnet_torch.ops import quant
+
+    special = []
+    for j, (dtype_name, length) in enumerate(QUANT_SPECIAL_SHAPES):
+        x, plan = quantize_special_inputs(dtype_name, length, dev, SEED + 90 + j)
+        check_quantizers(x, earlier["quantize_rows"], f"the special values, {dtype_name} rows of {length}")
+        special.append({"dtype": dtype_name, "rows": x.shape[0], "length": length, **plan._asdict()})
+        del x
+    emit({"phase": "int8_kernels_special", "row_kinds": QUANT_SPECIAL_ROWS, "shapes": special,
+          "bit_equal": "plain version and earlier design"})
 
     rows = []
     for i, case in enumerate(INT8_CASES):
@@ -3229,13 +3335,8 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
         a, rps, wrows = int8_operands(x, w)
         xq = quant.quantize_rows_cuda(x)
         wq = quant.quantize_rows_cuda(wrows)
-        for what, v, got in (("activations", x, xq), ("ReLU-output activations", xr, quant.quantize_rows_cuda(xr)),
-                             ("weights", wrows, wq)):
-            ref = quant.quantize_rows_plain(v)
-            torch.cuda.synchronize()
-            check(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale),
-                  f"quantize_rows disagrees with its plain version on {name}'s {what}")
-            del got, ref
+        for what, v in (("activations", x), ("ReLU-output activations", xr), ("weights", wrows)):
+            check_quantizers(v, earlier["quantize_rows"], f"{name}'s {what}")
 
         conv3 = a.q.dim() == 4
         m, n, k = (a.q.shape[0] * (49 if conv3 else 1), wq.q.shape[0], wq.q.shape[1])
@@ -3318,15 +3419,24 @@ def int8_kernel_checks(dev, earlier: dict) -> dict:
             "gemm_library_ms": time_cuda(library, iters=5, warmup=1),
             "gemm_library_max_abs_diff": lib_err,
             "gemm_bound_ms": g_bound, "gemm_bound_by": g_by, "gemm_max_abs_err": max_err,
-            "quantize_x_ms": kernel_ms(lambda: quant.quantize_rows_cuda(xr), "quantize_rows_kernel"),
             "quantize_x_zero_share": float((xr == 0).float().mean()),
-            "quantize_x_no_zeros_ms": kernel_ms(lambda: quant.quantize_rows_cuda(x), "quantize_rows_kernel"),
             "quantize_x_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(xr), iters=3, warmup=1),
             "quantize_x_bound_ms": x_bound, "quantize_x_bound_by": x_by,
-            "quantize_w_ms": kernel_ms(lambda: quant.quantize_rows_cuda(wrows), "quantize_rows_kernel"),
             "quantize_w_plain_ms": time_cuda(lambda: quant.quantize_rows_plain(wrows), iters=3, warmup=1),
             "quantize_w_bound_ms": w_bound, "quantize_w_bound_by": w_by,
         }
+        # The new quantizer and the earlier one in turns on the same inputs
+        # (new, earlier, earlier, new), each reading the mean of its two.
+        old_q = earlier["quantize_rows"]
+        for key, v in (("quantize_x", xr), ("quantize_x_no_zeros", x), ("quantize_w", wrows)):
+            turns = {"new": [], "earlier": []}
+            for which in ("new", "earlier", "earlier", "new"):
+                turns[which].append(
+                    kernel_ms(lambda v=v: quant.quantize_rows_cuda(v), "quantize_rows_kernel")
+                    if which == "new" else
+                    kernel_ms(lambda v=v: earlier_quantize_rows(old_q, v), "quantize_rows_two_pass_kernel"))
+            row[f"{key}_ms"] = statistics.mean(turns["new"])
+            row[f"{key}_earlier_ms"] = statistics.mean(turns["earlier"])
         row["gemm_tops"] = 2.0 * m * n * k / row["gemm_ms"] / 1e9
         row["gemm_bound_share"] = g_bound / row["gemm_ms"]
         emit({"phase": "int8_kernels", **row})
@@ -3363,13 +3473,18 @@ def int8_kernel_rows(rows: list) -> dict:
                                  "earlier_ms": b["gemm_earlier_ms"], "float_epilogue_ms": b["gemm_float_ms"]}
             else:  # activations as often as they are quantized, weights once a product
                 xs = batch(backbone, ("quantize_x_ms", "quantize_x_no_zeros_ms", "quantize_x_plain_ms",
-                                      "quantize_x_bound_ms"), 1)
-                ws = batch(backbone, ("quantize_w_ms", "quantize_w_plain_ms", "quantize_w_bound_ms"), 0)
+                                      "quantize_x_bound_ms", "quantize_x_earlier_ms",
+                                      "quantize_x_no_zeros_earlier_ms"), 1)
+                ws = batch(backbone, ("quantize_w_ms", "quantize_w_plain_ms", "quantize_w_bound_ms",
+                                      "quantize_w_earlier_ms"), 0)
                 per[backbone] = {"ms": xs["quantize_x_ms"] + ws["quantize_w_ms"],
                                  "no_zeros_ms": xs["quantize_x_no_zeros_ms"] + ws["quantize_w_ms"],
                                  "plain_ms": xs["quantize_x_plain_ms"] + ws["quantize_w_plain_ms"],
                                  "library_ms": None,
-                                 "bound_ms": xs["quantize_x_bound_ms"] + ws["quantize_w_bound_ms"]}
+                                 "bound_ms": xs["quantize_x_bound_ms"] + ws["quantize_w_bound_ms"],
+                                 "earlier_ms": xs["quantize_x_earlier_ms"] + ws["quantize_w_earlier_ms"],
+                                 "earlier_no_zeros_ms": (xs["quantize_x_no_zeros_earlier_ms"]
+                                                         + ws["quantize_w_earlier_ms"])}
         # The batch's bound is a sum of its launches' bounds: it is bound by
         # whichever of bytes and operations bounds the larger part of it.
         by_key, bound_key = (("gemm_bound_by", "gemm_bound_ms") if keys
@@ -3386,7 +3501,14 @@ def int8_kernel_rows(rows: list) -> dict:
                 "earlier_source": "radnet_torch/csrc/earlier/int8_gemm_mma_sync.cu"} if keys else
                {"replaces_also": "no Pallas kernel: XLA's reduction and rounding",
                 "inputs": "activations with a seeded half of their values zero, as ReLU outputs; "
-                          "no_zeros_ms: the same values with none zeroed"}),
+                          "no_zeros_ms: the same values with none zeroed",
+                "design": "each row read once into shared memory by TMA bulk copies, slices of at "
+                          "most 112 KiB over a cluster of 1-8 CTAs, the max exchanged through "
+                          "distributed shared memory; no division for a zero",
+                "earlier_source": "radnet_torch/csrc/earlier/quantize_rows_two_pass.cu",
+                "earlier_design": "one block a row, the row read twice (pass 2 from L2, or device "
+                                  "memory at 2048 channels), every value divided, zeros through the "
+                                  "IEEE division's slow path"}),
             "shape": "one 12-tile serving batch of the ResNet50 int8 head (3600 RoIs)",
             **per["resnet50"], "bound_by": max(share, key=share.get), "bound_by_share": share,
             "vgg16_batch": per["vgg16"],

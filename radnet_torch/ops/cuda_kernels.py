@@ -158,7 +158,7 @@ ROI_POOL_BACKWARD = CudaKernel(
 QUANTIZE_ROWS = CudaKernel(
     "quantize_rows.cu",
     "radnet_quantize_rows",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4,
 )
 
 INT8_GEMM = CudaKernel(

@@ -67,10 +67,51 @@ def quantize_rows_plain(x: torch.Tensor) -> Quantized:
     return Quantized(q, scale.reshape(-1))
 
 
+# The kernel stages each row in shared memory, at most QUANTIZE_SLICE_BYTES
+# a CTA (two CTAs then share an SM's 228 KB), over a cluster of at most
+# QUANTIZE_MAX_CLUSTER CTAs, with QUANTIZE_MIN_THREADS to QUANTIZE_MAX_THREADS
+# threads a CTA.
+QUANTIZE_SLICE_BYTES = 112 * 1024
+QUANTIZE_MAX_CLUSTER = 8
+QUANTIZE_MIN_THREADS = 64
+QUANTIZE_MAX_THREADS = 512
+
+
+class QuantizePlan(NamedTuple):
+    """How ``csrc/quantize_rows.cu`` covers a row: ``cluster`` CTAs of
+    ``slice_values`` values each, ``threads`` threads a CTA."""
+
+    cluster: int
+    slice_values: int
+    threads: int
+
+
+def quantize_plan(length: int, dtype: torch.dtype) -> QuantizePlan:
+    """The plan for rows of ``length`` values of ``dtype``: the fewest CTAs,
+    1, 2, 4 or 8, whose equal slices of a multiple of 16 values each fit
+    QUANTIZE_SLICE_BYTES, and a thread for each group of 16 values of a
+    slice, in whole warps, within QUANTIZE_MIN_THREADS and
+    QUANTIZE_MAX_THREADS (on the card, short rows run faster on smaller
+    CTAs, more of them an SM: scripts/quantize_rows_probe.py --variants).
+    Raises on a row longer than 8 such slices."""
+    item = torch.empty((), dtype=dtype).element_size()
+    groups = length // 16
+    cluster = 1
+    while cluster <= QUANTIZE_MAX_CLUSTER:
+        slice_groups = -(-groups // cluster)
+        if slice_groups * 16 * item <= QUANTIZE_SLICE_BYTES:
+            threads = min(max(-(-slice_groups // 32) * 32, QUANTIZE_MIN_THREADS), QUANTIZE_MAX_THREADS)
+            return QuantizePlan(cluster, slice_groups * 16, threads)
+        cluster *= 2
+    raise ValueError(
+        f"quantize_rows_cuda takes rows of at most {QUANTIZE_MAX_CLUSTER} x {QUANTIZE_SLICE_BYTES} "
+        f"bytes ({QUANTIZE_MAX_CLUSTER * QUANTIZE_SLICE_BYTES // item} {dtype} values), not {length}")
+
+
 def quantize_rows_cuda(x: torch.Tensor) -> Quantized:
     """Launch ``csrc/quantize_rows.cu``; same contract as
     :func:`quantize_rows_plain` for float32 or bfloat16 ``x`` whose rows
-    hold a multiple of 16 values."""
+    hold a multiple of 16 values and fit :func:`quantize_plan`."""
     if not x.is_cuda:
         raise ValueError("quantize_rows_cuda needs a CUDA tensor")
     if x.dtype not in _DTYPE_CODE:
@@ -82,10 +123,12 @@ def quantize_rows_cuda(x: torch.Tensor) -> Quantized:
     if rows == 0 or length == 0 or length % 16:
         raise ValueError(f"quantize_rows_cuda needs rows of a multiple of 16 values, not "
                          f"{tuple(x.shape)}")
+    plan = quantize_plan(length, x.dtype)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
     cuda_kernels.QUANTIZE_ROWS.launch(cuda_kernels.ptr(x), cuda_kernels.ptr(q),
-                                      cuda_kernels.ptr(scale), rows, length, _DTYPE_CODE[x.dtype])
+                                      cuda_kernels.ptr(scale), rows, length, _DTYPE_CODE[x.dtype],
+                                      *plan)
     return Quantized(q, scale)
 
 
