@@ -212,13 +212,40 @@ Pretrained backbone weights, on the training set of phase 11:
                 the median gap between train steps; then without a file or
                 the flag, the exit with JAX's message.
 
-The last lines are the kernels JSON line (six kernels; launches over each
+The mesh (radnet_torch/parallel), on the model dirs the serve phases saved:
+  mesh_kernels  (beside int8_kernels) the quantizer's amax-only and
+                given-amax modes on the rows a model axis of 2 splits
+                (MESH_QUANT_CASES: s5b's input, the conv2a weights, VGG16's
+                fc2 input and weight), bit-equal to their plain versions,
+                the pieces given the all-reduced max bit-equal to the whole
+                row's quantization; csrc/int8_epilogue.cu on int32 sums
+                bit-equal to int8_gemm.cu's fused epilogue on the same sums
+                and to its plain version under all 8 INT8_EPILOGUES
+                (s5a.conv2a, s5b.conv2a, fc2); device ms, plain ms, bound;
+  mesh_serve    cli.serve --n-devices 1 (NCCL, one rank) equal to the
+                single-device serve of the three panels; then two ranks on
+                the one card through the launcher's device list (gloo):
+                cli.serve's worker with --quantize int8 on a 1 x 2 mesh (the
+                mesh kernels' main path, rank 0's counts), and for ResNet50
+                and VGG16 at data parallelism 2 and tensor parallelism 2,
+                float and int8 in float32, a 12-tile batch (and at data
+                parallelism a panel) against the single device (at most
+                MESH_UNMATCHED_SHARE unmatched; int8 as int8_card_vs_cpu), the
+                tensor-parallel head on identical pooled inputs (int8
+                bit-equal, its launches at MESH_TP_INT8_HEAD; float within
+                MESH_FLOAT_HEAD_LIMIT); NCCL at data parallelism 2 where the
+                host has two cards, else a line saying it was not run.
+                Times there are of two ranks on one card: no scaling figure.
+
+The last lines are the kernels JSON line (nine kernels; launches over each
 kernel's main path: the served run, cont_train for the backward, the int8
 served run for the int8 kernels; beside them the launches of the train,
 cont_train, test and test_rpn runs, under "launches_vgg16" those of the
 VGG16 runs, under "launches_int8" those of the int8 runs and under
 "launches_pretrained_train" those of pretrained_train's runs; each kernel's
-rows at the VGG16 shapes under "vgg16"), the nvidia-smi line, and {"ok":
+rows at the VGG16 shapes under "vgg16"; the mesh kernels' launches over
+the two-rank int8 serve, "launches_mesh_serve" every kernel's there), the
+nvidia-smi line, and {"ok":
 true, "device": {...}}.
 """
 
@@ -244,7 +271,11 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PANEL_HW = (3000, 4400)
 N_PANELS = 3
-NO_INT8 = {"quantize_rows": 0, "int8_gemm": 0}  # launches of the float head's runs
+# Launches of the single-device runs of the mesh kernels (the quantizer's
+# amax-only and given-amax modes, the epilogue on all-reduced sums), and of
+# the float head's runs of the int8 ones too.
+NO_MESH = {"quantize_rows_amax": 0, "quantize_rows_given": 0, "int8_epilogue": 0}
+NO_INT8 = {"quantize_rows": 0, "int8_gemm": 0, **NO_MESH}
 SEED = 0
 # (B, N, IoU threshold, box extent, unit, kind): the proposal NMS, the
 # per-class NMS, a ragged N, then the adversarial sets: a suppression chain as
@@ -259,7 +290,14 @@ NMS_CASES = [(12, 2048, 0.7, 10, 1.0, "random"), (72, 300, 0.2, 8, 16.0, "random
 STEM_CASES = [(12, 608, "random"), (6, 608, "random"), (2, 64, "random"), (2, 608, "white")]
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was printed, seconds
+    into the run (``at_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1109,7 +1147,7 @@ def launch_counts(kernels=None) -> dict:
 def serve_phase(tmp, cfg, device, kind, smi):
     """Phase 7: the main path through radnet_torch.cli.serve.  Returns the
     served RADNet reloaded from its model dir, the prescaled first panel and
-    its window origins, and the launch counts of the run."""
+    its window origins, the launch counts of the run and its results."""
     import torch
 
     from radnet_torch.cli import serve
@@ -1180,7 +1218,7 @@ def serve_phase(tmp, cfg, device, kind, smi):
           "launches": launches, **nms_rounds,
           "png_write_s": write_s / N_PANELS, "png_decode_filter0_s": decode_s})
     net = load_radnet(os.path.join(tmp, "models", "smoke"), device=device)
-    return net, panel3, small, origins, launches
+    return net, panel3, small, origins, launches, recs
 
 
 def stages_phase(net, panel3, small, origins, kind, smi):
@@ -3106,9 +3144,9 @@ INT8_BATCH_USES = {"s5a.conv2a": (1, 1), "s5a.conv_sc": (1, 0), "conv2b": (3, 3)
 # ResNet50's stage 5, 2 and 2 + 2 on VGG16's fc1 / fc2.
 INT8_PER_BATCH = {
     "resnet50": {"nms_fused": 2, "roi_pool": 1, "grey_stem": 1, "roi_pool_backward": 0,
-                 "quantize_rows": 19, "int8_gemm": 10},
+                 "quantize_rows": 19, "int8_gemm": 10, **NO_MESH},
     "vgg16": {"nms_fused": 2, "roi_pool": 1, "grey_stem": 0, "roi_pool_backward": 0,
-              "quantize_rows": 4, "int8_gemm": 2},
+              "quantize_rows": 4, "int8_gemm": 2, **NO_MESH},
 }
 # Card against CPU through the int8 head, float32 (limits from readings of
 # scripts/int8_card_vs_cpu_probe.py, PERF.md section 6): the head's
@@ -3581,7 +3619,8 @@ def int8_serve_phase(tmp, model_name, paths, network, dev, kind, smi, phase) -> 
     check([r.get("path") for r in recs] == paths, f"{phase}: serve output out of order: {recs}")
     check(all(len(r.get("detections", [])) > 0 for r in recs), f"{phase}: a panel has no detections")
     check(n_b > 0 and launches == want, f"{phase}: launches {launches}, want {want} for {n_b} batches")
-    return {"launches": launches, "batches": n_b, "panels_per_s": len(recs) / results_s[-1]}
+    return {"launches": launches, "batches": n_b, "panels_per_s": len(recs) / results_s[-1],
+            "recs": recs}
 
 
 def int8_batch_phase(net8, netf, images, panel3, kind, smi, phase) -> dict:
@@ -3886,7 +3925,566 @@ def int8_phases(tmp, model_name, paths, scan, net, images, panel3, weights, dev,
     per_batch = int8_batch_phase(net8, net, images, panel3, kind, smi, f"{prefix}int8_batch")
     predicted = int8_predict_phase(tmp, model_name, scan, network, dev, kind, smi, f"{prefix}int8_predict")
     int8_card_vs_cpu_phase(weights, net.C, dev, images, f"{prefix}int8_card_vs_cpu")
-    return {"serve": served["launches"], "batch": per_batch, "predict": predicted}
+    return {"serve": served["launches"], "batch": per_batch, "predict": predicted,
+            "serve_recs": served["recs"]}
+
+
+# --------------------------------------------------------------------------- #
+# Multi-device serving (radnet_torch/parallel): the quantizer's two modes and
+# the epilogue kernel of the tensor-parallel int8 head, then the mesh through
+# cli.serve and the launcher.
+# --------------------------------------------------------------------------- #
+MESH_MODEL_AXIS = 2  # the model axis the kernels' checks split rows over
+# (what, backbone, shape, type, launches of each piece in one tensor-parallel
+# head call): the rows a model axis of 2 splits, each cut in two along its
+# last axis as the head cuts it: s5b's and s5c's input activations (the
+# sharded conv2c output), the row-parallel conv2a weights of s5a and of s5b
+# / s5c, and VGG16's fc2 input and weight.  The weights are quantized once,
+# when the head is built, so a call launches none of theirs.
+MESH_QUANT_CASES = [
+    ("s5b.input", "resnet50", (3600, 7, 7, 2048), "bfloat16", 2),
+    ("s5a.conv2a.weight", "resnet50", (512, 1024), "float32", 0),
+    ("s5b.conv2a.weight", "resnet50", (512, 2048), "float32", 0),
+    ("fc2.input", "vgg16", (3600, 4096), "float32", 1),
+    ("fc2.weight", "vgg16", (4096, 4096), "float32", 0),
+]
+# The products whose K the model axis splits (INT8_CASES' names) and the
+# epilogue launches each takes in one tensor-parallel head call.
+MESH_EPILOGUE_CASES = {"s5a.conv2a": 1, "s5b.conv2a": 2, "fc2": 1}
+# Launches of one tensor-parallel int8 head call at a model axis of 2 (the
+# hand-written kernels): ResNet50's 19 quantizations become 14 whole-row ones
+# (replicated rows: s5a's input, conv2b's, conv2c's, the column-parallel
+# weights) and 2 split rows (amax-only, then given-amax: s5b's and s5c's
+# input; the three conv2a weights were quantized when the head was built),
+# its 10 products stay 10 (conv2a's as int32 sums), and each conv2a adds an
+# epilogue; VGG16's fc2 splits its input rows and adds one.
+MESH_TP_INT8_HEAD = {
+    "resnet50": {"quantize_rows": 14, "quantize_rows_amax": 2, "quantize_rows_given": 2,
+                 "int8_gemm": 10, "int8_epilogue": 3},
+    "vgg16": {"quantize_rows": 2, "quantize_rows_amax": 1, "quantize_rows_given": 1,
+              "int8_gemm": 2, "int8_epilogue": 1},
+}
+# The float tensor-parallel head against the single device on identical
+# pooled inputs, float32 with TF32 off, as a share of the largest output:
+# its row-parallel layers sum the ranks' float32 partials in another order.
+MESH_FLOAT_HEAD_LIMIT = 1e-4
+# The float head at the Config's own type, bf16: both the tensor-parallel
+# head and the single device's are held, on the same pooled inputs, against
+# the single device's head in float32.  The two bf16 heads round the same
+# values once a layer each, in other orders, so neither should be further
+# from float32 than a small multiple of the other's distance.
+MESH_BF16_HEAD_FACTOR = 2.0
+# As card_vs_cpu: a batch's or panel's detections without a partner at 1e-3
+# (int8 runs: INT8_UNMATCHED_SHARE at INT8_PROB_TOL, as int8_card_vs_cpu).
+MESH_UNMATCHED_SHARE = 0.05
+
+
+def mesh_quant_inputs(case, dev, seed: int):
+    """Seeded rows of a MESH_QUANT_CASES case, made on the card: activations
+    |N(0, 1)| with a seeded half zero (ReLU outputs), weights N(0, 1) with
+    row 7 a hundred times larger."""
+    import torch
+
+    name, _, shape, dtype, _ = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    if name.endswith("input"):
+        x = x.abs_().masked_fill_(torch.rand(shape, generator=g, device=dev) < 0.5, 0.0)
+    else:
+        x[7] *= 100.0
+    return x.to(getattr(torch, dtype))
+
+
+def mesh_kernel_checks(dev) -> dict:
+    """Phase mesh_kernels: the quantizer's amax-only and given-amax modes on
+    the rows a model axis of 2 splits (MESH_QUANT_CASES: each piece's amax
+    and q and scale bit-equal to the plain versions, and the pieces,
+    given the all-reduced max, bit-equal to the whole row's plain
+    quantization), and the epilogue kernel on int32 sums bit-equal to
+    int8_gemm.cu's fused epilogue on the same sums (and to its plain
+    version) under all 8 INT8_EPILOGUES at the products whose K the axis
+    splits (MESH_EPILOGUE_CASES); each timed (device ms, plain ms, bound).
+    Returns the kernels line's rows of the three, at one tensor-parallel
+    head call of ResNet50 (VGG16's beside them)."""
+    import torch
+
+    from radnet_torch.ops import quant
+
+    m_ax = MESH_MODEL_AXIS
+    qrows = []
+    for i, case in enumerate(MESH_QUANT_CASES):
+        name, backbone, shape, dtype, uses = case
+        x = mesh_quant_inputs(case, dev, SEED + 120 + i)
+        n = shape[-1] // m_ax
+        pieces = [x[..., j * n:(j + 1) * n].contiguous() for j in range(m_ax)]
+        amaxes = [quant.quantize_rows_amax_cuda(p) for p in pieces]
+        torch.cuda.synchronize()
+        for p, a in zip(pieces, amaxes):
+            check(torch.equal(a, quant.quantize_rows_amax_plain(p)),
+                  f"quantize_rows_amax disagrees with its plain version on {name}")
+        amax = torch.stack(amaxes).amax(dim=0)
+        whole = quant.quantize_rows_plain(x)
+        for j, p in enumerate(pieces):
+            got = quant.quantize_rows_given_cuda(p, amax)
+            ref = quant.quantize_rows_given_plain(p, amax)
+            torch.cuda.synchronize()
+            check(torch.equal(got.q, ref.q) and torch.equal(got.scale, ref.scale),
+                  f"quantize_rows_given disagrees with its plain version on {name}")
+            check(torch.equal(got.q, whole.q[..., j * n:(j + 1) * n]) and torch.equal(got.scale, whole.scale),
+                  f"{name}: the split rows, given the all-reduced amax, are not the whole row's quantization")
+        p = pieces[0]
+        rows, vals = p.shape[0], p.numel()
+
+        def library(p=p, rows=rows):  # one PyTorch call: each row's float32 amax
+            return torch.linalg.vector_norm(p.reshape(rows, -1), ord=float("inf"), dim=1,
+                                            dtype=torch.float32)
+
+        check(torch.equal(library(), amaxes[0]), f"vector_norm(ord=inf) is not the amax-only mode's "
+                                                  f"result on {name}")
+        a_bound, a_by = bound_ms(vals * p.element_size() + 4 * rows, 1.0 * vals)
+        g_bound, g_by = bound_ms(vals * (p.element_size() + 1) + 8 * rows, 4.0 * vals)
+        row = {
+            "case": name, "backbone": backbone, "piece": list(p.shape), "dtype": dtype, "uses": uses,
+            "zero_share": float((p == 0).float().mean()),
+            "amax_ms": kernel_ms(lambda: quant.quantize_rows_amax_cuda(p), "quantize_rows_kernel"),
+            "amax_plain_ms": time_cuda(lambda: quant.quantize_rows_amax_plain(p), iters=3, warmup=1),
+            "amax_bound_ms": a_bound, "amax_bound_by": a_by,
+            "amax_library_ms": call_device_ms(library),
+            "given_ms": kernel_ms(lambda: quant.quantize_rows_given_cuda(p, amax), "quantize_rows_kernel"),
+            "given_plain_ms": time_cuda(lambda: quant.quantize_rows_given_plain(p, amax), iters=3, warmup=1),
+            "given_bound_ms": g_bound, "given_bound_by": g_by,
+            # the whole-row mode on the same piece, for scale
+            "whole_ms": kernel_ms(lambda: quant.quantize_rows_cuda(p), "quantize_rows_kernel"),
+        }
+        emit({"phase": "mesh_kernels", "kernel": "quantize_rows modes", **row})
+        qrows.append(row)
+        del x, pieces, amaxes, whole
+        torch.cuda.empty_cache()
+
+    erows = []
+    for i, case in enumerate(c for c in INT8_CASES if c[0] in MESH_EPILOGUE_CASES):
+        name, backbone, a_shape, a_dtype, w_shape, head_epi = case
+        x, w, bias = int8_case_inputs(case, dev, SEED + 40 + INT8_CASES.index(case))
+        a, rps, wrows = int8_operands(x, w)
+        wq = quant.quantize_rows_cuda(wrows)
+        acc = quant.int8_gemm_sums(a, wq, rps)
+        m, n = acc.shape
+        epi = int8_epilogue_inputs(m, n, dev, SEED + 60 + i)
+        equal, max_err = {}, 0.0
+        for kind, dt in INT8_EPILOGUES:
+            kw = int8_epilogue_kwargs(kind, epi, dt)
+            label = kind if dt is None else f"{kind}_{dt}"
+            got = quant.int8_epilogue_cuda(acc, a.scale, wq.scale, bias, rps, **kw)
+            fused = quant.int8_gemm_cuda(a, wq, bias, rps, **kw)
+            plain = quant.int8_epilogue_plain(acc, a.scale, wq.scale, bias, rps, **kw)
+            torch.cuda.synchronize()
+            max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
+            equal[label] = bool(torch.equal(got, fused)) and bool(torch.equal(got, plain))
+            check(equal[label], f"int8_epilogue disagrees with the fused epilogue or its plain "
+                                f"version on {name} under {label}")
+            del got, fused, plain
+        kw = int8_epilogue_kwargs(head_epi, epi, a_dtype)
+        out = quant.int8_epilogue_cuda(acc, a.scale, wq.scale, bias, rps, **kw)
+        res = kw.get("residual")
+        e_bound, e_by = bound_ms(4 * m * n + m * n * out.element_size() + 4 * (a.scale.numel() + 2 * n)
+                                 + (0 if kw.get("bn") is None else 2 * n * out.element_size())
+                                 + (0 if res is None else res.numel() * res.element_size()),
+                                 6.0 * m * n)
+        row = {
+            "case": name, "backbone": backbone, "m": m, "n": n, "head_epilogue": head_epi,
+            "uses": MESH_EPILOGUE_CASES[name], "epilogues_equal": equal, "max_abs_err": max_err,
+            "ms": kernel_ms(lambda: quant.int8_epilogue_cuda(acc, a.scale, wq.scale, bias, rps, **kw),
+                            "int8_epilogue_kernel"),
+            "plain_ms": time_cuda(lambda: quant.int8_epilogue_plain(acc, a.scale, wq.scale, bias, rps, **kw),
+                                  iters=3, warmup=1),
+            "bound_ms": e_bound, "bound_by": e_by,
+            "sums_ms": kernel_ms(lambda: quant.int8_gemm_sums(a, wq, rps), "int8_gemm_wgmma"),
+            "fused_ms": kernel_ms(lambda: quant.int8_gemm_cuda(a, wq, bias, rps, **kw), "int8_gemm_wgmma"),
+        }
+        emit({"phase": "mesh_kernels", "kernel": "int8_epilogue", **row})
+        erows.append(row)
+        del x, w, a, wq, acc, epi, out
+        torch.cuda.empty_cache()
+    return mesh_kernel_rows(qrows, erows)
+
+
+def mesh_kernel_rows(qrows: list, erows: list) -> dict:
+    """The kernels line's rows of the quantizer's two modes and the epilogue
+    kernel: one tensor-parallel head call of ResNet50 (each case as often as
+    the call runs it), VGG16's under "vgg16_head"."""
+    def call(rows, backbone, key):
+        return sum(r[key] * r["uses"] for r in rows if r["backbone"] == backbone)
+
+    def by(rows, key_ms, key_by):
+        share = {"bytes": 0.0, "operations": 0.0}
+        for r in rows:
+            if r["backbone"] == "resnet50":
+                share[r[key_by]] += r[key_ms] * r["uses"]
+        return max(share, key=share.get)
+
+    line = {}
+    for mode in ("amax", "given"):
+        name = f"quantize_rows_{mode}"
+        per = {b: {"ms": call(qrows, b, f"{mode}_ms"), "plain_ms": call(qrows, b, f"{mode}_plain_ms"),
+                   "bound_ms": call(qrows, b, f"{mode}_bound_ms"),
+                   "library_ms": call(qrows, b, "amax_library_ms") if mode == "amax" else None,
+                   "whole_row_mode_ms": call(qrows, b, "whole_ms")} for b in ("resnet50", "vgg16")}
+        line[name] = {
+            "name": name, "route": "cuda", "source": "radnet_torch/csrc/quantize_rows.cu",
+            "replaces": "radnet_tpu/models/quant.py:45",
+            "replaces_also": "quantize_sym's max over a row the model axis splits, which GSPMD "
+                             "all-reduces (no Pallas kernel)",
+            "mode": ("amax-only: each row's amax, nothing else" if mode == "amax" else
+                     "given-amax: scale = max(amax, 1e-12) / 127 from the all-reduced amax, then q"),
+            "shape": "one tensor-parallel int8 head call of ResNet50, model axis 2, a 12-tile batch",
+            **per["resnet50"], "bound_by": by(qrows, f"{mode}_bound_ms", f"{mode}_bound_by"),
+            "library": ("torch.linalg.vector_norm(ord=inf, dim=1, dtype=float32) on the same pieces, "
+                        "device ms of every kernel it launches" if mode == "amax" else None),
+            "vgg16_head": per["vgg16"], "max_abs_err": 0.0,
+            "cases": [{k: v for k, v in r.items() if not k.startswith("given" if mode == "amax" else "amax")}
+                      for r in qrows],
+        }
+    per = {b: {"ms": call(erows, b, "ms"), "plain_ms": call(erows, b, "plain_ms"),
+               "bound_ms": call(erows, b, "bound_ms")} for b in ("resnet50", "vgg16")}
+    line["int8_epilogue"] = {
+        "name": "int8_epilogue", "route": "cuda", "source": "radnet_torch/csrc/int8_epilogue.cu",
+        "replaces": "radnet_tpu/models/quant.py:75",
+        "replaces_also": "radnet_tpu/models/quant.py:85, and the batch norm and ReLU XLA fuses after "
+                         "them, after GSPMD's all-reduce of a row-parallel product's int32 sums "
+                         "(no Pallas kernel)",
+        "shape": "one tensor-parallel int8 head call of ResNet50, model axis 2, a 12-tile batch",
+        **per["resnet50"], "library_ms": None, "bound_by": by(erows, "bound_ms", "bound_by"),
+        "vgg16_head": per["vgg16"], "max_abs_err": max(r["max_abs_err"] for r in erows),
+        "cases": erows,
+    }
+    return line
+
+
+def ranks_agree(t) -> bool:
+    """Every rank of the launched run holds the same bits in ``t`` (rank 0's
+    broadcast, compared on each rank, the verdicts summed)."""
+    import torch
+    import torch.distributed as dist
+
+    peer = t.contiguous().clone()
+    dist.broadcast(peer, src=0)
+    differ = torch.tensor([0 if torch.equal(peer, t) else 1])
+    dist.all_reduce(differ)
+    return int(differ) == 0
+
+
+def diff_share(got, want) -> float:
+    """The largest gap between two heads' outputs (class scores, regression)
+    as a share of the largest value of each of ``want``'s."""
+    return max(float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def mesh_rank(spec: dict, stdin=None, stdout=None) -> dict:
+    """One rank of phase mesh_serve's two ranks on one card (run by
+    radnet_torch.parallel.launch; rank 0 returns the readings).
+
+    First cli.serve's worker on a 1 x 2 mesh with --quantize int8 over the
+    serving panels (the mesh kernels' main path: every count is reset just
+    before and read just after, on rank 0); then for ResNet50 and VGG16, at
+    data parallelism 2 and at tensor parallelism 2, float and int8, in
+    float32 with TF32 off (as card_vs_cpu; bf16 noise moves integer boxes):
+    one 12-tile batch against the single device on the same card (rank 0
+    runs the single device's reference), at data parallelism also one panel
+    (its batches split over the ranks), and at tensor parallelism
+    the head on identical pooled inputs (broadcast from rank 0): int8
+    bit-equal, float within MESH_FLOAT_HEAD_LIMIT, the float head at the
+    model dir's bf16 held with the single device's bf16 head against the
+    float32 one (MESH_BF16_HEAD_FACTOR), and the int8 head's launches a call
+    pinned at MESH_TP_INT8_HEAD."""
+    import torch
+    import torch.distributed as dist
+
+    from radnet_torch.cli import serve
+    from radnet_torch.config import Config
+    from radnet_torch.data.png import read_png
+    from radnet_torch.geometry import xyxy_to_xywh
+    from radnet_torch.inference import RADNet, load_radnet
+    from radnet_torch.models.detector import build_model
+    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.ops.roi_align import batched_roi_pool
+    from radnet_torch.parallel.mesh import make_mesh
+
+    cuda = spec["device_type"] == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    rank0 = dist.get_rank() == 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend()}
+    # The kernels' main path: cli.serve's worker, int8, tensor-parallel.
+    args = serve.build_argparser().parse_args(
+        ["--models-path", os.path.join(spec["tmp"], "models"), "--model-name", "smoke",
+         "--device", spec["device_type"], "--quantize", "int8", "--n-devices", "2",
+         "--model-parallel", "2"])
+    sync()
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = serve.serve(args, stdin=io.StringIO("\n".join(spec["paths"]) + "\n") if rank0 else None,
+                     stdout=stdout)
+    sync()
+    out["serve"] = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": launch_counts()}
+
+    images = torch.from_numpy(np.load(spec["images"])).to(dev)
+    panel = read_png(spec["paths"][0])
+    panel = np.repeat(panel[..., None], 3, axis=-1) if panel.ndim == 2 else panel
+    runs = []
+    for network, model_name in (("resnet50", "smoke"), ("vgg16", "vgg")):
+        model_dir = os.path.join(spec["tmp"], "models", model_name)
+        state = torch.load(os.path.join(model_dir, "model.pt"), map_location="cpu", weights_only=True)
+        base = dataclasses.replace(Config.load(os.path.join(model_dir, "config.json")),
+                                   compute_dtype="float32")
+        # Replicated work in two processes: the same bits?  The trunk at the
+        # model dir's own type (bf16), each rank on the same 12 canvases.
+        net16 = load_radnet(model_dir, device=dev)
+        with torch.inference_mode():
+            fmap = net16._features(images)
+            out.setdefault("trunk_bf16_same_across_ranks", {})[network] = ranks_agree(fmap)
+        del fmap
+        # float32, TF32 off, as card_vs_cpu: bf16 noise moves most integer
+        # boxes by a pixel, float32 noise few.  One model a head type.
+        models = {}
+        for quantize in ("", "int8"):
+            models[quantize] = build_model(dataclasses.replace(base, infer_quantize=quantize or None))
+            models[quantize].load_state_dict(state)
+        refs = {}  # the single device's batch for each head type, run once on rank 0
+        for mp in (1, 2):
+            mesh = make_mesh(model_parallel=mp, device_type=spec["device_type"])
+            for quantize in ("", "int8"):
+                cfg32 = dataclasses.replace(base, infer_quantize=quantize or None)
+                net = RADNet(cfg32, models[quantize], device=dev, mesh=mesh)
+                single = RADNet(net.C, net.model, device=dev)  # the same weights, no mesh
+                wh = torch.full((len(images), 2), float(net.C.img_size), device=dev)
+                # A partner's confidence: the float limit, or int8_card_vs_cpu's,
+                # since a float32 difference at a rounding tie moves a quantized
+                # value a step (data parallelism runs 6-tile trunks).
+                tol = INT8_PROB_TOL if quantize else 1e-3
+                r = {"network": network, "data": mesh.data, "model": mesh.model,
+                     "head": quantize or "float", "dtype": "float32", "prob_tol": tol}
+                sync()
+                t0 = time.perf_counter()
+                got = net._predict_tiles_impl(images, wh)
+                sync()
+                r["batch_s_two_ranks_one_card"] = time.perf_counter() - t0
+                if rank0:
+                    if quantize not in refs:
+                        t0 = time.perf_counter()
+                        refs[quantize] = single._predict_tiles_impl(images, wh)
+                        sync()
+                        refs[quantize, "s"] = time.perf_counter() - t0
+                    want = refs[quantize]
+                    r["batch_s_single"] = refs[quantize, "s"]
+                    g, w_ = tile_detections(got, got[0].shape[1]), tile_detections(want, want[0].shape[1])
+                    r.update(batch_detections=[len(g), len(w_)], batch_unmatched=unmatched(g, w_, tol),
+                             batch_equal=all(bool(torch.equal(a, b)) for a, b in zip(got, want)))
+                if mp > 1:  # the head on identical pooled inputs
+                    model = single.model
+                    q = model.head_quant == "int8"
+                    if not q:  # the float head at the model dir's own type, bf16, against float32
+                        tp16 = RADNet(net16.C, net16.model, device=dev, mesh=mesh)
+                        with torch.inference_mode():
+                            f16 = net16._features(images[:2])
+                            p16 = net16._proposals(f16, wh[:2])
+                            k16 = net16.C.max_head_rois or p16.boxes.shape[1]
+                            pool16 = batched_roi_pool(
+                                f16.permute(0, 2, 3, 1).contiguous(),
+                                xyxy_to_xywh(p16.boxes[:, :k16]).float().contiguous(),
+                                pool_size=model.pool_size, center_stride=model.pool_center_stride)
+                            pool16 = pool16.reshape((-1,) + pool16.shape[2:]).contiguous()
+                            dist.broadcast(pool16, src=0)
+                            got16, want16 = tp16._tp_head(pool16), net16.model.head(pool16)
+                            ref32 = model.head(pool16)  # the single device in float32, same values
+                            r["head_max_diff_share_bf16"] = diff_share(got16, want16)
+                            r["head_bf16_share_of_float32"] = {"tensor_parallel": diff_share(got16, ref32),
+                                                               "single_device": diff_share(want16, ref32)}
+                        del tp16, f16, p16, pool16, got16, want16, ref32
+                    with torch.inference_mode():
+                        fmap = single._features(images[:2])
+                        props = single._proposals(fmap, wh[:2])
+                        k = net.C.max_head_rois or props.boxes.shape[1]
+                        rois = xyxy_to_xywh(props.boxes[:, :k])
+                        pooled = batched_roi_pool(
+                            fmap.permute(0, 2, 3, 1).contiguous(), rois.float().contiguous(),
+                            pool_size=model.pool_size, center_stride=model.pool_center_stride)
+                        pooled = pooled.reshape((-1,) + pooled.shape[2:]).contiguous()
+                        # Replicated work should give every rank the same bits.
+                        r["pooled_same_across_ranks"] = ranks_agree(pooled)
+                        dist.broadcast(pooled, src=0)
+                        sync()
+                        saved = launch_counts()
+                        cuda_kernels.reset_launch_counts()
+                        tp = net._tp_head(pooled, quantize=q)
+                        sync()
+                        head_launches = {k_: v for k_, v in launch_counts().items()
+                                         if k_ in MESH_TP_INT8_HEAD[network]}
+                        for kern in cuda_kernels.KERNELS:
+                            kern.launches += saved[kern.name]
+                        ref = model.head(pooled, quantize=q)
+                        sync()
+                    r["head_launches"] = head_launches
+                    if quantize:
+                        r["head_bit_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(tp, ref))
+                    r["head_max_diff_share"] = diff_share(tp, ref)
+                if mp == 1:  # a panel's batches split over the ranks (the 1 x 2 serve covers TP)
+                    sync()
+                    t0 = time.perf_counter()
+                    dets = net.predict([panel])
+                    r["panel_s_two_ranks_one_card"] = time.perf_counter() - t0
+                    if rank0:
+                        t0 = time.perf_counter()
+                        want_dets = single.predict([panel])
+                        r["panel_s_single"] = time.perf_counter() - t0
+                        r.update(panel_detections=[len(dets), len(want_dets)],
+                                 panel_unmatched=unmatched(dets, want_dets, tol))
+                runs.append(r)
+                del net, single, got
+        del net16, models, state, refs
+        if cuda:
+            torch.cuda.empty_cache()
+    out["runs"] = runs
+    return out
+
+
+def mesh_serve_phase(tmp: str, paths: list, images, single_recs: list, int8_recs: list, dev, kind,
+                     smi) -> dict:
+    """Phase mesh_serve: radnet_torch.cli.serve --n-devices 1 at the default
+    Config (one rank, NCCL), its results equal to the single-device serve of
+    the same panels; then two ranks sharing the card through the launcher's
+    device list (gloo): mesh_rank on the first panel.  Gates: the int8
+    tensor-parallel serve against the single-device int8 serve's
+    detections (at most MESH_UNMATCHED_SHARE unmatched), the ranks' bf16
+    trunks bit-equal, every
+    configuration's batch and panel against the single device (float: at
+    most MESH_UNMATCHED_SHARE unmatched at 1e-3; int8: INT8_UNMATCHED_SHARE
+    at INT8_PROB_TOL, as int8_card_vs_cpu), the ranks' pooled inputs equal,
+    the int8 tensor-parallel head bit-equal and its launches at
+    MESH_TP_INT8_HEAD, the float one within MESH_FLOAT_HEAD_LIMIT (float32)
+    and MESH_BF16_HEAD_FACTOR (bf16); every reading is printed before a gate
+    fails.  With
+    two cards or more it also runs NCCL at data parallelism 2.  Times are of
+    two ranks on one card, no scaling figure.  Returns the kernels' main
+    path launches (rank 0 of the int8 tensor-parallel serve)."""
+    import torch
+
+    from radnet_torch.cli import serve
+    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.parallel.launch import launch
+
+    def strip(recs):
+        return [{k: v for k, v in r.items() if k != "sec"} for r in recs]
+
+    # (a) one rank, the NCCL path of --n-devices.
+    cuda_kernels.reset_launch_counts()
+    out, err = Stamped(), Stamped(echo=sys.stderr)
+    real_stderr, sys.stderr = sys.stderr, err
+    t0 = time.perf_counter()
+    try:
+        rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
+                         "--device", str(dev.type), "--n-devices", "1"],
+                        stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
+    finally:
+        sys.stderr = real_stderr
+    one_s = time.perf_counter() - t0
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    one_launches = launch_counts()
+    emit({"phase": "mesh_serve", "run": "cli.serve --n-devices 1",
+          "backend": "nccl" if dev.type == "cuda" else "gloo", "kind": kind,
+          "nvidia_smi": smi, "panels": len(recs), "seconds": one_s, "launches": one_launches,
+          "equal_to_single_device_serve": strip(recs) == strip(single_recs),
+          "ready_lines": err.getvalue().splitlines().count("READY")})
+    check(rc == 0 and strip(recs) == strip(single_recs),
+          "cli.serve --n-devices 1 differs from the single-device serve of the same panels")
+    check(err.getvalue().splitlines().count("READY") == 1, "cli.serve --n-devices 1: READY not once")
+
+    # (b) two ranks on the one card, gloo.
+    np.save(os.path.join(tmp, "mesh_images.npy"), images.cpu().numpy())
+    spec = {"tmp": tmp, "paths": paths[:1], "images": os.path.join(tmp, "mesh_images.npy"),
+            "device_type": dev.type}
+    served = Stamped()
+    t0 = time.perf_counter()
+    res = launch(mesh_rank, 2, device_type=dev.type,
+                 devices=[dev.index or 0] * 2 if dev.type == "cuda" else None, args=(spec,),
+                 rank0_kwargs={"stdout": served})
+    two_s = time.perf_counter() - t0
+    tp_recs = [json.loads(line) for line in served.getvalue().splitlines()]
+    serve_launches = res["serve"]["launches"]
+    g = [dict(d, **{"class": d["label"], "prob": d["confidence"]}) for d in tp_recs[0]["detections"]]
+    w = [dict(d, **{"class": d["label"], "prob": d["confidence"]}) for d in int8_recs[0]["detections"]]
+    serve_unmatched = unmatched(g, w)
+    emit({"phase": "mesh_serve", "run": "cli.serve worker, two ranks on one card, data 1 x model 2, "
+          "--quantize int8", "backend": res["backend"], "kind": kind, "nvidia_smi": smi,
+          "seconds_two_ranks_one_card": res["serve"]["seconds"], "launches": serve_launches,
+          "detections": [len(g), len(w)], "unmatched_vs_single_int8_serve": serve_unmatched,
+          "equal_to_single_int8_serve": strip(tp_recs) == strip(int8_recs[:1]),
+          "trunk_bf16_same_across_ranks": res["trunk_bf16_same_across_ranks"],
+          "launch_wall_s": two_s})
+    gates = [
+        (res["serve"]["rc"] == 0 and [r["path"] for r in tp_recs] == paths[:1],
+         f"the two-rank serve answered {[r.get('path') for r in tp_recs]}"),
+        (len(w) > 0 and serve_unmatched <= MESH_UNMATCHED_SHARE * (len(g) + len(w)),
+         f"the two-rank int8 serve: {serve_unmatched} of {len(g) + len(w)} detections unmatched"),
+        # The split head takes each rank's own RoI pool: the ranks' trunks
+        # at the Config's bf16 must agree bit for bit.
+        (all(res["trunk_bf16_same_across_ranks"].values()),
+         f"the ranks' bf16 trunks differ: {res['trunk_bf16_same_across_ranks']}"),
+    ]
+    for name in ("quantize_rows_amax", "quantize_rows_given", "int8_epilogue", "int8_gemm",
+                 "quantize_rows", "nms_fused", "roi_pool", "grey_stem"):
+        gates.append((serve_launches[name] > 0, f"kernel {name} was never launched on the mesh path"))
+    for r in res["runs"]:
+        label = f"{r['network']} data {r['data']} x model {r['model']} {r['head']}"
+        emit({"phase": "mesh_serve", "run": label, "backend": res["backend"], "kind": kind,
+              "nvidia_smi": smi, "times": "two ranks on one card, not a scaling figure", **r})
+        share = INT8_UNMATCHED_SHARE if r["head"] == "int8" else MESH_UNMATCHED_SHARE
+        for what in ("batch", "panel") if r["model"] == 1 else ("batch",):
+            n_g, n_w = r[f"{what}_detections"]
+            gates.append((n_w > 0 and r[f"{what}_unmatched"] <= share * (n_g + n_w),
+                          f"{label}: {r[f'{what}_unmatched']} of {n_g + n_w} {what} detections unmatched"))
+        if r["model"] > 1:
+            gates.append((r["pooled_same_across_ranks"], f"{label}: the ranks pooled different values"))
+            if r["head"] == "int8":
+                gates.append((r["head_bit_equal"], f"{label}: the tensor-parallel int8 head is not "
+                                                   f"bit-equal to the single device's (share "
+                                                   f"{r['head_max_diff_share']})"))
+                gates.append((r["head_launches"] == MESH_TP_INT8_HEAD[r["network"]],
+                              f"{label}: a head call launched {r['head_launches']}, "
+                              f"want {MESH_TP_INT8_HEAD[r['network']]}"))
+            else:
+                gates.append((r["head_max_diff_share"] <= MESH_FLOAT_HEAD_LIMIT,
+                              f"{label}: the float head is {r['head_max_diff_share']} of its largest "
+                              f"output from the single device's"))
+                bf16 = r["head_bf16_share_of_float32"]
+                gates.append((bf16["tensor_parallel"] <= MESH_BF16_HEAD_FACTOR * bf16["single_device"],
+                              f"{label}: the bf16 tensor-parallel head is {bf16['tensor_parallel']} of "
+                              f"the float32 head's largest output from it, the single device's bf16 "
+                              f"head {bf16['single_device']}"))
+    failed = [msg for ok, msg in gates if not ok]  # every reading is out before a gate fails
+    check(not failed, "; ".join(failed))
+    # (c) NCCL across cards, where the host has them.
+    if torch.cuda.device_count() >= 2:
+        cuda_kernels.reset_launch_counts()
+        out = io.StringIO()
+        rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
+                         "--n-devices", "2"], stdin=io.StringIO(paths[0] + "\n"), stdout=out)
+        recs2 = [json.loads(line) for line in out.getvalue().splitlines()]
+        g = [dict(d, **{"class": d["label"], "prob": d["confidence"]}) for d in recs2[0]["detections"]]
+        w = [dict(d, **{"class": d["label"], "prob": d["confidence"]})
+             for d in single_recs[0]["detections"]]
+        emit({"phase": "mesh_serve", "run": "cli.serve --n-devices 2 (NCCL, two cards)",
+              "unmatched": unmatched(g, w), "detections": [len(g), len(w)]})
+        check(rc == 0 and unmatched(g, w) <= MESH_UNMATCHED_SHARE * (len(g) + len(w)),
+              "NCCL data parallelism 2 differs from the single device")
+    else:
+        emit({"phase": "mesh_serve", "run": "NCCL at data parallelism 2 across cards",
+              "not_run": f"this host has {torch.cuda.device_count()} card(s)"})
+    return serve_launches
 
 
 def main() -> int:
@@ -3925,11 +4523,12 @@ def main() -> int:
     vgg_errs = vgg_kernel_checks(dev)
     kernels_line = timings(dev, errs, earlier)
     kernels_line.update(int8_kernel_checks(dev, earlier))
+    kernels_line.update(mesh_kernel_checks(dev))
 
     # 7-8. the main path through serve, per-stage times, then predict.
     cfg, vcfg = Config(), vgg_config()
     with tempfile.TemporaryDirectory() as tmp:
-        net, panel3, small, origins, launches = serve_phase(tmp, cfg, dev, kind, smi)
+        net, panel3, small, origins, launches, served = serve_phase(tmp, cfg, dev, kind, smi)
         images, per_batch = stages_phase(net, panel3, small, origins, kind, smi)
         kernels_line["nms_fused"]["main_path_inputs"] = nms_main_path(net, images, earlier)
         sync_free_phase(net, images, panel3)
@@ -3944,7 +4543,8 @@ def main() -> int:
         paths = [os.path.join(tmp, f"panel{k}.png") for k in range(N_PANELS)]
         int8_launches = {"resnet50": int8_phases(tmp, "smoke", paths, os.path.join(tmp, "scan"), net,
                                                  images, panel3, serve_weights, dev, kind, smi)}
-        del net, images
+        int8_served = int8_launches["resnet50"].pop("serve_recs")
+        del net
 
         # VGG16: served, staged, sync-free, predicted, card vs CPU.
         vnet, panel3, small, origins, vgg_launches, vgg_weights = vgg_serve_phase(
@@ -3956,7 +4556,13 @@ def main() -> int:
         paths = [os.path.join(tmp, f"vgg_panel{k}.png") for k in range(N_PANELS)]
         int8_launches["vgg16"] = int8_phases(tmp, "vgg", paths, os.path.join(tmp, "scan_vgg"), vnet,
                                              vimages, panel3, vgg_weights, dev, kind, smi, prefix="vgg_")
+        int8_launches["vgg16"].pop("serve_recs")
         del vnet, vimages
+
+        # The mesh: cli.serve --n-devices 1, then two ranks on the card.
+        paths = [os.path.join(tmp, f"panel{k}.png") for k in range(N_PANELS)]
+        mesh_launches = mesh_serve_phase(tmp, paths, images, served, int8_served, dev, kind, smi)
+        del images
 
     # 10-16. training and evaluation: the CLIs, per-step numbers, sync-free,
     # learning, card vs CPU; each for ResNet50 (joint) and VGG16 (alternating).
@@ -4014,6 +4620,11 @@ def main() -> int:
     for name in ("int8_gemm", "quantize_rows"):
         kernels_line[name]["launches"] = int8_launches["resnet50"]["serve"][name]
         kernels_line[name]["launches_per_batch"] = int8_launches["resnet50"]["batch"][name]
+    # The mesh kernels' main path is the int8 tensor-parallel serve on two ranks.
+    for name in ("quantize_rows_amax", "quantize_rows_given", "int8_epilogue"):
+        kernels_line[name]["launches"] = mesh_launches[name]
+    for k in kernels_line.values():
+        k["launches_mesh_serve"] = mesh_launches[k["name"]]
     # The backward's main path is the trainable-trunk run of cont_train.
     kernels_line["roi_pool_backward"]["launches"] = trained["cont_train"]["launches"]["roi_pool_backward"]
     print(json.dumps({"kernels": list(kernels_line.values())}), flush=True)

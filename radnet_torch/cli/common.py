@@ -1,11 +1,13 @@
-"""Shared CLI helpers: the model directory, the inference CLIs' --quantize,
-detection drawing, and the training CLIs' shared flags, data and pipelines."""
+"""Shared CLI helpers: the model directory, the inference CLIs' --quantize
+and mesh flags, detection drawing, and the training CLIs' shared flags, data
+and pipelines."""
 
 from __future__ import annotations
 
 import argparse
 import os
 import random
+import sys
 
 import numpy as np
 
@@ -31,6 +33,59 @@ def quantize_from_args(args) -> str | None:
     if q is None:
         return None
     return "" if q == "none" else q
+
+
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """The multi-device flags of the inference CLIs (the JAX package's, with
+    its defaults): tile batches split over the ``data`` axis and the RoI head
+    over ``model`` (radnet_torch/parallel).  One process runs each device;
+    the CLI spawns them itself."""
+    p.add_argument(
+        "--n-devices", type=int, default=None,
+        help="run over an n-device mesh, one process a device (data-parallel tile "
+        "batches, tensor-parallel RoI head); default: single device",
+    )
+    p.add_argument(
+        "--model-parallel", type=int, default=1,
+        help="model-axis size of the mesh (n_devices/model_parallel = data-parallel size); "
+        "only meaningful with --n-devices",
+    )
+
+
+def run_on_mesh(args, fn, *fn_args, **rank0_kwargs):
+    """``fn(*fn_args)`` once on this process without ``--n-devices``, else on
+    each of its ranks, spawned here (rank 0 in this process, with
+    ``rank0_kwargs``; the others' stdout discarded); returns rank 0's result.
+    Rank r runs on card r; more cards than the host has stop the run with a
+    message, never on the CPU."""
+    n = getattr(args, "n_devices", None)
+    if not n:
+        return fn(*fn_args, **rank0_kwargs)
+    import torch
+
+    from radnet_torch.parallel.launch import launch
+    from radnet_torch.parallel.mesh import mesh_shape
+
+    mesh_shape(n, args.model_parallel)
+    return launch(fn, n, device_type=torch.device(args.device).type, args=fn_args,
+                  rank0_kwargs=rank0_kwargs)
+
+
+def mesh_from_args(args):
+    """This rank's mesh (inside a run of :func:`run_on_mesh` with
+    ``--n-devices``), else None."""
+    if not getattr(args, "n_devices", None):
+        return None
+    import torch
+
+    from radnet_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(args.n_devices, model_parallel=args.model_parallel,
+                     device_type=torch.device(args.device).type)
+    if mesh.is_main:
+        print(f"Using {args.n_devices}-device mesh: data={mesh.data} model={mesh.model}",
+              file=sys.stderr)
+    return mesh
 
 
 def draw_rectangle(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color,
@@ -92,9 +147,9 @@ def add_training_args(p: argparse.ArgumentParser, *, seed: int, n_epochs: int, l
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--lr", type=float, default=lr)
     p.add_argument("--n-devices", type=int, default=None,
-                   help="not ported: multi-device training (ROADMAP Queue 1 item 13)")
+                   help="not ported: multi-device training (ROADMAP Queue 1 item 13b)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported: multi-device training (ROADMAP Queue 1 item 13)")
+                   help="not ported: multi-device training (ROADMAP Queue 1 item 13b)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; without a card pass --device cpu)")
 
@@ -102,7 +157,7 @@ def add_training_args(p: argparse.ArgumentParser, *, seed: int, n_epochs: int, l
 def refuse_unported(args) -> None:
     if args.n_devices not in (None, 1) or args.model_parallel != 1:
         raise SystemExit("--n-devices / --model-parallel: multi-device training is not ported "
-                         "yet (ROADMAP Queue 1 item 13)")
+                         "yet (ROADMAP Queue 1 item 13b); serving and evaluation run on a mesh")
 
 
 def training_data(args, config):

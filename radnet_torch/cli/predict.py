@@ -4,7 +4,10 @@ Reads the panel of every configured image type from a scan directory's
 layout (:func:`resolve_type_path`), predicts across them, and writes
 ``arrays/predictions.json`` and ``img/predictions/{all,boat,human,
 other}_predictions.png`` (the detections outlined on the scan's blended map,
-when it has one) under the scan directory.
+when it has one) under the scan directory.  ``--n-devices N
+[--model-parallel M]`` predicts over a mesh of N ranks
+(radnet_torch/parallel): the tiles split over the data axis, the RoI head
+over the model axis; rank 0 writes the files.
 
 Example:
   python -m radnet_torch.cli.predict --models-path models \\
@@ -18,8 +21,9 @@ import json
 import sys
 from pathlib import Path
 
-from radnet_torch.cli.common import (add_quantize_arg, draw_detections, draw_rectangle,
-                                     model_dir, quantize_from_args)
+from radnet_torch.cli.common import (add_mesh_args, add_quantize_arg, draw_detections,
+                                     draw_rectangle, mesh_from_args, model_dir,
+                                     quantize_from_args, run_on_mesh)
 from radnet_torch.cli.serve import detections_to_json
 from radnet_torch.data.png import read_png, write_png
 
@@ -53,24 +57,29 @@ def build_argparser() -> argparse.ArgumentParser:
         "--device", default="cuda",
         help="torch device (default cuda; without a card pass --device cpu)",
     )
-    p.add_argument("--n-devices", type=int, default=None, help="not ported yet")
-    p.add_argument("--model-parallel", type=int, default=None, help="not ported yet")
+    add_mesh_args(p)
     add_quantize_arg(p)
     return p
 
 
 def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    return run_on_mesh(args, predict, args)
+
+
+def predict(args) -> int:
+    """Predict on this process (one rank of a mesh under ``--n-devices``:
+    every rank predicts, rank 0 writes the files)."""
     from radnet_torch.inference import load_radnet
 
-    args = build_argparser().parse_args(argv)
-    if args.n_devices or args.model_parallel:
-        raise NotImplementedError("--n-devices/--model-parallel are not ported yet (ROADMAP Queue 1 item 13)")
-
+    mesh = mesh_from_args(args)
     print("\n\nMaking predictions.")
     radnet = load_radnet(model_dir(args.models_path, args.model_name), device=args.device,
-                         quantize=quantize_from_args(args))
+                         quantize=quantize_from_args(args), mesh=mesh)
     images = [read_png(str(resolve_type_path(args.scan_data_path, t))) for t in radnet.C.img_types]
     detections = radnet.predict(images)
+    if mesh is not None and not mesh.is_main:
+        return 0
 
     scan = Path(args.scan_data_path)
     viz_path = scan / "img" / "blended_maps" / "blended_map_object_level_grey.png"

@@ -16,6 +16,12 @@ the model is loaded.  A reader thread decodes panel k+1 (PNG, see
 ``radnet_torch/data/png.py``) while panel k runs; ``--pipeline-depth N``
 keeps up to N panels dispatched before the oldest is collected.
 
+With ``--n-devices N [--model-parallel M]`` the worker spawns N ranks, one a
+device (radnet_torch/parallel): rank 0 reads stdin and broadcasts each line
+(and the end) to the others, every rank runs every panel over the mesh, and
+rank 0 alone prints results and writes files; ``READY`` comes once every
+rank has loaded.
+
 Example:
   printf '%s\\n' panel1.png panel2.png | \\
       python -m radnet_torch.cli.serve --models-path models --model-name faster_rcnn_resnet50_x
@@ -34,7 +40,8 @@ from collections import deque
 
 import numpy as np
 
-from radnet_torch.cli.common import add_quantize_arg, quantize_from_args
+from radnet_torch.cli.common import (add_mesh_args, add_quantize_arg, mesh_from_args,
+                                     quantize_from_args, run_on_mesh)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -55,6 +62,7 @@ def build_argparser() -> argparse.ArgumentParser:
         help="torch device (default cuda; without a card pass --device cpu)",
     )
     add_quantize_arg(p)
+    add_mesh_args(p)
     return p
 
 
@@ -73,14 +81,29 @@ def detections_to_json(detections) -> list[dict]:
 
 
 def main(argv=None, stdin=None, stdout=None) -> int:
+    args = build_argparser().parse_args(argv)
+    return run_on_mesh(args, serve, args,
+                       stdin=sys.stdin if stdin is None else stdin,
+                       stdout=sys.stdout if stdout is None else stdout)
+
+
+def _next_request(stdin) -> str | None:
+    """The next request line, or None at a blank line or EOF."""
+    line = stdin.readline().rstrip("\n")
+    return line or None
+
+
+def serve(args, stdin=None, stdout=None) -> int:
+    """The worker on this process (one rank of a mesh under ``--n-devices``;
+    only rank 0 has ``stdin`` and ``stdout``)."""
     from radnet_torch.data.png import read_png
     from radnet_torch.inference import load_radnet
+    from radnet_torch.parallel.collectives import broadcast_text, host_barrier
 
-    args = build_argparser().parse_args(argv)
-    stdin = sys.stdin if stdin is None else stdin
-    stdout = sys.stdout if stdout is None else stdout
+    mesh = mesh_from_args(args)
+    main_rank = mesh is None or mesh.is_main
     radnet = load_radnet(os.path.join(args.models_path, args.model_name), device=args.device,
-                         quantize=quantize_from_args(args))
+                         quantize=quantize_from_args(args), mesh=mesh)
 
     if args.warmup_size:
         s = args.warmup_size
@@ -90,16 +113,21 @@ def main(argv=None, stdin=None, stdout=None) -> int:
         radnet.warmup(grey)
         radnet.warmup(color)
 
-    print("READY", file=sys.stderr, flush=True)
+    if mesh is not None:
+        host_barrier(mesh)
+    if main_rank:
+        print("READY", file=sys.stderr, flush=True)
 
     depth = max(1, args.pipeline_depth)
     inbox: queue.Queue = queue.Queue(maxsize=depth)
     eof = object()
 
     def reader() -> None:
-        for line in stdin:
-            line = line.rstrip("\n")
-            if not line:
+        while True:
+            line = _next_request(stdin) if main_rank else None
+            if mesh is not None:  # rank 0's line, or its end, on every rank
+                line = broadcast_text(line, mesh)
+            if line is None:
                 break
             path, _, out_file = line.partition("\t")
             t0 = time.time()
@@ -113,6 +141,8 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     threading.Thread(target=reader, daemon=True).start()
 
     def emit(result: dict, out_file: str) -> None:
+        if not main_rank:
+            return
         if out_file:
             try:
                 with open(out_file, "w") as f:

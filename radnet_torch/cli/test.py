@@ -12,7 +12,8 @@ than ``--parity-tolerance``.
 
 The JAX package draws the curves with matplotlib as a PNG; the card's host
 has no matplotlib, so they are an SVG here, with the same curves, legend
-and title.
+and title.  ``--n-devices N [--model-parallel M]`` predicts over a mesh of
+N ranks (radnet_torch/parallel); rank 0 writes the files.
 
 Example:
   python -m radnet_torch.cli.test --models-path models \\
@@ -30,7 +31,8 @@ import time
 
 import numpy as np
 
-from radnet_torch.cli.common import (add_quantize_arg, draw_detections, model_dir,
+from radnet_torch.cli.common import (add_mesh_args, add_quantize_arg, draw_detections,
+                                     mesh_from_args, model_dir, run_on_mesh,
                                      quantize_from_args)
 from radnet_torch.data.dataset import get_data, get_image
 from radnet_torch.data.png import write_png
@@ -61,8 +63,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="max acceptable mAP shortfall vs --compare (0.005 = 0.5 pts)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; without a card pass --device cpu)")
-    p.add_argument("--n-devices", type=int, default=None, help="not ported yet")
-    p.add_argument("--model-parallel", type=int, default=None, help="not ported yet")
+    add_mesh_args(p)
     add_quantize_arg(p)
     return p
 
@@ -141,21 +142,30 @@ def precision_recall_svg(result: dict, size: int = 640) -> str:
 
 
 def main(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    return run_on_mesh(args, evaluate, args)
+
+
+def evaluate(args) -> int:
+    """The evaluation on this process (one rank of a mesh under
+    ``--n-devices``: every rank predicts every panel, rank 0 writes the
+    files and returns the exit code)."""
     from radnet_torch.inference import load_radnet
 
-    args = build_argparser().parse_args(argv)
-    if args.n_devices or args.model_parallel:
-        raise NotImplementedError("--n-devices/--model-parallel are not ported yet (ROADMAP Queue 1 item 13)")
+    mesh = mesh_from_args(args)
+    main_rank = mesh is None or mesh.is_main
     model_path = model_dir(args.models_path, args.model_name)
 
     print("\n\nMaking predictions on TEST data.")
-    radnet = load_radnet(model_path, device=args.device, quantize=quantize_from_args(args))
+    radnet = load_radnet(model_path, device=args.device, quantize=quantize_from_args(args),
+                         mesh=mesh)
     data_test, _, _ = get_data(args.test_annot, args.test_data, radnet.C.img_types)
     if args.limit:
         data_test = data_test[: args.limit]
     # A missing output folder is created, not skipped: a failed PNG write raises.
     test_dir = os.path.join(model_path, "test")
-    os.makedirs(test_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(test_dir, exist_ok=True)
 
     all_dets: list = []
     all_gt: list = []
@@ -170,6 +180,10 @@ def main(argv=None) -> int:
         return [get_image(img_meta["filepath"], radnet.C.img_types)]
 
     def _finish(img_meta, detections):
+        all_dets.extend(detections)
+        all_gt.extend(img_meta["bboxes"])
+        if not main_rank:
+            return
         try:
             img = get_image(img_meta["filepath"], [viz_type], writable=True)
         except FileNotFoundError:  # no panel of the viz type: nothing to draw
@@ -177,8 +191,6 @@ def main(argv=None) -> int:
         if img is not None:
             draw_detections(img, detections)
             write_png(os.path.join(test_dir, img_meta["filepath"].split("/")[-1]), img)
-        all_dets.extend(detections)
-        all_gt.extend(img_meta["bboxes"])
 
     # "Average prediction time" is the mean gap between two collected panels.
     pending = None
@@ -198,6 +210,8 @@ def main(argv=None) -> int:
         detections = radnet.predict_collect(prev_handles)
         elapsed.append(time.time() - t_last)
         _finish(prev_meta, detections)
+    if not main_rank:
+        return 0
 
     result = evaluate_detections(all_dets, all_gt, args.gt_iou_threshold)
     for key in result["curves"]:

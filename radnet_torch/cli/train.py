@@ -17,7 +17,8 @@ conventional locations are searched (``models/weights.py``), for a Keras
 found, ResNet50 stops (frozen batch norm at its identity init cannot train;
 ``--allow-random-init`` overrides) and VGG16 trains from random init with a
 warning.  Not ported yet, and refused: ``--n-devices`` /
-``--model-parallel``.
+``--model-parallel`` above one device (multi-device training, ROADMAP Queue
+1 item 13b; serving and evaluation run on a mesh).
 
 Example (on the card, the default config from converted Keras weights):
   python scripts/h5_to_torch.py resnet50_notop.h5 resnet50.pt   # where h5py is

@@ -45,6 +45,17 @@
 // int8 is taken from the bits of a FADD rather than by F2I, a third.
 // Row lengths must be multiples of 16 values, so every slice starts and ends
 // on 16 bytes in both types.
+//
+// Two more modes serve a row that is split over the model axis of a
+// tensor-parallel head (radnet_torch/parallel/tp.py), where JAX's GSPMD
+// inserts an all-reduce-max into quantize_sym: amax-only writes each row's
+// amax (radnet_quantize_rows_amax) and nothing else; given-amax
+// (radnet_quantize_rows_given) skips the max, takes scale = max(amax, 1e-12)
+// / 127 from an amax it is given (the all-reduced one) and quantizes.  A max
+// is exact in any order, so a row split in pieces, each piece's amax reduced
+// by MAX and then quantized by given-amax, is bit-equal to the whole row
+// quantized at once.  The three modes are instances of one template, so the
+// whole-row mode compiles as it did.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -204,10 +215,16 @@ __device__ __forceinline__ uint32_t pack4(const Vals& x, int base, float s) {
   return __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
 }
 
-template <typename T>
+// What a launch does with each row: the whole quantization, the amax alone,
+// or the quantization with a given amax.
+enum Mode { kWhole = 0, kAmaxOnly = 1, kGivenAmax = 2 };
+
+// amax: written (kAmaxOnly) or read (kGivenAmax), (rows,) float32; unused by
+// kWhole.  kAmaxOnly writes neither q nor scale.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
 quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                     long long L, int cluster, int slice) {
+                     float* __restrict__ amax_io, long long L, int cluster, int slice) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* warp_max = reinterpret_cast<float*>(smem + kWarpMaxOffset);
   float* part = reinterpret_cast<float*>(smem + kPartOffset);
@@ -236,31 +253,41 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __r
   }
   __syncthreads();  // the mbarriers are initialised before anyone waits on them
 
-  // The slice's max, chunk by chunk as the copies land.
   float amax = 0.0f;
-  uint32_t amax2 = 0;
-  for (int c = 0; c < chunks; ++c) {
-    mbar_wait(bars + 8 * c, 0);
-    const int off = c * kChunkBytes;
-    const int units = (bytes - off < kChunkBytes ? bytes - off : kChunkBytes) / 16;
-    const uint4* u = reinterpret_cast<const uint4*>(smem + kDataOffset + off);
-    for (int i = tid; i < units; i += threads) fold16(xs, u[i], amax, amax2);
-  }
-  amax = fmaxf(amax, fmaxf(__uint_as_float(amax2 << 16), __uint_as_float(amax2 & 0xffff0000u)));
+  if constexpr (MODE == kGivenAmax) {
+    for (int c = 0; c < chunks; ++c) mbar_wait(bars + 8 * c, 0);
+    amax = amax_io[row];
+  } else {
+    // The slice's max, chunk by chunk as the copies land.
+    uint32_t amax2 = 0;
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(bars + 8 * c, 0);
+      const int off = c * kChunkBytes;
+      const int units = (bytes - off < kChunkBytes ? bytes - off : kChunkBytes) / 16;
+      const uint4* u = reinterpret_cast<const uint4*>(smem + kDataOffset + off);
+      for (int i = tid; i < units; i += threads) fold16(xs, u[i], amax, amax2);
+    }
+    amax = fmaxf(amax, fmaxf(__uint_as_float(amax2 << 16), __uint_as_float(amax2 & 0xffff0000u)));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if ((tid & 31) == 0) warp_max[tid >> 5] = amax;
-  __syncthreads();
-  amax = warp_max[0];
-  for (int w = 1; w < threads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if ((tid & 31) == 0) warp_max[tid >> 5] = amax;
+    __syncthreads();
+    amax = warp_max[0];
+    for (int w = 1; w < threads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
 
-  if (cluster > 1) {  // the row's max over the cluster's partials
-    if (tid == 0) *part = amax;
-    cluster_arrive_release();
-    cluster_wait();
-    cg::cluster_group cl = cg::this_cluster();
-    for (int r = 0; r < cluster; ++r) amax = fmaxf(amax, *cl.map_shared_rank(part, r));
-    cluster_arrive_relaxed();  // done with the peers' partials
+    if (cluster > 1) {  // the row's max over the cluster's partials
+      if (tid == 0) *part = amax;
+      cluster_arrive_release();
+      cluster_wait();
+      cg::cluster_group cl = cg::this_cluster();
+      for (int r = 0; r < cluster; ++r) amax = fmaxf(amax, *cl.map_shared_rank(part, r));
+      cluster_arrive_relaxed();  // done with the peers' partials
+    }
+  }
+  if constexpr (MODE == kAmaxOnly) {
+    if (rank == 0 && tid == 0) amax_io[row] = amax;
+    if (cluster > 1) cluster_wait();  // no CTA ends while a peer may read its partial
+    return;
   }
   const float s = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
   if (rank == 0 && tid == 0) scale[row] = s;
@@ -276,14 +303,16 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q, float* __r
     out.w = pack4(v, 12, s);
     reinterpret_cast<uint4*>(qr)[g] = out;
   }
-  if (cluster > 1) cluster_wait();  // no CTA ends while a peer may read its partial
+  // No CTA ends while a peer may read its partial (given-amax reads none).
+  if (MODE != kGivenAmax && cluster > 1) cluster_wait();
 }
 
-template <typename T>
-cudaError_t launch(const void* x, void* q, void* scale, int rows, long long L, int cluster,
-                   int slice, int threads, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      quantize_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDataOffset + kSliceBytes);
+template <typename T, int MODE>
+cudaError_t launch(const void* x, void* q, void* scale, void* amax, int rows, long long L,
+                   int cluster, int slice, int threads, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(quantize_rows_kernel<T, MODE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kDataOffset + kSliceBytes);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)rows * (unsigned)cluster, 1, 1);
@@ -297,8 +326,27 @@ cudaError_t launch(const void* x, void* q, void* scale, int rows, long long L, i
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, quantize_rows_kernel<T>, (const T*)x, (int8_t*)q, (float*)scale,
-                            L, cluster, slice);
+  return cudaLaunchKernelEx(&cfg, quantize_rows_kernel<T, MODE>, (const T*)x, (int8_t*)q,
+                            (float*)scale, (float*)amax, L, cluster, slice);
+}
+
+template <int MODE>
+int launch_mode(const void* x, void* q, void* scale, void* amax, int rows, long long L, int dtype,
+                int cluster, int slice, int threads, void* stream) {
+  const long long item = dtype == 0 ? 4 : 2;
+  if (rows <= 0 || L <= 0 || L % 16 != 0 || (dtype != 0 && dtype != 1) || slice <= 0 ||
+      slice % 16 != 0 || slice * item > kSliceBytes || (long long)cluster * slice < L ||
+      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != kMaxCluster) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      (long long)rows * cluster > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err =
+      dtype == 0
+          ? launch<float, MODE>(x, q, scale, amax, rows, L, cluster, slice, threads, st)
+          : launch<__nv_bfloat16, MODE>(x, q, scale, amax, rows, L, cluster, slice, threads, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -309,18 +357,22 @@ cudaError_t launch(const void* x, void* q, void* scale, int rows, long long L, i
 // threads (a multiple of 32, at most 1024) cover a row.
 extern "C" int radnet_quantize_rows(const void* x, void* q, void* scale, int rows, long long L,
                                     int dtype, int cluster, int slice, int threads, void* stream) {
-  const long long item = dtype == 0 ? 4 : 2;
-  if (rows <= 0 || L <= 0 || L % 16 != 0 || (dtype != 0 && dtype != 1) || slice <= 0 ||
-      slice % 16 != 0 || slice * item > kSliceBytes || (long long)cluster * slice < L ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != kMaxCluster) ||
-      threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      (long long)rows * cluster > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = dtype == 0 ? launch<float>(x, q, scale, rows, L, cluster, slice, threads, st)
-                               : launch<__nv_bfloat16>(x, q, scale, rows, L, cluster, slice, threads, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_mode<kWhole>(x, q, scale, nullptr, rows, L, dtype, cluster, slice, threads, stream);
+}
+
+// The same plan; amax (rows,) float32 is written, q and scale are not.
+extern "C" int radnet_quantize_rows_amax(const void* x, void* amax, int rows, long long L, int dtype,
+                                         int cluster, int slice, int threads, void* stream) {
+  return launch_mode<kAmaxOnly>(x, nullptr, nullptr, amax, rows, L, dtype, cluster, slice, threads,
+                                stream);
+}
+
+// The same plan; amax (rows,) float32 is read and q, scale written.
+extern "C" int radnet_quantize_rows_given(const void* x, const void* amax, void* q, void* scale,
+                                          int rows, long long L, int dtype, int cluster, int slice,
+                                          int threads, void* stream) {
+  return launch_mode<kGivenAmax>(x, q, scale, const_cast<void*>(amax), rows, L, dtype, cluster,
+                                 slice, threads, stream);
 }
 
 extern "C" const char* radnet_cuda_error_string(int err) {

@@ -30,6 +30,13 @@ A panel's windows reach the cascade by one of four paths
 
 Output: a list of ``{'class', 'prob', 'x1', 'y1', 'x2', 'y2'}`` dicts in
 panel coordinates.
+
+On a mesh (``radnet_torch/parallel``: one process a device, every rank
+running this class on the same panels), each batch's tiles split over the
+data axis: data index d runs tiles ``[d B / dp, (d + 1) B / dp)`` through
+the whole cascade, and every rank gathers the per-tile outputs over the
+axis, so the host merges run on identical inputs everywhere.  The RoI head
+splits over the model axis (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from __future__ import annotations
 import functools
 import os
 from typing import Any, Sequence
+
+import sys
 
 import numpy as np
 import torch
@@ -58,6 +67,9 @@ from radnet_torch.ops.grey_stem import StemConsts, make_stem_consts, stem_consta
 from radnet_torch.ops.nms import final_nms_cluster, nms_fixed_point, nms_numpy
 from radnet_torch.ops.proposals import Proposals, decode_proposals
 from radnet_torch.ops.resize import resize_bicubic, resize_cubic_u8
+from radnet_torch.parallel.collectives import all_gather
+from radnet_torch.parallel.mesh import DATA_AXIS, Mesh
+from radnet_torch.parallel.tp import build_tp_head
 
 WEIGHTS_FILE = "model.pt"
 
@@ -73,22 +85,33 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 class RADNet:
     """Rock-art detector: tiled panels -> merged detections."""
 
-    def __init__(self, config: Config, model: FasterRCNN, device="cuda", mesh=None):
-        self.device = resolve_device(device)
+    def __init__(self, config: Config, model: FasterRCNN, device="cuda", mesh: Mesh | None = None):
+        """``mesh``: this rank's :class:`~radnet_torch.parallel.mesh.Mesh`
+        (``make_mesh`` inside a launched rank); the model then runs on the
+        mesh's device, which must be of ``device``'s type.  The effective
+        tile batch (``self.tile_batch``) is raised to a multiple of the data
+        axis where needed; the Config is never changed."""
         if mesh is not None:
-            raise _not_ported("multi-device serving (a mesh)", "Queue 1 item 13")
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"the mesh runs on {mesh.device}, not {device}")
+            device = mesh.device
+        self.device = resolve_device(device)
         self.C = config
         self.model = model.to(self.device).eval()
         self.class_mapping = config.inv_class_mapping
         self.bbox_threshold = config.bbox_threshold
+        self.mesh = mesh
+        self._dp = 1 if mesh is None else mesh.data
         self.tile_batch = config.infer_tile_batch
+        if config.infer_tile_batch % self._dp:
+            self.tile_batch = -(-config.infer_tile_batch // self._dp) * self._dp
+            print(f"infer_tile_batch={config.infer_tile_batch} not divisible by data-parallel "
+                  f"size {self._dp}; using {self.tile_batch}", file=sys.stderr)
+        # The tensor-parallel head, or None (no mesh, or a model axis of 1).
+        self._tp_head = None if mesh is None else build_tp_head(self.model.head, mesh)
         # Anchor grids by canvas (H, W): the square canvas, and the buckets
         # of the shortest-side path.
         self._anchor_cache: dict[tuple[int, int], torch.Tensor] = {}
@@ -128,13 +151,14 @@ class RADNet:
 
     def _batch_schedule(self, n: int) -> list[tuple[int, int]]:
         """(start, batch_size) pairs covering ``n`` tiles; a remainder that
-        fits in half a batch goes through a half-size batch."""
+        fits in half a batch goes through a half-size batch, unless half a
+        batch does not split over the mesh's data axis."""
         bs = self.tile_batch
         schedule = [(s, bs) for s in range(0, (n // bs) * bs, bs)]
         rem = n - (n // bs) * bs
         if rem:
             half = bs // 2
-            if not self.C.infer_tail_subbatch or rem > half or half == 0:
+            if not self.C.infer_tail_subbatch or rem > half or half == 0 or half % self._dp:
                 half = bs
             schedule.append(((n // bs) * bs, half))
         return schedule
@@ -204,7 +228,7 @@ class RADNet:
             prop_boxes = prop_boxes[:, : cfg.max_head_rois]
             prop_valid = prop_valid[:, : cfg.max_head_rois]
         rois = xyxy_to_xywh(prop_boxes)
-        det_cls, det_regr = self.model.roi_heads(fmap, rois, quantize=True)
+        det_cls, det_regr = self.model.roi_heads(fmap, rois, quantize=True, head=self._tp_head)
         return det_cls, det_regr, rois, prop_valid
 
     def _detections(self, det_cls, det_regr, rois, prop_valid):
@@ -241,15 +265,31 @@ class RADNet:
             out_valid.reshape(t, n_fg, d),
         )
 
+    def _data_slice(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's tiles of a batch: its data index's share of the rows."""
+        if self._dp == 1:
+            return t
+        n = t.shape[0] // self._dp
+        return t[self.mesh.data_index * n : (self.mesh.data_index + 1) * n]
+
+    def _data_gather(self, outs) -> tuple:
+        """Per-tile outputs of this rank's tiles -> the whole batch's, on
+        every rank."""
+        if self._dp == 1:
+            return tuple(outs)
+        return tuple(all_gather(t, self.mesh, DATA_AXIS) for t in outs)
+
     @torch.inference_mode()
     def _predict_tiles_impl(self, images: torch.Tensor, valid_wh: torch.Tensor,
                             feat_anchors: torch.Tensor | None = None):
         """Canvases (any form :meth:`_features` takes) + ``(T, 2)`` valid
         extents -> per-class detections (see :meth:`_detections`).
-        ``feat_anchors``: the anchor grid of a non-square canvas."""
-        fmap = self._features(images)
-        props = self._proposals(fmap, valid_wh, feat_anchors)
-        return self._detections(*self._head(fmap, props))
+        ``feat_anchors``: the anchor grid of a non-square canvas.  On a
+        mesh, this rank runs its data index's tiles and the outputs are
+        gathered."""
+        fmap = self._features(self._data_slice(images))
+        props = self._proposals(fmap, self._data_slice(valid_wh), feat_anchors)
+        return self._data_gather(self._detections(*self._head(fmap, props)))
 
     # ------------------------------------------------------------------ #
     # Panel orchestration.
@@ -272,7 +312,7 @@ class RADNet:
         covered = {bs for _, bs in self._batch_schedule(len(tiles))}
         want = {self.tile_batch}
         half = self.tile_batch // 2
-        if cfg.infer_tail_subbatch and half > 0:
+        if cfg.infer_tail_subbatch and half > 0 and half % self._dp == 0:
             want.add(half)
         for bs in sorted(want - covered, reverse=True):
             pending: list = []
@@ -405,15 +445,17 @@ class RADNet:
             yield imgs, wh, scales, chunk, len(chunk)
 
     def _rect_window_batches(self, img: np.ndarray, tiles: np.ndarray, canvas_hw):
-        """Shortest-side path: batches of up to ``infer_tile_batch`` windows,
-        unpadded, on a ``canvas_hw`` bucket."""
+        """Shortest-side path: batches of up to ``infer_tile_batch`` windows
+        on a ``canvas_hw`` bucket, padded only to a multiple of the mesh's
+        data axis."""
         cfg = self.C
         for pos in range(0, len(tiles), self.tile_batch):
             chunk = tiles[pos : pos + self.tile_batch]
             n = len(chunk)
-            imgs = np.zeros((n,) + tuple(canvas_hw) + (3,), np.uint8)
-            wh = np.full((n, 2), float(cfg.img_size), np.float32)
-            scales = np.ones((n,), np.float64)
+            bs = -(-n // self._dp) * self._dp
+            imgs = np.zeros((bs,) + tuple(canvas_hw) + (3,), np.uint8)
+            wh = np.full((bs, 2), float(cfg.img_size), np.float32)
+            scales = np.ones((bs,), np.float64)
             for i, tile in enumerate(chunk):
                 imgs[i], scales[i], vw, vh = resize_to_canvas_shortest(
                     img[tile[1] : tile[3], tile[0] : tile[2], :], cfg.img_size, canvas_hw
@@ -550,10 +592,13 @@ class RADNet:
 
     @torch.inference_mode()
     def _proposals_only(self, imgs: np.ndarray, wh: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Host canvases -> the proposals' (boxes, valid), fetched."""
-        images = torch.from_numpy(imgs).to(self.device)
-        props = self._proposals(self._features(images), torch.from_numpy(wh).to(self.device))
-        return props.boxes.cpu().numpy(), props.valid.cpu().numpy()
+        """Host canvases -> the proposals' (boxes, valid), fetched (on a
+        mesh, this rank's tiles, gathered over the data axis)."""
+        images = self._data_slice(torch.from_numpy(imgs).to(self.device))
+        valid_wh = self._data_slice(torch.from_numpy(wh).to(self.device))
+        props = self._proposals(self._features(images), valid_wh)
+        boxes, valid = self._data_gather((props.boxes, props.valid))
+        return boxes.cpu().numpy(), valid.cpu().numpy()
 
 
 def save_radnet(model_dir: str, config: Config, model: FasterRCNN) -> None:
@@ -570,12 +615,14 @@ def save_weights(model_dir: str, model: FasterRCNN) -> str:
     return path
 
 
-def load_radnet(model_dir: str, device="cuda", quantize: str | None = None) -> RADNet:
+def load_radnet(model_dir: str, device="cuda", quantize: str | None = None,
+                mesh: Mesh | None = None) -> RADNet:
     """Build a RADNet from a model directory written by :func:`save_radnet`.
     ``quantize``: serving-time override of ``config.infer_quantize`` ("int8"
     runs the RoI head in int8, ``""`` clears a saved value, None keeps it);
-    the weights are the same either way."""
-    device = resolve_device(device)
+    the weights are the same either way.  ``mesh``: this rank's mesh (see
+    :class:`RADNet`)."""
+    device = resolve_device(device if mesh is None else mesh.device)
     config = Config.load(os.path.join(model_dir, "config.json"))
     if quantize is not None:
         config.infer_quantize = quantize or None
@@ -587,4 +634,4 @@ def load_radnet(model_dir: str, device="cuda", quantize: str | None = None) -> R
         )
     model = build_model(config)
     model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
-    return RADNet(config, model, device=device)
+    return RADNet(config, model, device=device, mesh=mesh)

@@ -79,14 +79,16 @@ class FasterRCNN(nn.Module):
         return self.rpn_head(fmap)
 
     def roi_heads(self, fmap: torch.Tensor, rois_xywh: torch.Tensor, masks=None, *,
-                  quantize: bool = False):
+                  quantize: bool = False, head=None):
         """Pool + classify RoIs: (class probs (B, R, n_classes), box deltas
         (B, R, 4 * (n_classes - 1))).  ``masks``: the VGG16 head's two
         dropout masks, bool ``(B * R, fc_dim)``; None runs it deterministic
         (the ResNet50 head has no dropout).  ``quantize``: the caller runs
         deterministic (inference, the eval step), so a model built with
         ``head_quant="int8"`` runs its head in int8; the train step passes
-        False.  The head takes the NHWC pool."""
+        False.  The head takes the NHWC pool.  ``head``: another head to
+        run in ``self.head``'s place (a tensor-parallel one, from
+        ``radnet_torch/parallel/tp.py``)."""
         b, r = rois_xywh.shape[:2]
         fmap_nhwc = fmap.permute(0, 2, 3, 1).contiguous()
         pooled = batched_roi_pool(
@@ -95,10 +97,11 @@ class FasterRCNN(nn.Module):
         )
         pooled = pooled.reshape((b * r,) + pooled.shape[2:])
         int8 = quantize and self.head_quant == "int8"
+        head = self.head if head is None else head
         if self.network == "vgg16":
-            cls, regr = self.head(pooled, masks, quantize=int8)
+            cls, regr = head(pooled, masks, quantize=int8)
         else:
-            cls, regr = self.head(pooled, quantize=int8)
+            cls, regr = head(pooled, quantize=int8)
         return cls.reshape(b, r, -1), regr.reshape(b, r, -1)
 
 

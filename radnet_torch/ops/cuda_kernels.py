@@ -43,8 +43,9 @@ class CudaKernel:
     """One ``.cu`` source, its C entry point and its launch count."""
 
     def __init__(self, source: str, symbol: str, argtypes: list, extra_flags: tuple = (),
-                 headers: tuple = ()):
+                 headers: tuple = (), name: str | None = None):
         self.source = source
+        self.name = name or Path(source).stem  # the key of its launch count
         self.headers = tuple(headers)  # files of csrc/ the source includes
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]  # the stream last
@@ -53,16 +54,12 @@ class CudaKernel:
         self._fn = None
         self._err_str = None
 
-    @property
-    def name(self) -> str:
-        return Path(self.source).stem
-
     def lib_path(self) -> Path:
         digest = hashlib.sha256(
             b"".join((CSRC / f).read_bytes() for f in (self.source, *self.headers))
             + " ".join(self.flags).encode()
         ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{digest}.so"
+        return BUILD_DIR / f"{Path(self.source).stem}-{digest}.so"
 
     def compile_command(self, out: Path) -> list[str]:
         return [_nvcc(), *self.flags, "-o", str(out), str(CSRC / self.source)]
@@ -95,14 +92,16 @@ class CudaKernel:
 
 def build(kernels: list[CudaKernel]) -> float:
     """Compile every kernel whose library is missing, one ``nvcc`` per
-    source, all started together.  Returns the wall seconds spent."""
+    library, all started together.  Returns the wall seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
+    started = set()  # entry points of one source share its library
     for k in kernels:
         out = k.lib_path()
-        if out.exists():
+        if out.exists() or out in started:
             continue
+        started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         proc = subprocess.Popen(
             k.compile_command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -161,6 +160,22 @@ QUANTIZE_ROWS = CudaKernel(
     [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4,
 )
 
+# The quantizer's two modes for a row split over a tensor-parallel head's model
+# axis: the same source and library, other entry points, counts of their own.
+QUANTIZE_ROWS_AMAX = CudaKernel(
+    "quantize_rows.cu",
+    "radnet_quantize_rows_amax",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4,
+    name="quantize_rows_amax",
+)
+
+QUANTIZE_ROWS_GIVEN = CudaKernel(
+    "quantize_rows.cu",
+    "radnet_quantize_rows_given",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4,
+    name="quantize_rows_given",
+)
+
 INT8_GEMM = CudaKernel(
     "int8_gemm.cu",
     "radnet_int8_gemm",
@@ -168,9 +183,19 @@ INT8_GEMM = CudaKernel(
     extra_flags=("--fmad=false",),
 )
 
-KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD, QUANTIZE_ROWS, INT8_GEMM]
+INT8_EPILOGUE = CudaKernel(
+    "int8_epilogue.cu",
+    "radnet_int8_epilogue",
+    [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4,
+    extra_flags=("--fmad=false",),
+)
+
+KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD, QUANTIZE_ROWS, INT8_GEMM,
+           QUANTIZE_ROWS_AMAX, QUANTIZE_ROWS_GIVEN, INT8_EPILOGUE]
 # The kernels the serving cascade launches; training adds the backward, the
-# int8 head (infer_quantize="int8") the quantizer and the int8 product.
+# int8 head (infer_quantize="int8") the quantizer and the int8 product, and
+# the int8 head split over a model axis the quantizer's two other modes and
+# the epilogue on all-reduced sums.
 SERVING_KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
 
 

@@ -9,13 +9,15 @@ and dense products, as ``radnet_tpu/models/quant.py`` computes them.
   sw)``, then ``+ bias`` where the layer has one.
 
 Two kernels do the work on the card: ``csrc/quantize_rows.cu`` (one scale a
-row) and ``csrc/int8_gemm.cu`` (the int8 product on ``wgmma``, reading a 3x3
-SAME conv's im2col implicitly, with the dequantize, the bias and what the
-layer after it does in its epilogue: the frozen batch norm in the model's
-type, the residual sum and the ReLU, or a float32 ReLU).  Each has
-a plain version here, which the wrappers :func:`quantize_rows` and
-:func:`int8_gemm` run for CPU tensors; for CUDA tensors they launch the
-kernel or raise.  The plain products are float64 matrix products, exact
+row; two more modes for a row split over a model axis, below) and
+``csrc/int8_gemm.cu`` (the int8 product on ``wgmma``, reading a 3x3 SAME
+conv's im2col implicitly, with the dequantize, the bias and what the layer
+after it does in its epilogue: the frozen batch norm in the model's type, the
+residual sum and the ReLU, or a float32 ReLU).  A third,
+``csrc/int8_epilogue.cu``, runs that epilogue alone on int32 sums added up
+over a tensor-parallel head's model axis.  Each has a plain version here,
+which the wrappers (:func:`quantize_rows`, :func:`int8_gemm`, ...) run for
+CPU tensors; for CUDA tensors they launch the kernel or raise.  The plain products are float64 matrix products, exact
 since every partial sum is an integer below 127^2 * 25088 < 2^53.
 
 Layouts: activations NHWC; a conv weight as the port stores it, ``(O, C, kh,
@@ -138,6 +140,83 @@ def quantize_rows(x: torch.Tensor) -> Quantized:
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
     return quantize_rows_cuda(x)
+
+
+# The two modes of a row split over a tensor-parallel head's model axis
+# (parallel/tp.py): each rank takes its piece's amax, the pieces' amaxes are
+# all-reduced by MAX, and each rank quantizes its piece with the row's amax.
+# A max is exact in any order, so the result is bit-equal to
+# quantize_rows_plain on the whole row.
+def quantize_rows_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (R, ...) -> ``(R,)`` float32: each row's largest magnitude."""
+    return x.float().abs().reshape(x.shape[0], -1).amax(dim=1)
+
+
+def quantize_rows_given_plain(x: torch.Tensor, amax: torch.Tensor) -> Quantized:
+    """:func:`quantize_rows_plain` with each row's amax given, ``(R,)``
+    float32, instead of taken from the row."""
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    x = x.float()
+    scale = amax.float().reshape(shape).clamp_min(1e-12) / torch.full((), 127.0, device=x.device)
+    q = torch.round(x / scale).clamp(-127.0, 127.0).to(torch.int8)
+    return Quantized(q, scale.reshape(-1))
+
+
+def _row_plan(x: torch.Tensor, what: str) -> tuple[int, int, QuantizePlan]:
+    """The checks of :func:`quantize_rows_cuda`, then (rows, length, plan)."""
+    if not x.is_cuda:
+        raise ValueError(f"{what} needs a CUDA tensor")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{what} takes float32 or bfloat16, not {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned tensor")
+    rows = x.shape[0]
+    length = x.numel() // max(rows, 1)
+    if rows == 0 or length == 0 or length % 16:
+        raise ValueError(f"{what} needs rows of a multiple of 16 values, not {tuple(x.shape)}")
+    return rows, length, quantize_plan(length, x.dtype)
+
+
+def quantize_rows_amax_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/quantize_rows.cu`` in its amax-only mode; same contract
+    as :func:`quantize_rows_amax_plain` for the rows :func:`quantize_rows_cuda`
+    takes."""
+    rows, length, plan = _row_plan(x, "quantize_rows_amax_cuda")
+    amax = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    cuda_kernels.QUANTIZE_ROWS_AMAX.launch(cuda_kernels.ptr(x), cuda_kernels.ptr(amax), rows, length,
+                                           _DTYPE_CODE[x.dtype], *plan)
+    return amax
+
+
+def quantize_rows_given_cuda(x: torch.Tensor, amax: torch.Tensor) -> Quantized:
+    """Launch ``csrc/quantize_rows.cu`` in its given-amax mode; same contract
+    as :func:`quantize_rows_given_plain`."""
+    rows, length, plan = _row_plan(x, "quantize_rows_given_cuda")
+    if (amax.device != x.device or amax.dtype != torch.float32 or amax.shape != (rows,)
+            or not amax.is_contiguous()):
+        raise ValueError(f"amax must be ({rows},) float32 on {x.device}, not "
+                         f"{tuple(amax.shape)} {amax.dtype} on {amax.device}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    ptr = cuda_kernels.ptr
+    cuda_kernels.QUANTIZE_ROWS_GIVEN.launch(ptr(x), ptr(amax), ptr(q), ptr(scale), rows, length,
+                                            _DTYPE_CODE[x.dtype], *plan)
+    return Quantized(q, scale)
+
+
+def quantize_rows_amax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's amax: the plain version for CPU tensors, the kernel for CUDA."""
+    if x.device.type == "cpu":
+        return quantize_rows_amax_plain(x)
+    return quantize_rows_amax_cuda(x)
+
+
+def quantize_rows_given(x: torch.Tensor, amax: torch.Tensor) -> Quantized:
+    """One scale a row from a given amax: the plain version for CPU tensors,
+    the kernel for CUDA."""
+    if x.device.type == "cpu":
+        return quantize_rows_given_plain(x, amax)
+    return quantize_rows_given_cuda(x, amax)
 
 
 # --------------------------------------------------------------------------- #
@@ -294,6 +373,79 @@ def int8_gemm(a: Quantized, b: Quantized, bias: torch.Tensor | None = None,
     if a.q.device.type == "cpu":
         return int8_gemm_plain(a, b, bias, rows_per_sample, bn=bn, residual=residual, relu=relu)
     return int8_gemm_cuda(a, b, bias, rows_per_sample, bn=bn, residual=residual, relu=relu)
+
+
+def int8_gemm_sums(a: Quantized, b: Quantized, rows_per_sample: int = 1) -> torch.Tensor:
+    """The int32 sums of the product, no epilogue: a row-parallel layer's
+    part, which the ranks of the model axis add up before
+    :func:`int8_epilogue`.  ``a.q`` (M, K) rows, ``b.q`` (N, K).  The plain
+    version for CPU tensors, the kernel (its int32 kind) for CUDA."""
+    if a.q.device.type == "cpu":
+        return int8_gemm_acc_plain(a.q, b.q)
+    return _gemm_launch(a, b, None, rows_per_sample, out_int32=True)
+
+
+# --------------------------------------------------------------------------- #
+# Kernel C: the epilogue on int32 sums added up across ranks.
+# --------------------------------------------------------------------------- #
+def int8_epilogue_plain(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                        bias: torch.Tensor | None = None, rows_per_sample: int = 1, *,
+                        bn: BatchNorm | None = None, residual: torch.Tensor | None = None,
+                        relu: bool = False) -> torch.Tensor:
+    """``acc`` (M, N) int32 -> the product's output as :func:`int8_gemm_plain`
+    gives it from the same sums: the dequantize, the bias, then
+    :func:`epilogue_plain`."""
+    epilogue_dtype(acc.shape[0], acc.shape[1], bn, residual)
+    return epilogue_plain(dequantize(acc, sx, sw, bias, rows_per_sample), bn, residual, relu)
+
+
+def int8_epilogue_cuda(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                       bias: torch.Tensor | None = None, rows_per_sample: int = 1, *,
+                       bn: BatchNorm | None = None, residual: torch.Tensor | None = None,
+                       relu: bool = False) -> torch.Tensor:
+    """Launch ``csrc/int8_epilogue.cu``; same contract as
+    :func:`int8_epilogue_plain`."""
+    epi = ([] if bn is None else list(bn)) + ([] if residual is None else [residual])
+    tensors = [acc, sx, sw] + ([] if bias is None else [bias])
+    if not all(t.is_cuda and t.device == acc.device for t in tensors + epi):
+        raise ValueError("int8_epilogue_cuda needs every tensor on one CUDA device")
+    if acc.dtype != torch.int32 or acc.dim() != 2:
+        raise TypeError(f"int8_epilogue_cuda takes (M, N) int32 sums, not {tuple(acc.shape)} {acc.dtype}")
+    if any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise TypeError("int8_epilogue_cuda takes float32 scales and bias")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors + epi):
+        raise ValueError("int8_epilogue_cuda needs contiguous tensors, 16-byte aligned")
+    m, n = acc.shape
+    if n % 2 or rows_per_sample <= 0 or m % rows_per_sample:
+        raise ValueError(f"int8_epilogue_cuda needs N even and M a whole number of samples, not "
+                         f"({m}, {n}) at {rows_per_sample} rows a sample")
+    if sx.shape != (m // rows_per_sample,) or sw.shape != (n,) or (
+            bias is not None and bias.shape != (n,)):
+        raise ValueError("scales or bias of the wrong shape")
+    out_dtype = epilogue_dtype(m, n, bn, residual)
+    out = torch.empty((m, n), dtype=out_dtype, device=acc.device)
+    ptr = cuda_kernels.ptr
+
+    def opt(t):
+        return None if t is None else ptr(t)
+
+    kind = 0 if bn is None else 2 if out_dtype == torch.bfloat16 else 3
+    cuda_kernels.INT8_EPILOGUE.launch(
+        ptr(acc), ptr(sx), ptr(sw), opt(bias),
+        *((None, None) if bn is None else (ptr(bn[0]), ptr(bn[1]))), opt(residual), ptr(out),
+        m, n, rows_per_sample, kind, int(relu),
+    )
+    return out
+
+
+def int8_epilogue(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                  bias: torch.Tensor | None = None, rows_per_sample: int = 1, *,
+                  bn: BatchNorm | None = None, residual: torch.Tensor | None = None,
+                  relu: bool = False) -> torch.Tensor:
+    """The epilogue on int32 sums: the plain version for CPU tensors, the
+    kernel for CUDA."""
+    fn = int8_epilogue_plain if acc.device.type == "cpu" else int8_epilogue_cuda
+    return fn(acc, sx, sw, bias, rows_per_sample, bn=bn, residual=residual, relu=relu)
 
 
 # --------------------------------------------------------------------------- #

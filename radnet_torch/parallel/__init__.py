@@ -1,0 +1,10 @@
+"""Multi-device serving and evaluation: one process a device, over a (data x
+model) mesh (``mesh.py``), with collectives built from all-reduce, and a
+broadcast of the host's messages (``collectives.py``), a launcher that spawns the ranks
+(``launch.py``) and the tensor-parallel RoI heads (``tp.py``)."""
+
+from radnet_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, make_mesh,
+                                        make_param_shardings, shard_state_dict)
+
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "make_mesh", "make_param_shardings",
+           "shard_state_dict"]

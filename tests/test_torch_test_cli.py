@@ -246,6 +246,12 @@ def test_compare_exit_codes_match_jax(jax_dir, test_set, cli_nets, tmp_path, bum
 
 
 def test_test_cli_refuses_unported_flags(tmp_path):
-    for flags in (["--n-devices", "2"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            ttest.main(["--models-path", str(tmp_path), "--device", "cpu", *flags])
+    """The mesh flags run (tests/test_torch_mesh_cli.py); what stays refused:
+    more cards than the host has, and a model axis that does not divide."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for flags, error, match in ((["--n-devices", "2"], SystemExit, "needs 2 CUDA devices"),
+                                (["--device", "cpu", "--n-devices", "3", "--model-parallel", "2"],
+                                 ValueError, "not divisible")):
+        with pytest.raises(error, match=match):
+            ttest.main(["--models-path", str(tmp_path), *flags])
