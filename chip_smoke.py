@@ -236,6 +236,26 @@ The mesh (radnet_torch/parallel), on the model dirs the serve phases saved:
                 MESH_FLOAT_HEAD_LIMIT); NCCL at data parallelism 2 where the
                 host has two cards, else a line saying it was not run.
                 Times there are of two ranks on one card: no scaling figure.
+  mesh_train    (after pretrained_train, on phase 11's training set) two
+                ranks on the card (gloo): cli.train --n-devices 2 (ResNet50,
+                data parallelism 2, 2 epochs of MESH_TRAIN_STEPS steps,
+                validation) and cli.cont_train --n-devices 2 (trunk
+                trainable): exit codes, 3 record rows, the loss falling,
+                whole checkpoints, model.pt serving a panel on one device,
+                rank 0's exact launches a step and validation batch; then
+                one float32 step from seeded weights, trunk trainable, on one
+                batch of 8 and one set of draws, of ResNet50 joint at data
+                parallelism 2 and VGG16 (vgg_fc_dim 4096) alternating at
+                tensor parallelism 2, against the single device's step:
+                metrics within MESH_TRAIN_LOSS_LIMIT, Adam's moments within
+                MESH_TRAIN_MOMENT_LIMIT, the model ranks' replicated
+                gradients within MESH_TRAIN_SPREAD_LIMIT before model index
+                0's are taken (limits from scripts/mesh_train_probe.py's
+                readings), the replicated
+                parameters bit-equal across the ranks, the state rank 0
+                writes equal to every rank's shards; ms a bf16 step on the
+                mesh and on one device, and a mesh step's launches; NCCL at
+                data parallelism 2 where the host has two cards.
 
 The last lines are the kernels JSON line (nine kernels; launches over each
 kernel's main path: the served run, cont_train for the backward, the int8
@@ -244,9 +264,9 @@ cont_train, test and test_rpn runs, under "launches_vgg16" those of the
 VGG16 runs, under "launches_int8" those of the int8 runs and under
 "launches_pretrained_train" those of pretrained_train's runs; each kernel's
 rows at the VGG16 shapes under "vgg16"; the mesh kernels' launches over
-the two-rank int8 serve, "launches_mesh_serve" every kernel's there), the
-nvidia-smi line, and {"ok":
-true, "device": {...}}.
+the two-rank int8 serve, "launches_mesh_serve" every kernel's there,
+"launches_mesh_train" rank 0's in the two mesh training runs), the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -4487,6 +4507,387 @@ def mesh_serve_phase(tmp: str, paths: list, images, single_recs: list, int8_recs
     return serve_launches
 
 
+# --------------------------------------------------------------------------- #
+# Training on a mesh: two ranks sharing the card (gloo), the default Config.
+# --------------------------------------------------------------------------- #
+# The one-step comparisons: (network, schedule, data axis, model axis).
+MESH_TRAIN_CASES = [("resnet50", "joint", 2, 1), ("vgg16", "alternating", 1, 2)]
+MESH_TRAIN_LR = 1e-4
+# The mesh step against the single device's on the same float32 inputs
+# (TF32 off): each metric, relative, and Adam's moments, each tensor's L2
+# gap as a share of its norm (_moment_share).  scripts/mesh_train_probe.py
+# on the H100 (five seeds, a batch each; PERF.md section 6) read
+# metrics at most 2.3e-7 and moments 5.4e-6 apart (elementwise 1.4e-5; one
+# proof run's batch flipped a ReLU at VGG16's fc2: 1.3e-2 elementwise); its
+# witnesses, each rank dividing by its own tiles' denominators and a
+# Megatron f that skips its all-reduce, read metrics 1.0 and moments 8.55
+# / 0.79.
+MESH_TRAIN_LOSS_LIMIT = 1e-4
+MESH_TRAIN_MOMENT_LIMIT = 1e-2
+# The compared step's output layers, N(0, std) for the class layer and
+# N(0, std / 10) for the regression: small enough that the class softmax
+# does not saturate on the random-init pooled vector (ResNet50's is some
+# hundred times larger than VGG16's).
+MESH_TRAIN_OUTPUT_STD = {"resnet50": 1e-4, "vgg16": 1e-2}
+# The model ranks' replicated gradients before model index 0's are taken,
+# as a share of their largest: 0 under cuDNN's deterministic algorithms,
+# 1.1e-7 under its default ones, 0.113 with the faulty f.
+MESH_TRAIN_SPREAD_LIMIT = 1e-3
+# cli.train --n-devices 2 (steps an epoch, 2 epochs, validation) and
+# cli.cont_train --n-devices 2 (steps, 1 epoch, trunk trainable).
+MESH_TRAIN_STEPS, MESH_CONT_STEPS = 3, 2
+
+
+def _replicated_flat(state):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).float() for n, p in state.model.named_parameters()
+                      if n not in state.shard_dims])
+
+
+def _moment_share(got: dict, want: dict) -> tuple[float, str, float]:
+    """How far two Adam state_dicts' moments are apart (a phase at a time
+    where there are two): the largest over the tensors of each one's L2 gap
+    as a share of its L2 norm, where it is, and the largest elementwise gap
+    as a share of the tensor's largest value.  A float32 sum in another
+    order flips the odd ReLU (an element a hair from zero), which moves a
+    single gradient element by up to the tensor's largest, but the tensor's
+    norm by little; a fault moves the norm."""
+    worst, where, worst_max = 0.0, "", 0.0
+    for phase in ("rpn", "det") if "rpn" in want else (None,):
+        g, w = (got, want) if phase is None else (got[phase], want[phase])
+        for key in ("exp_avg", "exp_avg_sq"):
+            for i, (a, b) in enumerate(zip(g[key], w[key])):
+                b = b.to(a.device).float()
+                d = a.float() - b
+                share = float(d.norm()) / max(float(b.norm()), 1e-30)
+                worst_max = max(worst_max, float(d.abs().max()) / max(float(b.abs().max()), 1e-30))
+                if share > worst:
+                    worst, where = share, f"{phase or 'joint'} {key}[{i}]"
+    return worst, where, worst_max
+
+
+def mesh_train_rank(spec: dict) -> dict:
+    """One rank of phase mesh_train's two ranks on one card (rank 0 returns
+    the readings).  For each case of MESH_TRAIN_CASES at the default Config
+    (VGG16: vgg_config()), trunk trainable, from seeded weights: one train
+    step on the mesh from one state, on one whole batch (``spec["batch"]``)
+    and one set of draws (no Poisson noise picked), in float32 with TF32
+    off, against the single device's step on rank 0; the replicated
+    parameters compared across the ranks; the state snapshot that rank 0
+    writes read back and cut again, equal to every rank's shards; then at
+    the Config's bf16, ms a step on the mesh (both ranks in step) and on
+    rank 0 alone, and the kernels' launches of one mesh step.  The seeded
+    weights' output layers are drawn (init_weights zeroes them, which would
+    stop every gradient of the head), and the compared steps run cuDNN's
+    deterministic algorithms (the comment there)."""
+    import torch
+    import torch.distributed as dist
+
+    from radnet_torch.config import Config
+    from radnet_torch.data.pipeline import rank_rows
+    from radnet_torch.engine import checkpoint as ckpt
+    from radnet_torch.engine.steps import draw_step, make_step, rank_draws
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.models.detector import build_model, init_weights
+    from radnet_torch.ops import cuda_kernels
+    from radnet_torch.parallel import collectives
+    from radnet_torch.parallel.mesh import make_mesh, shard_saved_state
+
+    cuda = spec["device_type"] == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    rank0 = dist.get_rank() == 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    whole = {k: torch.from_numpy(v).to(dev) for k, v in np.load(spec["batch"]).items()}
+    seed = spec.get("seed", SEED)
+    runs = []
+    for i, (network, schedule, dp, mp) in enumerate(spec["cases"]):
+        mesh = make_mesh(model_parallel=mp, device_type=spec["device_type"])
+        check(mesh.data == dp, f"a mesh of {mesh.data} x {mesh.model}, not {dp} x {mp}")
+        base = vgg_config() if network == "vgg16" else Config()
+        base = dataclasses.replace(base, train_schedule=schedule, base_net_trainable=True,
+                                   **spec.get("config", {}))
+        cfg32 = dataclasses.replace(base, compute_dtype="float32")
+        wgen = torch.Generator().manual_seed(seed)
+        model = init_weights(build_model(cfg32), wgen)
+        with torch.no_grad():  # the init's zero output layers would stop the head's backward
+            std = MESH_TRAIN_OUTPUT_STD[network]
+            model.head.dense_class.weight.normal_(0.0, std, generator=wgen)
+            model.head.dense_regress.weight.normal_(0.0, std / 10, generator=wgen)
+        weights = model.state_dict()
+        del model
+
+        def fresh(cfg, on_mesh):
+            model = build_model(cfg)
+            model.load_state_dict(weights)
+            return create_train_state(cfg, torch.Generator(), dev, learning_rate=MESH_TRAIN_LR,
+                                      base_net_trainable=True, model=model.train(),
+                                      mesh=mesh if on_mesh else None)
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 7 + i)
+        b = whole["image"].shape[0]
+        draws = draw_step(gen, cfg32, b, dev)
+        if draws.photometric is not None:  # Poisson noise is each data index's own
+            pick = draws.photometric.noise_pick
+            pick[pick == 2] = 1
+        r = {"network": network, "schedule": schedule, "data": mesh.data, "model": mesh.model,
+             "batch": b, "dtype": "float32", "trunk": "trainable"}
+        state = fresh(cfg32, True)
+        rows = rank_rows(whole, mesh)
+        # How far apart the model ranks' replicated gradients came before
+        # model index 0's were taken: float noise of a nondeterministic
+        # backward, where a misplaced f / g leaves some of them partial.
+        spreads = [0.0]
+        real_root = collectives.broadcast_from_model_root
+
+        def measured(t, mesh_):
+            before = t.clone()
+            real_root(t, mesh_)
+            spreads.append(float((before - t).abs().max()) / max(float(t.abs().max()), 1e-30))
+            return t
+
+        # cuDNN's deterministic algorithms for the compared steps, so that
+        # the RPN phase moves the single device and the mesh alike: Adam's
+        # first step is lr * sign(g), and a noise-level gradient whose sign
+        # a nondeterministic sum flips moves the RPN, whose proposals the
+        # detector phase samples.
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        collectives.broadcast_from_model_root = measured
+        try:
+            got = make_step(state, cfg32, trunk_trainable=True)(rows, rank_draws(draws, mesh))
+        finally:
+            collectives.broadcast_from_model_root = real_root
+        sync()
+        spread = torch.tensor([max(spreads)], dtype=torch.float64)
+        dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+        r["replicated_grad_spread"] = float(spread)
+        r["shards"] = len(state.shard_dims)
+        r["replicated_same_across_ranks"] = ranks_agree(_replicated_flat(state))
+        path = os.path.join(spec["tmp"], f"mesh_step_{network}")
+        tree = ckpt.snapshot(state, 0.0)
+        if rank0:
+            ckpt.save_checkpoint_tree(path, tree)
+        dist.barrier()
+        saved = torch.load(os.path.join(path, ckpt.STATE_FILE), map_location="cpu", weights_only=True)
+        model_sd, opt_sd = shard_saved_state(state, saved["model"], saved["optimizer"])
+        own = state.model.state_dict()
+        same = all(torch.equal(model_sd[k].to(dev), v) for k, v in own.items())
+        same = same and _moment_share(state.optimizer.state_dict(), opt_sd)[2] == 0.0
+        flags = torch.tensor([0 if same else 1])
+        dist.all_reduce(flags)
+        r["shards_equal_written"] = int(flags) == 0
+        if rank0:
+            single = fresh(cfg32, False)
+            want = make_step(single, cfg32, trunk_trainable=True)(whole, draws)
+            sync()
+        torch.backends.cudnn.deterministic = deterministic
+        if rank0:
+            r["metrics"] = {k: [float(got[k]), float(want[k])] for k in want}
+            r["loss_max_rel_diff"] = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+                                         for k in want)
+            r["moment_max_share"], r["moment_max_at"], r["moment_max_elementwise"] = _moment_share(
+                tree["optimizer"], single.optimizer.state_dict())
+            w0 = {k: weights[k].to(dev) for k in ("head.dense_class.weight", "head.dense_regress.weight")}
+            r["output_layer_update_share"] = max(
+                float((tree["model"][k] - single.model.state_dict()[k]).abs().max())
+                / max(float((single.model.state_dict()[k] - w0[k]).abs().max()), 1e-30) for k in w0)
+            del single, want
+        del state, tree, saved, model_sd, opt_sd, own
+        runs.append(r)
+        if not spec["timed_steps"]:
+            continue
+        # At the Config's bf16: ms a step on the mesh and on one device.
+        state = fresh(base, True)
+        step = make_step(state, base, trunk_trainable=True)
+        d = rank_draws(draws, mesh)
+        step(rows, d)
+        sync()
+        saved_counts = launch_counts()
+        cuda_kernels.reset_launch_counts()
+        step(rows, d)
+        sync()
+        r["launches_per_mesh_step"] = launch_counts()
+        for kern in cuda_kernels.KERNELS:
+            kern.launches += saved_counts[kern.name]
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(spec["timed_steps"]):
+            step(rows, d)
+        sync()
+        r["ms_per_step_mesh_two_ranks_one_card"] = (time.perf_counter() - t0) * 1e3 / spec["timed_steps"]
+        del state, step
+        if cuda:
+            torch.cuda.empty_cache()
+        if rank0:
+            single = fresh(base, False)
+            step = make_step(single, base, trunk_trainable=True)
+            step(whole, draws)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(spec["timed_steps"]):
+                step(whole, draws)
+            sync()
+            r["ms_per_step_single"] = (time.perf_counter() - t0) * 1e3 / spec["timed_steps"]
+            del single, step
+        dist.barrier()
+        if cuda:
+            torch.cuda.empty_cache()
+        r["dtype_timed"] = base.compute_dtype
+    return {"backend": dist.get_backend(), "runs": runs}
+
+
+def mesh_train_phase(tmp: str, batch: dict, dev, kind, smi, config: dict | None = None) -> dict:
+    """Phase mesh_train: two ranks sharing the card (gloo) at the default
+    Config, on the training set phase train wrote under ``tmp``.
+
+    (a) radnet_torch.cli.train --n-devices 2 (data parallelism 2, ResNet50,
+    2 epochs of MESH_TRAIN_STEPS steps, validation) and cli.cont_train
+    --n-devices 2 (MESH_CONT_STEPS steps, trunk trainable), the ranks placed
+    on the one card through the CLIs' ``devices`` argument; rank 0's
+    launches read around each run.  Gates: both exit 0; record.csv's rows;
+    the checkpoints whole (the split-free data-parallel state, and each
+    tensor's single-device shape); model.pt serving one panel on a single
+    device; exactly one NMS and one RoI forward a step or validation batch
+    on rank 0, the backward once a trainable step and never frozen; the
+    loss falling.  (b) mesh_train_rank's one-step comparisons
+    (MESH_TRAIN_CASES): each metric within MESH_TRAIN_LOSS_LIMIT of the
+    single device's, Adam's moments within MESH_TRAIN_MOMENT_LIMIT, the
+    replicated parameters bit-equal across the ranks, the shards equal to
+    what rank 0 wrote.  (c) NCCL at data parallelism 2 where the host has
+    two cards, else a line saying it was not run.  Every reading is printed
+    before a gate fails.  Returns rank 0's launches of the two CLI runs."""
+    import torch
+
+    from radnet_torch.cli import cont_train, train
+    from radnet_torch.data.png import read_png
+    from radnet_torch.engine.loop import read_record
+    from radnet_torch.inference import load_radnet
+    from radnet_torch.ops import cuda_kernels, nms
+    from radnet_torch.parallel.launch import launch
+
+    devices = [dev.index or 0] * 2 if dev.type == "cuda" else None
+    common = training_cli_args(tmp, dev)
+    small = []
+    if config is not None:  # a rehearsal's small Config
+        small = ["--config-json", os.path.join(tmp, "mesh_train_config.json")]
+        config.save(small[1])
+    name = "faster_rcnn_resnet50_mesh2"
+    model_dir = os.path.join(tmp, "train_models", name)
+    out, gates = {}, []
+    for run, fn, argv, steps, epochs in (
+            ("train", train.main, small + ["--model-name", "mesh2", "--allow-random-init",
+                                           "--epoch-length", str(MESH_TRAIN_STEPS), "--n-epochs", "2"],
+             2 * MESH_TRAIN_STEPS, 2),
+            ("cont_train", cont_train.main, ["--model-name", name, "--epoch-length",
+                                             str(MESH_CONT_STEPS), "--n-epochs", "1",
+                                             "--no-validation"], MESH_CONT_STEPS, 1)):
+        cuda_kernels.reset_launch_counts()
+        nms.NMS_STATS.update(calls=0)
+        t0 = time.perf_counter()
+        with counting_steps() as calls, contextlib.redirect_stdout(sys.stderr):
+            rc = fn(common + argv + ["--n-devices", "2"], devices=devices)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[run] = {"rc": rc, "wall_s": time.perf_counter() - t0, "steps": steps,
+                    "epochs": epochs, "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
+                    "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"]}
+        gates.append((rc == 0 and calls["train_step"] == steps,
+                      f"mesh_train: {run} --n-devices 2 exited {rc} after {calls['train_step']} "
+                      f"of {steps} steps on rank 0"))
+    record = read_record(os.path.join(model_dir, "record.csv"))
+    totals = [r["total_loss"] for r in record]
+    saved = torch.load(os.path.join(model_dir, "ckpt_last", "train_state.pt"), map_location="cpu",
+                       weights_only=True)
+    whole_shapes = saved["model"]["head.s5a.conv2a.weight"].shape == (512, 1024, 1, 1)
+    net = load_radnet(model_dir, device=dev)
+    dets = net.predict([read_png(os.path.join(tmp, "data", "val", "enhanced_topo_grey", "panel0.png"))])
+    del net
+    emit({"phase": "mesh_train", "run": "cli.train / cli.cont_train --n-devices 2, two ranks on one "
+          "card, data 2 x model 1, ResNet50", "kind": kind, "nvidia_smi": smi, **out,
+          "record_total_loss": totals, "record_val_total_loss": [r["val_total_loss"] for r in record],
+          "checkpoint_step": int(saved["step"]), "checkpoint_whole": whole_shapes,
+          "predict_detections_single_device": len(dets), "launches_counted_on": "rank 0",
+          "times": "two ranks on one card, not a scaling figure"})
+    gates += [
+        (len(record) == 3, f"mesh_train: record.csv has {len(record)} rows, not 3"),
+        (out["train"]["val_batches_run"] >= 2, "mesh_train: cli.train validated no batch"),
+        # cont_train trains the trunk, which cli.train froze: another
+        # partition, so the weights resume and Adam starts afresh.
+        (whole_shapes and int(saved["step"]) == MESH_CONT_STEPS,
+         f"mesh_train: the checkpoint is not whole at step {saved['step']}"),
+        (isinstance(dets, list), "mesh_train: model.pt did not serve on one device"),
+        (len(totals) == 3 and min(totals[1:]) < totals[0],
+         f"mesh_train: the loss did not fall over the run: {totals}"),
+    ]
+    for run in ("train", "cont_train"):
+        o, launches = out[run], out[run]["launches"]
+        want = o["steps"] + o["val_batches_run"]
+        gates.append((o["nms_calls"] == want and launches["nms_fused"] == want
+                      and launches["roi_pool"] == want and launches["grey_stem"] == 0,
+                      f"mesh_train: {run}: rank 0 launched {launches} ({o['nms_calls']} NMS calls) for "
+                      f"{o['steps']} steps and {want - o['steps']} validation batches"))
+    gates.append((out["train"]["launches"]["roi_pool_backward"] == 0,
+                  "mesh_train: the frozen-trunk run launched the backward kernel"))
+    gates.append((out["cont_train"]["launches"]["roi_pool_backward"] == MESH_CONT_STEPS,
+                  f"mesh_train: cont_train launched the backward "
+                  f"{out['cont_train']['launches']['roi_pool_backward']} times in {MESH_CONT_STEPS} steps"))
+
+    # (b) one step against the single device, then ms a step.
+    path = os.path.join(tmp, "mesh_train_batch.npz")
+    np.savez(path, **{k: v.cpu().numpy() for k, v in batch.items()})
+    spec = {"tmp": tmp, "batch": path, "device_type": dev.type, "cases": MESH_TRAIN_CASES,
+            "timed_steps": 5, "config": {} if config is None else
+            {f: getattr(config, f) for f in ("canvas_size", "img_size", "batch_size", "vgg_fc_dim",
+                                             "tile_size", "anchor_box_scales")}}
+    t0 = time.perf_counter()
+    res = launch(mesh_train_rank, 2, device_type=dev.type, devices=devices, args=(spec,))
+    wall = time.perf_counter() - t0
+    for r in res["runs"]:
+        label = f"{r['network']} {r['schedule']} data {r['data']} x model {r['model']}"
+        emit({"phase": "mesh_train", "run": f"one step against the single device, {label}",
+              "backend": res["backend"], "kind": kind, "nvidia_smi": smi, "launch_wall_s": wall,
+              "times": "two ranks on one card, not a scaling figure", **r})
+        gates += [
+            (r["loss_max_rel_diff"] <= MESH_TRAIN_LOSS_LIMIT,
+             f"mesh_train {label}: a metric is {r['loss_max_rel_diff']} from the single device's"),
+            (r["moment_max_share"] <= MESH_TRAIN_MOMENT_LIMIT,
+             f"mesh_train {label}: Adam's {r['moment_max_at']} is {r['moment_max_share']} of its "
+             f"largest from the single device's"),
+            (r["replicated_same_across_ranks"], f"mesh_train {label}: replicated parameters differ "
+                                                f"across the ranks"),
+            (r["replicated_grad_spread"] <= MESH_TRAIN_SPREAD_LIMIT,
+             f"mesh_train {label}: the model ranks' replicated gradients were "
+             f"{r['replicated_grad_spread']} of their largest apart"),
+            (r["shards_equal_written"], f"mesh_train {label}: the written state is not the shards"),
+            (r["shards"] == (0 if r["model"] == 1 else {"resnet50": 13, "vgg16": 3}[r["network"]]),
+             f"mesh_train {label}: {r['shards']} split parameters"),
+        ]
+        for kern in ("nms_fused", "roi_pool", "roi_pool_backward"):
+            gates.append((r["launches_per_mesh_step"][kern] > 0,
+                          f"mesh_train {label}: {kern} not launched in a mesh step"))
+    failed = [msg for ok, msg in gates if not ok]  # every reading is out before a gate fails
+    check(not failed, "; ".join(failed))
+
+    # (c) NCCL across cards, where the host has them.
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = train.main(common + small + ["--model-name", "mesh_nccl", "--allow-random-init",
+                                      "--epoch-length", "2", "--n-epochs", "1", "--no-validation",
+                                      "--n-devices", "2"])
+        emit({"phase": "mesh_train", "run": "cli.train --n-devices 2 (NCCL, two cards)", "rc": rc})
+        check(rc == 0, "mesh_train: NCCL data parallelism 2 failed")
+    else:
+        emit({"phase": "mesh_train", "run": "NCCL at data parallelism 2 across cards",
+              "not_run": f"this host has {torch.cuda.device_count()} card(s)"})
+    return {run: o["launches"] for run, o in out.items()}
+
+
 def main() -> int:
     import torch
 
@@ -4576,6 +4977,7 @@ def main() -> int:
         int8_launches["vgg16"]["test"] = int8_test_phase(tmp, "vgg16", dev, smi, "vgg_int8_test", 6)
         pretrained = pretrained_train_phase(tmp, dev, smi)
         batch, samples_per_s = training_batch(tmp, cfg, dev)
+        mesh_trained = mesh_train_phase(tmp, batch, dev, kind, smi)
     train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier)
     train_sync_free_phase(batch, cfg, dev)
     learning_phase(batch, cfg, dev)
@@ -4625,6 +5027,7 @@ def main() -> int:
         kernels_line[name]["launches"] = mesh_launches[name]
     for k in kernels_line.values():
         k["launches_mesh_serve"] = mesh_launches[k["name"]]
+        k["launches_mesh_train"] = {run: counts[k["name"]] for run, counts in mesh_trained.items()}
     # The backward's main path is the trainable-trunk run of cont_train.
     kernels_line["roi_pool_backward"]["launches"] = trained["cont_train"]["launches"]["roi_pool_backward"]
     print(json.dumps({"kernels": list(kernels_line.values())}), flush=True)

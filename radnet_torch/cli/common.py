@@ -1,6 +1,6 @@
 """Shared CLI helpers: the model directory, the inference CLIs' --quantize
-and mesh flags, detection drawing, and the training CLIs' shared flags, data
-and pipelines."""
+flag, every CLI's mesh flags, detection drawing, and the training CLIs'
+shared flags, data and pipelines."""
 
 from __future__ import annotations
 
@@ -36,14 +36,14 @@ def quantize_from_args(args) -> str | None:
 
 
 def add_mesh_args(p: argparse.ArgumentParser) -> None:
-    """The multi-device flags of the inference CLIs (the JAX package's, with
-    its defaults): tile batches split over the ``data`` axis and the RoI head
-    over ``model`` (radnet_torch/parallel).  One process runs each device;
-    the CLI spawns them itself."""
+    """The multi-device flags (the JAX package's, with its defaults): tile
+    batches split over the ``data`` axis and the RoI head over ``model``
+    (radnet_torch/parallel).  One process runs each device; the CLI spawns
+    them itself."""
     p.add_argument(
         "--n-devices", type=int, default=None,
-        help="run over an n-device mesh, one process a device (data-parallel tile "
-        "batches, tensor-parallel RoI head); default: single device",
+        help="run over an n-device mesh, one process a device (data-parallel batches, "
+        "tensor-parallel RoI head); default: single device",
     )
     p.add_argument(
         "--model-parallel", type=int, default=1,
@@ -52,12 +52,13 @@ def add_mesh_args(p: argparse.ArgumentParser) -> None:
     )
 
 
-def run_on_mesh(args, fn, *fn_args, **rank0_kwargs):
+def run_on_mesh(args, fn, *fn_args, devices=None, **rank0_kwargs):
     """``fn(*fn_args)`` once on this process without ``--n-devices``, else on
     each of its ranks, spawned here (rank 0 in this process, with
     ``rank0_kwargs``; the others' stdout discarded); returns rank 0's result.
-    Rank r runs on card r; more cards than the host has stop the run with a
-    message, never on the CPU."""
+    Rank r runs on card r, or on card ``devices[r]`` (a Python argument:
+    ranks that share a card run over gloo); more cards than the host has
+    stop the run with a message, never on the CPU."""
     n = getattr(args, "n_devices", None)
     if not n:
         return fn(*fn_args, **rank0_kwargs)
@@ -67,8 +68,8 @@ def run_on_mesh(args, fn, *fn_args, **rank0_kwargs):
     from radnet_torch.parallel.mesh import mesh_shape
 
     mesh_shape(n, args.model_parallel)
-    return launch(fn, n, device_type=torch.device(args.device).type, args=fn_args,
-                  rank0_kwargs=rank0_kwargs)
+    return launch(fn, n, device_type=torch.device(args.device).type, devices=devices,
+                  args=fn_args, rank0_kwargs=rank0_kwargs)
 
 
 def mesh_from_args(args):
@@ -146,18 +147,25 @@ def add_training_args(p: argparse.ArgumentParser, *, seed: int, n_epochs: int, l
     p.add_argument("--no-validation", action="store_true")
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--lr", type=float, default=lr)
-    p.add_argument("--n-devices", type=int, default=None,
-                   help="not ported: multi-device training (ROADMAP Queue 1 item 13b)")
-    p.add_argument("--model-parallel", type=int, default=1,
-                   help="not ported: multi-device training (ROADMAP Queue 1 item 13b)")
+    add_mesh_args(p)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; without a card pass --device cpu)")
 
 
-def refuse_unported(args) -> None:
-    if args.n_devices not in (None, 1) or args.model_parallel != 1:
-        raise SystemExit("--n-devices / --model-parallel: multi-device training is not ported "
-                         "yet (ROADMAP Queue 1 item 13b); serving and evaluation run on a mesh")
+def check_mesh_batch(args, config) -> None:
+    """The JAX package's ``shard_for_mesh`` refusal: the global batch must
+    divide over the data axis (and the model axis the mesh)."""
+    n = getattr(args, "n_devices", None)
+    if not n:
+        return
+    from radnet_torch.parallel.mesh import mesh_shape
+
+    dp, _ = mesh_shape(n, args.model_parallel)
+    if config.batch_size % dp:
+        raise SystemExit(
+            f"batch_size={config.batch_size} is not divisible by the "
+            f"data-parallel size {dp}; pass --batch-size a multiple of {dp}"
+        )
 
 
 def training_data(args, config):
@@ -171,21 +179,32 @@ def training_data(args, config):
     return data_train, class_count, data_val
 
 
-def training_pipelines(args, config, data_train, class_count, data_val, device):
-    """(train batches on ``device``, a factory of one validation pass or None)."""
+def training_pipelines(args, config, data_train, class_count, data_val, device, mesh=None):
+    """(train batches on ``device``, a factory of one validation pass or
+    None, as ``--no-validation`` says).  On a ``mesh`` rank 0 runs the one
+    pipeline and every rank gets its rows of each batch
+    (``prefetch_to_device``); the other ranks pass no data."""
     from radnet_torch.data.pipeline import (batched, parallel_sample_generator,
                                             prefetch_to_device, tile_sample_generator)
 
-    samples = parallel_sample_generator(data_train, config, class_count, config.class_mapping,
-                                        num_workers=args.num_workers, seed=args.seed)
-    train_batches = prefetch_to_device(
-        batched(samples, config.batch_size, config, drop_remainder=True), device)
-    if data_val is None:
+    host = mesh is None or mesh.is_main
+    train = None
+    if host:
+        samples = parallel_sample_generator(data_train, config, class_count,
+                                            config.class_mapping, num_workers=args.num_workers,
+                                            seed=args.seed)
+        train = batched(samples, config.batch_size, config, drop_remainder=True)
+    train_batches = prefetch_to_device(train, device, mesh=mesh)
+    if args.no_validation:
         return train_batches, None
 
     def val_factory():
-        val = tile_sample_generator(data_val, config, class_count, config.class_mapping,
-                                    train_mode=False, seed=args.seed)
-        return prefetch_to_device(batched(val, config.batch_size, config), device)
+        val = None
+        if host:
+            val = batched(tile_sample_generator(data_val, config, class_count,
+                                                config.class_mapping, train_mode=False,
+                                                seed=args.seed),
+                          config.batch_size, config)
+        return prefetch_to_device(val, device, mesh=mesh)
 
     return train_batches, val_factory

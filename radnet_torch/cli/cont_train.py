@@ -9,7 +9,9 @@ seeded from record.csv's lowest ``val_total_loss``.  The step follows the
 directory's ``train_schedule``.  The Adam moments (both states of the
 alternating schedule) and the step count resume too; when the trainability partition changed, or
 with ``--fresh-optimizer``, only the weights load.  Appends to record.csv.
-Runs on the card unless ``--device cpu``.
+Runs on the card unless ``--device cpu``.  ``--n-devices N
+[--model-parallel M]`` resumes on a mesh (as ``cli.train``), from a
+checkpoint that a mesh run or a single device wrote: checkpoints are whole.
 """
 
 from __future__ import annotations
@@ -31,26 +33,51 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    from radnet_torch.cli.common import refuse_unported, training_data, training_pipelines
+def main(argv=None, devices=None) -> int:
+    """``devices``: the card of each rank of ``--n-devices`` (default rank r
+    on card r; a Python argument, so that ranks can share one card)."""
+    from radnet_torch.cli.common import check_mesh_batch, run_on_mesh, training_data
+    from radnet_torch.config import Config
+    from radnet_torch.engine.loop import read_record
+    from radnet_torch.inference import resolve_device
+
+    args = build_argparser().parse_args(argv)
+    if not args.n_devices:
+        resolve_device(args.device)
+    model_path = os.path.join(args.models_path, args.model_name)
+    config = Config.load(os.path.join(model_path, "config.json"))
+    check_mesh_batch(args, config)
+    data = training_data(args, config)
+
+    record = None
+    record_path = os.path.join(model_path, "record.csv")
+    if os.path.exists(record_path):
+        record = read_record(record_path)
+    run_on_mesh(args, cont_train_rank, args, config.to_dict(), model_path, record, data=data,
+                devices=devices)
+    print("Training Complete! Exiting.")
+    return 0
+
+
+def cont_train_rank(args, config_dict: dict, model_path: str, record, data=None) -> None:
+    """Resume on this process, or on this rank of ``--n-devices``' mesh:
+    ``data`` is ``training_data``'s, given to rank 0 alone."""
+    from radnet_torch.cli.common import mesh_from_args, training_pipelines
     from radnet_torch.config import Config
     from radnet_torch.engine import checkpoint as ckpt
-    from radnet_torch.engine.loop import fit, read_record
+    from radnet_torch.engine.loop import fit
     from radnet_torch.engine.steps import make_eval_step, make_step
     from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import resolve_device
 
-    args = build_argparser().parse_args(argv)
-    refuse_unported(args)
-    device = resolve_device(args.device)
-
-    model_path = os.path.join(args.models_path, args.model_name)
-    config = Config.load(os.path.join(model_path, "config.json"))
-    data_train, class_count, data_val = training_data(args, config)
+    config = Config.from_dict(config_dict)
+    mesh = mesh_from_args(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    data_train, class_count, data_val = data or (None, None, None)
 
     trainable = config.base_net_cont_trainable
     state = create_train_state(config, torch.Generator().manual_seed(args.seed), device,
-                               learning_rate=args.lr, base_net_trainable=trainable)
+                               learning_rate=args.lr, base_net_trainable=trainable, mesh=mesh)
     ckpt_path = os.path.join(model_path, "ckpt_best")
     if not os.path.isfile(os.path.join(ckpt_path, ckpt.STATE_FILE)):
         ckpt_path = os.path.join(model_path, "ckpt_last")
@@ -65,23 +92,17 @@ def main(argv=None) -> int:
                   "restoring params only (fresh optimizer).")
             state = ckpt.restore_params_only(ckpt_path, state)
 
-    record = None
-    record_path = os.path.join(model_path, "record.csv")
-    if os.path.exists(record_path):
-        record = read_record(record_path)
-        vals = [r["val_total_loss"] for r in record if r.get("val_total_loss") is not None]
-        if vals:
-            best = min(best, min(vals))
+    vals = [r["val_total_loss"] for r in record or [] if r.get("val_total_loss") is not None]
+    if vals:
+        best = min(best, min(vals))
 
     train_step = make_step(state, config, trunk_trainable=trainable)
-    eval_step = make_eval_step(state, config) if data_val is not None else None
+    eval_step = make_eval_step(state, config) if not args.no_validation else None
     train_batches, val_factory = training_pipelines(args, config, data_train, class_count,
-                                                    data_val, device)
+                                                    data_val, device, mesh)
     fit(config, state, train_step, train_batches, model_path, epoch_length=args.epoch_length,
         n_epochs=args.n_epochs, eval_step=eval_step, val_batches_factory=val_factory,
         seed=args.seed, best_total_loss=best, record=record)
-    print("Training Complete! Exiting.")
-    return 0
 
 
 if __name__ == "__main__":

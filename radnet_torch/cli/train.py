@@ -16,9 +16,15 @@ conventional locations are searched (``models/weights.py``), for a Keras
 ``resnet50`` state_dict.  When ``base_net_weights`` is set and no file is
 found, ResNet50 stops (frozen batch norm at its identity init cannot train;
 ``--allow-random-init`` overrides) and VGG16 trains from random init with a
-warning.  Not ported yet, and refused: ``--n-devices`` /
-``--model-parallel`` above one device (multi-device training, ROADMAP Queue
-1 item 13b; serving and evaluation run on a mesh).
+warning.
+
+``--n-devices N [--model-parallel M]`` trains on an (N / M data x M model)
+mesh, one process a device (``radnet_torch/parallel``): each data index
+takes its slice of every batch (the batch size must divide over the data
+axis), the RoI head splits over the model axis, Adam's moments split with
+the parameters they mirror, and rank 0 reads the data and writes the model
+directory, whose checkpoints are whole (they serve and resume on any
+layout).  On the CPU (``--device cpu``) the ranks are gloo processes.
 
 Example (on the card, the default config from converted Keras weights):
   python scripts/h5_to_torch.py resnet50_notop.h5 resnet50.pt   # where h5py is
@@ -28,6 +34,10 @@ Example (CPU, a tiny run):
   python -m radnet_torch.cli.train --device cpu --config-json cfg.json \\
       --network vgg16 --train-schedule alternating \\
       --epoch-length 2 --n-epochs 2 --model-name smoke
+
+Example (two cards, the VGG16 head split over them):
+  python -m radnet_torch.cli.train --network vgg16 --n-devices 2 --model-parallel 2 \\
+      --model-name tp2
 """
 
 from __future__ import annotations
@@ -92,18 +102,18 @@ def apply_pretrained_weights(config, state, weights=None, allow_random_init=Fals
     return state
 
 
-def main(argv=None) -> int:
-    from radnet_torch.cli.common import (refuse_unported, silly_name_gen, training_data,
-                                         training_pipelines)
+def main(argv=None, devices=None) -> int:
+    """``devices``: the card of each rank of ``--n-devices`` (default rank r
+    on card r; a Python argument, so that ranks can share one card)."""
+    from radnet_torch.cli.common import (check_mesh_batch, run_on_mesh, silly_name_gen,
+                                         training_data)
     from radnet_torch.config import Config
-    from radnet_torch.engine.loop import create_model_folder, fit
-    from radnet_torch.engine.steps import make_eval_step, make_step
-    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.engine.loop import create_model_folder
     from radnet_torch.inference import resolve_device
 
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    if not args.n_devices:
+        resolve_device(args.device)
 
     config = Config.load(args.config_json) if args.config_json else Config()
     if args.network:
@@ -113,8 +123,9 @@ def main(argv=None) -> int:
         config.batch_size = args.batch_size
     if args.train_schedule:
         config.train_schedule = args.train_schedule
+    check_mesh_batch(args, config)
 
-    data_train, class_count, data_val = training_data(args, config)
+    data = training_data(args, config)
 
     if args.model_name:
         # The bare name or the prefixed form faster_rcnn_<net>_<name>.
@@ -132,19 +143,39 @@ def main(argv=None) -> int:
     config.weights_path = os.path.join(model_path, "ckpt_best")
     config.save(os.path.join(model_path, "config.json"))
 
+    run_on_mesh(args, train_rank, args, config.to_dict(), model_path, data=data, devices=devices)
+    print("Training Complete! Exiting.")
+    return 0
+
+
+def train_rank(args, config_dict: dict, model_path: str, data=None) -> None:
+    """Train on this process, or on this rank of ``--n-devices``' mesh:
+    ``data`` is ``training_data``'s, given to rank 0 alone."""
+    from radnet_torch.cli.common import mesh_from_args, training_pipelines
+    from radnet_torch.config import Config
+    from radnet_torch.engine.loop import fit
+    from radnet_torch.engine.steps import make_eval_step, make_step
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.inference import resolve_device
+    from radnet_torch.parallel.mesh import shard_train_state
+
+    config = Config.from_dict(config_dict)
+    mesh = mesh_from_args(args)
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    data_train, class_count, data_val = data or (None, None, None)
     state = create_train_state(config, torch.Generator().manual_seed(args.seed), device,
                                learning_rate=args.lr)
     state = apply_pretrained_weights(config, state, weights=args.weights,
                                      allow_random_init=args.allow_random_init)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
     train_step = make_step(state, config)
-    eval_step = make_eval_step(state, config) if data_val is not None else None
+    eval_step = make_eval_step(state, config) if not args.no_validation else None
     train_batches, val_factory = training_pipelines(args, config, data_train, class_count,
-                                                    data_val, device)
+                                                    data_val, device, mesh)
     fit(config, state, train_step, train_batches, model_path, epoch_length=args.epoch_length,
         n_epochs=args.n_epochs, eval_step=eval_step, val_batches_factory=val_factory,
         seed=args.seed)
-    print("Training Complete! Exiting.")
-    return 0
 
 
 if __name__ == "__main__":

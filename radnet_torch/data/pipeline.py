@@ -423,13 +423,9 @@ def _pin(batch: dict) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in batch.items()}
 
 
-def prefetch_to_device(batch_iter: Iterator[dict], device, size: int = 2) -> Iterator[dict]:
-    """Device batches of ``batch_iter``.  A thread pulls the host batches and,
-    for a CUDA device, copies them into pinned memory; the upload itself
-    runs here, on the consumer's stream, so it is ordered with the step that
-    reads it.  The thread stops when the consumer does."""
-    device = torch.device(device)
-    pin = device.type == "cuda"
+def _background(batch_iter: Iterator[dict], size: int, prepare=None) -> Iterator[dict]:
+    """``batch_iter``'s items (``prepare``d) pulled ahead by a thread, up to
+    ``size`` of them; the thread stops when the consumer does."""
     q: queue.Queue = queue.Queue(maxsize=size)
     sentinel = object()
     error: list[BaseException] = []
@@ -447,7 +443,7 @@ def prefetch_to_device(batch_iter: Iterator[dict], device, size: int = 2) -> Ite
     def producer():
         try:
             for batch in batch_iter:
-                if stop.is_set() or not put(_pin(batch) if pin else batch):
+                if stop.is_set() or not put(prepare(batch) if prepare else batch):
                     return
         except BaseException as e:
             error.append(e)
@@ -462,7 +458,7 @@ def prefetch_to_device(batch_iter: Iterator[dict], device, size: int = 2) -> Ite
                 if error:
                     raise error[0]
                 return
-            yield upload_batch(item, device)
+            yield item
     finally:
         stop.set()
         try:
@@ -470,3 +466,43 @@ def prefetch_to_device(batch_iter: Iterator[dict], device, size: int = 2) -> Ite
                 q.get_nowait()
         except queue.Empty:
             pass
+
+
+def rank_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a whole batch: its data index's equal slice."""
+    n = len(next(iter(batch.values()))) // mesh.data
+    return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n] for k, v in batch.items()}
+
+
+def prefetch_to_device(batch_iter: Iterator[dict] | None, device, size: int = 2,
+                       mesh=None) -> Iterator[dict]:
+    """Device batches of ``batch_iter``.  A thread pulls the host batches and,
+    for a CUDA device, copies them into pinned memory; the upload itself
+    runs here, on the consumer's stream, so it is ordered with the step that
+    reads it.  The thread stops when the consumer does.
+
+    On a ``mesh`` there is one stream, as the JAX package has one
+    controller: rank 0's ``batch_iter`` (the other ranks pass None).  Each
+    whole batch goes to every rank as a broadcast of CPU tensors
+    (``collectives.broadcast_arrays``, on this thread, so the ranks'
+    collectives keep one order), and each rank uploads its data index's
+    rows (:func:`rank_rows`)."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    if mesh is None:
+        for batch in _background(batch_iter, size, _pin if pin else None):
+            yield upload_batch(batch, device)
+        return
+    from radnet_torch.parallel.collectives import broadcast_arrays
+
+    host = _background(batch_iter, size) if mesh.is_main else None
+    try:
+        while True:
+            batch = broadcast_arrays(None if host is None else next(host, None), mesh)
+            if batch is None:
+                return
+            rows = rank_rows(batch, mesh)
+            yield upload_batch(_pin(rows) if pin else rows, device)
+    finally:
+        if host is not None:
+            host.close()

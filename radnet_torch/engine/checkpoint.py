@@ -8,6 +8,11 @@ The file is written beside and renamed into place, so a crash mid-save
 keeps the previous checkpoint.  Every save of ``ckpt_best``
 also writes the model directory's ``model.pt`` (float32 state_dict), which
 ``load_radnet`` and the serve and predict CLIs read.
+
+A train state on a mesh is saved whole, in this same form: its shards and
+their Adam moments are gathered over the model axis (exact) when the
+snapshot is taken, on every rank, and rank 0 writes it.  A checkpoint
+restores into any layout: each rank cuts the whole tensors to its shards.
 """
 
 from __future__ import annotations
@@ -45,13 +50,17 @@ def _to_cpu(obj):
 
 def snapshot(state: TrainState, best_total_loss: float) -> dict[str, Any]:
     """The checkpoint tree, copied on the device: training may go on
-    updating ``state`` while the copy is written."""
-    return {
-        "step": state.step,
-        "model": _clone(state.model.state_dict()),
-        "optimizer": _clone(state.optimizer.state_dict()),
-        "best_total_loss": float(best_total_loss),
-    }
+    updating ``state`` while the copy is written.  On a mesh every rank
+    calls it, in step, and gets the whole tree
+    (``parallel.mesh.gather_train_state``)."""
+    if state.mesh is not None:
+        from radnet_torch.parallel.mesh import gather_train_state
+
+        model_sd, opt_sd = gather_train_state(state)
+    else:
+        model_sd, opt_sd = _clone(state.model.state_dict()), _clone(state.optimizer.state_dict())
+    return {"step": state.step, "model": model_sd, "optimizer": opt_sd,
+            "best_total_loss": float(best_total_loss)}
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -81,15 +90,26 @@ def _partition(opt_state: dict):
     return {phase: s["n_params"] for phase, s in opt_state.items()}
 
 
+def _for_state(state: TrainState, model_sd: dict, opt_sd: dict | None = None):
+    """A whole saved tree's parts, cut to ``state``'s shards on a mesh."""
+    if state.mesh is None:
+        return model_sd, opt_sd
+    from radnet_torch.parallel.mesh import shard_saved_state
+
+    return shard_saved_state(state, model_sd, opt_sd)
+
+
 def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, float]:
     """Load a checkpoint into ``state`` (same model, schedule and trainable
-    set); raises ``ValueError`` when the optimizer's partition differs."""
+    set; any layout); raises ``ValueError`` when the optimizer's partition
+    differs."""
     tree = _load(path)
     saved, ours = _partition(tree["optimizer"]), _partition(state.optimizer.state_dict())
     if saved != ours:
         raise ValueError(f"checkpoint optimizer holds {saved} parameters, this partition {ours}")
-    state.model.load_state_dict(tree["model"])
-    state.optimizer.load_state_dict(tree["optimizer"])  # the moments resume, not the rate
+    model_sd, opt_sd = _for_state(state, tree["model"], tree["optimizer"])
+    state.model.load_state_dict(model_sd)
+    state.optimizer.load_state_dict(opt_sd)  # the moments resume, not the rate
     state.step = int(tree["step"])
     return state, float(tree["best_total_loss"])
 
@@ -97,5 +117,5 @@ def restore_checkpoint(path: str, state: TrainState) -> tuple[TrainState, float]
 def restore_params_only(path: str, state: TrainState) -> TrainState:
     """Load the model's parameters and statistics, keeping the fresh
     optimizer: the resume for a changed trainability partition."""
-    state.model.load_state_dict(_load(path)["model"])
+    state.model.load_state_dict(_for_state(state, _load(path)["model"])[0])
     return state

@@ -14,7 +14,19 @@ The observable contract of the JAX package's ``engine/loop.py``:
   save also writes ``model.pt``.
 
 Step metrics stay on the device during an epoch and are fetched once at
-its end.  When the run ends, the loss plots are written into ``viz/``
+its end.
+
+On a mesh (``state.mesh``) every rank runs the loop in step: each draws the
+whole batch's :class:`~radnet_torch.engine.steps.StepDraws` from one seed
+and keeps its rows, and the metrics are the whole batch's on every rank.
+Rank 0's watched loss decides ``ckpt_best`` for all (a broadcast), every
+rank takes part in a checkpoint's gather, and only rank 0 writes:
+record.csv, the logs, the checkpoints, ``viz/`` and the dashboard.  The
+Poisson noise of the photometric augmentation comes from a generator of its
+own, one a data index, seeded ``seed + 1 + data index``: its sampler reads a
+data-dependent count of random numbers, which would set the ranks' step
+generators apart.  So a mesh run draws the single device's draws, step
+after step, except the Poisson noise of data indices above 0.  When the run ends, the loss plots are written into ``viz/``
 (``engine/plots.py``) and ``dashboard.html`` is rendered from the two logs
 (``utils/dashboard.py``).
 """
@@ -33,7 +45,7 @@ import torch
 from radnet_torch.config import Config
 from radnet_torch.engine import checkpoint as ckpt
 from radnet_torch.engine.plots import save_training_plots
-from radnet_torch.engine.steps import METRIC_KEYS, draw_step
+from radnet_torch.engine.steps import METRIC_KEYS, draw_step, rank_draws
 from radnet_torch.engine.train_state import TrainState
 from radnet_torch.inference import WEIGHTS_FILE
 from radnet_torch.utils.dashboard import generate_dashboard
@@ -140,6 +152,17 @@ class AsyncSaver:
             raise self._error
 
 
+def _agreed(value: float, mesh) -> float:
+    """Rank 0's ``value`` on every rank of ``mesh`` (None: as it is)."""
+    if mesh is None or mesh.size == 1:
+        return value
+    import torch.distributed as dist
+
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.broadcast(t, src=0, group=mesh.host_group)
+    return float(t)
+
+
 def fit(
     config: Config,
     state: TrainState,
@@ -159,16 +182,35 @@ def fit(
     record rows.  Each step's :class:`~radnet_torch.engine.steps.StepDraws`
     come from a ``torch.Generator`` on the model's device seeded by
     ``seed``."""
-    create_model_folder(model_path)
+    mesh = getattr(state, "mesh", None)  # any state without one runs on one device
+    main = mesh is None or mesh.is_main
+    dp = 1 if mesh is None else mesh.data
     record_path = os.path.join(model_path, "record.csv")
-    metrics_log = open(os.path.join(model_path, "metrics.jsonl"), "a")
-    events = EventWriter(model_path)
+    if main:
+        create_model_folder(model_path)
+        metrics_log = open(os.path.join(model_path, "metrics.jsonl"), "a")
+        events = EventWriter(model_path)
     record = list(record or [])
     device = next(state.model.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    noise_gen = torch.Generator(device=device)
+    noise_gen.manual_seed(seed + 1 + (0 if mesh is None else mesh.data_index))
+
+    def draws_for(batch, photometric=True):
+        draws = draw_step(gen, config, batch["image"].shape[0] * dp, device,
+                          photometric=photometric)
+        if draws.photometric is not None:
+            draws.photometric.poisson_generator = noise_gen
+        return rank_draws(draws, mesh)
+
     start_time = time.time()
-    saver = AsyncSaver()
+    saver = AsyncSaver() if main else None
+
+    def close_logs():
+        if main:
+            metrics_log.close()
+            events.close()
 
     try:
         for epoch in range(n_epochs):
@@ -176,14 +218,15 @@ def fit(
             step_metrics = []
             for _ in range(epoch_length):
                 batch = next(train_batches)
-                draws = draw_step(gen, config, batch["image"].shape[0], device)
-                step_metrics.append(train_step(batch, draws))
+                step_metrics.append(train_step(batch, draws_for(batch)))
             rows = _fetch(step_metrics)  # the epoch's one read back
             first_step = state.step - epoch_length
-            for i, m in enumerate(rows):
-                metrics_log.write(json.dumps({"step": first_step + i, **m}) + "\n")
-                events.add_scalars(first_step + i, {tag: m[k] for k, tag in _STEP_TAGS.items()})
-            metrics_log.flush()
+            if main:
+                for i, m in enumerate(rows):
+                    metrics_log.write(json.dumps({"step": first_step + i, **m}) + "\n")
+                    events.add_scalars(first_step + i,
+                                       {tag: m[k] for k, tag in _STEP_TAGS.items()})
+                metrics_log.flush()
 
             # The watermark compares unrounded means; record.csv shows 3 decimals.
             curr_total = sum(_mean(rows, k) for k in LOSS_KEYS)
@@ -199,8 +242,7 @@ def fit(
                   "det_regr={loss_detector_regr} acc={detector_acc} total={total_loss}".format(**row))
 
             if eval_step is not None and val_batches_factory is not None:
-                val = _fetch([eval_step(b, draw_step(gen, config, b["image"].shape[0], device,
-                                                     photometric=False))
+                val = _fetch([eval_step(b, draws_for(b, photometric=False))
                               for b in val_batches_factory()])
                 val_total = sum(_mean(val, k) for k in LOSS_KEYS)
                 row["val_mean_overlapping_bboxes"] = round(_mean(val, "mean_overlapping_bboxes"), 3)
@@ -213,44 +255,48 @@ def fit(
             else:
                 watch = curr_total
 
+            watch = _agreed(watch, mesh)
             improved = watch < best_total_loss
             row["model_improvement"] = watch - best_total_loss if improved else None
             if improved:
                 print(f"Total loss decreased from {best_total_loss} to {watch}, saving weights")
                 best_total_loss = watch
             tree = ckpt.snapshot(state, best_total_loss)
-            if improved:
-                saver.submit(os.path.join(model_path, "ckpt_best"), tree,
-                             os.path.join(model_path, WEIGHTS_FILE))
-            saver.submit(os.path.join(model_path, "ckpt_last"), tree)
+            if main:
+                if improved:
+                    saver.submit(os.path.join(model_path, "ckpt_best"), tree,
+                                 os.path.join(model_path, WEIGHTS_FILE))
+                saver.submit(os.path.join(model_path, "ckpt_last"), tree)
 
-            events.add_scalars(len(record), {
-                "Elapsed_time": (time.time() - start_time) / 60,
-                "mean_overlapping_bboxes": _mean(rows, "mean_overlapping_bboxes"),
-                "mean_rpn_cls_loss": _mean(rows, "loss_rpn_cls"),
-                "mean_rpn_reg_loss": _mean(rows, "loss_rpn_regr"),
-                "mean_detector_cls_loss": _mean(rows, "loss_detector_cls"),
-                "mean_detector_reg_loss": _mean(rows, "loss_detector_regr"),
-                "mean_detector_acc": _mean(rows, "detector_acc"),
-                "total_loss": curr_total,
-            })
+                events.add_scalars(len(record), {
+                    "Elapsed_time": (time.time() - start_time) / 60,
+                    "mean_overlapping_bboxes": _mean(rows, "mean_overlapping_bboxes"),
+                    "mean_rpn_cls_loss": _mean(rows, "loss_rpn_cls"),
+                    "mean_rpn_reg_loss": _mean(rows, "loss_rpn_regr"),
+                    "mean_detector_cls_loss": _mean(rows, "loss_detector_cls"),
+                    "mean_detector_reg_loss": _mean(rows, "loss_detector_regr"),
+                    "mean_detector_acc": _mean(rows, "detector_acc"),
+                    "total_loss": curr_total,
+                })
             record.append(row)
-            write_record(record_path, record)
+            if main:
+                write_record(record_path, record)
     except BaseException:
-        try:
-            saver.close()
-        except BaseException as save_err:
-            print(f"checkpoint flush during shutdown failed: {save_err!r}")
-        metrics_log.close()
-        events.close()
+        if main:
+            try:
+                saver.close()
+            except BaseException as save_err:
+                print(f"checkpoint flush during shutdown failed: {save_err!r}")
+        close_logs()
         raise
+    if not main:
+        return state, record
     try:
         saver.close()
     finally:
         # Every epoch completed: close the logs, draw the plots and render
         # the dashboard even if the last checkpoint flush failed.
-        metrics_log.close()
-        events.close()
+        close_logs()
         save_training_plots(record, os.path.join(model_path, "viz"))
         try:
             generate_dashboard(model_path)

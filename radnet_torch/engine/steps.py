@@ -18,9 +18,21 @@ reference-exact schedule: an RPN update, proposals from the updated RPN,
 then a detector update with a second Adam state.
 
 Random choices are a :class:`StepDraws` per step, drawn by :func:`draw_step`
-from a ``torch.Generator`` on the device.  ``Config.train_bundle_steps``
-(the JAX package fuses K steps into one program with the same trajectory
-as K single steps) runs as K single steps here.
+from a ``torch.Generator`` on the device.
+
+On a mesh (``state.mesh``, ``parallel/mesh.py``) each rank runs its data
+index's tiles of the batch with its rows of the whole batch's draws
+(:func:`rank_draws`), through the tensor-parallel head where the model axis
+splits it (``state.tp_head``).  Each loss is its share of the whole batch's
+ratio of sums: the denominators are summed over the data axis first, as
+constants, then the gradients are summed over it, and the replicated
+parameters' are made one over the model axis
+(``collectives.all_reduce_grads``).  The metrics are the whole batch's, and
+so is the alternating schedule's gate, which stays on the device.
+
+``Config.train_bundle_steps`` (the JAX package fuses K steps into one
+program with the same trajectory as K single steps) runs as K single steps
+here.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ from radnet_torch.ops import augment_device
 from radnet_torch.ops.anchors import feature_anchors_xywh, image_anchors_xyxy
 from radnet_torch.ops.proposals import decode_proposals
 from radnet_torch.ops.targets import proposal_targets, rpn_targets, subset_bits
+from radnet_torch.parallel.collectives import all_reduce, all_reduce_grads
+from radnet_torch.parallel.mesh import DATA_AXIS
 
 METRIC_KEYS = ("loss_rpn_cls", "loss_rpn_regr", "loss_detector_cls", "loss_detector_regr",
                "total_loss", "detector_acc", "mean_overlapping_bboxes")
@@ -89,6 +103,35 @@ def draw_step(gen: torch.Generator, config: Config, b: int, device,
         draws.head_masks = tuple(torch.rand(shape, generator=gen, device=device) < vgg.KEEP_PROB
                                  for _ in range(2))
     return draws
+
+
+def rank_draws(draws: StepDraws, mesh) -> StepDraws:
+    """This rank's rows of the whole batch's draws: its data index's tiles,
+    and their RoIs' rows of the dropout masks (``mesh`` None: all)."""
+    if mesh is None or mesh.data == 1:
+        return draws
+    b = draws.rpn_pos_bits.shape[0] // mesh.data
+    lo, hi = mesh.data_index * b, (mesh.data_index + 1) * b
+    photo = draws.photometric
+    if photo is not None:
+        photo = dataclasses.replace(photo, **{
+            f.name: getattr(photo, f.name)[lo:hi] for f in dataclasses.fields(photo)
+            if isinstance(getattr(photo, f.name), torch.Tensor)})
+    masks = None
+    if draws.head_masks is not None:
+        r = draws.head_masks[0].shape[0] // (b * mesh.data)  # RoIs a tile
+        masks = tuple(m[lo * r:hi * r] for m in draws.head_masks)
+    return StepDraws(draws.rpn_pos_bits[lo:hi], draws.rpn_neg_bits[lo:hi],
+                     draws.roi_pos_u[lo:hi], draws.roi_neg_u[lo:hi], photo, masks)
+
+
+def _whole_batch(mesh, *local: torch.Tensor):
+    """The whole batch's sums of these sums over this rank's tiles, one
+    all-reduce over the data axis, as constants; None off a data-parallel
+    mesh, where each loss takes its own."""
+    if mesh is None or mesh.data == 1:
+        return None
+    return all_reduce(torch.stack([v.detach().float() for v in local]), mesh, DATA_AXIS).unbind()
 
 
 @dataclasses.dataclass
@@ -143,10 +186,19 @@ def _rpn_targets(config: Config, batch: dict, draws: StepDraws, consts: StepCons
     return tg.y_rpn_cls * sv, tg.y_rpn_regr * sv
 
 
-def _rpn_losses(config: Config, rpn_out, rpn_targets_):
+def _rpn_dens(config: Config, rpn_targets_, sample_valid: torch.Tensor, mesh):
+    """The whole batch's (RPN class, RPN regression, valid tiles)
+    denominators, or None off a data-parallel mesh."""
+    y_cls, y_regr = rpn_targets_
+    return _whole_batch(mesh, *losses.rpn_denominators(y_cls, y_regr, config.n_anchors),
+                        sample_valid.sum())
+
+
+def _rpn_losses(config: Config, rpn_out, rpn_targets_, dens=None):
     (rpn_cls, rpn_regr), (y_cls, y_regr) = rpn_out, rpn_targets_
-    return (losses.rpn_loss_cls(y_cls, rpn_cls, config.n_anchors),
-            losses.rpn_loss_regr(y_regr, rpn_regr, config.n_anchors))
+    d_cls, d_regr = (None, None) if dens is None else dens[:2]
+    return (losses.rpn_loss_cls(y_cls, rpn_cls, config.n_anchors, d_cls),
+            losses.rpn_loss_regr(y_regr, rpn_regr, config.n_anchors, d_regr))
 
 
 def _proposals_and_roi_targets(config: Config, rpn_cls, rpn_regr, batch: dict, draws: StepDraws,
@@ -172,20 +224,35 @@ def _proposals_and_roi_targets(config: Config, rpn_cls, rpn_regr, batch: dict, d
     return pt, pt.roi_valid.float() * sample_valid[:, None]
 
 
+def _detector_dens(config: Config, pt, roi_mask: torch.Tensor, mesh):
+    """The whole batch's (valid RoIs, detector regression) denominators, or
+    None off a data-parallel mesh."""
+    return _whole_batch(mesh, *losses.detector_denominators(pt.y_regr, config.n_classes - 1,
+                                                             roi_mask))
+
+
 def _detector_losses(model: FasterRCNN, config: Config, fmap, pt, roi_mask, masks,
-                     deterministic: bool = False):
+                     deterministic: bool = False, dens=None, head=None):
     """(class loss, regression loss, accuracy) of the RoI head on the
     sampled RoIs; ``masks``: the head's dropout masks, or None.  A
     ``deterministic`` pass (the eval step) runs the int8 head where the model
-    has one, as the JAX package's eval step does; training runs it float."""
-    det_cls, det_regr = model.roi_heads(fmap, pt.rois, masks=masks, quantize=deterministic)
-    return (losses.class_loss_cls(pt.y_class, det_cls, roi_mask),
-            losses.class_loss_regr(pt.y_regr, det_regr, config.n_classes - 1, roi_mask),
-            losses.detector_accuracy(pt.y_class, det_cls, roi_mask))
+    has one, as the JAX package's eval step does; training runs it float.
+    ``dens``: the whole batch's :func:`_detector_dens`; ``head``: the
+    tensor-parallel head, or None."""
+    det_cls, det_regr = model.roi_heads(fmap, pt.rois, masks=masks, quantize=deterministic,
+                                        head=head)
+    n_rois, d_regr = (None, None) if dens is None else dens
+    return (losses.class_loss_cls(pt.y_class, det_cls, roi_mask, n_rois),
+            losses.class_loss_regr(pt.y_regr, det_regr, config.n_classes - 1, roi_mask, d_regr),
+            losses.detector_accuracy(pt.y_class, det_cls, roi_mask, n_rois))
 
 
-def _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid) -> dict:
-    n_valid = sample_valid.sum().clamp_min(1.0)
+def _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid,
+             mesh=None, rpn_dens=None) -> dict:
+    """The step's metrics; on a data-parallel mesh each rank's shares,
+    summed over the data axis in one all-reduce (every rank then holds the
+    whole batch's)."""
+    n_valid = (sample_valid.sum() if rpn_dens is None else rpn_dens[2]).clamp_min(1.0)
     metrics = {
         "loss_rpn_cls": l_rpn_cls, "loss_rpn_regr": l_rpn_regr,
         "loss_detector_cls": l_det_cls, "loss_detector_regr": l_det_regr,
@@ -193,46 +260,69 @@ def _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid
         # Positive RoIs per image before sampling.
         "mean_overlapping_bboxes": (pt.n_pos.float() * sample_valid).sum() / n_valid,
     }
-    return {k: v.detach() for k, v in metrics.items()}
+    if rpn_dens is None:
+        return {k: v.detach() for k, v in metrics.items()}
+    shares = torch.stack([metrics[k].detach().float() for k in METRIC_KEYS])
+    return dict(zip(METRIC_KEYS, all_reduce(shares, mesh, DATA_AXIS).unbind()))
 
 
 def compute_losses(model: FasterRCNN, config: Config, batch: dict, draws: StepDraws,
                    consts: StepConstants, deterministic: bool,
-                   trunk_frozen: bool = False) -> tuple[torch.Tensor, dict]:
+                   trunk_frozen: bool = False, mesh=None, head=None) -> tuple[torch.Tensor, dict]:
     """Forward pass and the four losses of one batch of tiles: (total loss,
     metrics as 0-d tensors on the device).  ``deterministic``: no
-    augmentation and no dropout."""
+    augmentation and no dropout.  On a ``mesh``: this rank's tiles and
+    draws, its share of the loss, the whole batch's metrics; ``head``: the
+    tensor-parallel head, or None."""
     images = _augment_and_preprocess(config, batch["image"], draws, deterministic)
     sample_valid = batch["sample_valid"].float()
     y_rpn = _rpn_targets(config, batch, draws, consts, sample_valid)
+    rpn_dens = _rpn_dens(config, y_rpn, sample_valid, mesh)
 
     fmap = model.features(images)
     if trunk_frozen:
         fmap = fmap.detach()
     rpn_cls, rpn_regr = model.rpn(fmap)
-    l_rpn_cls, l_rpn_regr = _rpn_losses(config, (rpn_cls, rpn_regr), y_rpn)
+    l_rpn_cls, l_rpn_regr = _rpn_losses(config, (rpn_cls, rpn_regr), y_rpn, rpn_dens)
     pt, roi_mask = _proposals_and_roi_targets(config, rpn_cls, rpn_regr, batch, draws, consts,
                                               sample_valid)
     l_det_cls, l_det_regr, acc = _detector_losses(
         model, config, fmap, pt, roi_mask, None if deterministic else draws.head_masks,
-        deterministic)
-    metrics = _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid)
+        deterministic, _detector_dens(config, pt, roi_mask, mesh), head)
+    metrics = _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid,
+                       mesh, rpn_dens)
     return l_rpn_cls + l_rpn_regr + l_det_cls + l_det_regr, metrics
+
+
+def _grad_sync(state: TrainState, adam):
+    """On a mesh, a function that sums ``adam``'s gradients over the data
+    axis and then makes the replicated ones one over the model axis
+    (``collectives.all_reduce_grads``); off a mesh one that does nothing."""
+    if state.mesh is None:
+        return lambda: None
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    replicated = [p for p in adam.params if names[id(p)] not in state.shard_dims]
+    return lambda: all_reduce_grads(adam.params, state.mesh, replicated)
 
 
 def make_train_step(state: TrainState, config: Config, trunk_trainable: bool | None = None):
     """``step(batch, draws) -> metrics``: one Adam update of ``state`` in
     place.  ``trunk_trainable`` must match the partition the optimizer was
-    built with (default ``config.base_net_trainable``)."""
+    built with (default ``config.base_net_trainable``).  On a mesh the step
+    takes this rank's tiles and :func:`rank_draws`."""
     if trunk_trainable is None:
         trunk_trainable = config.base_net_trainable
     consts = step_constants(config, next(state.model.parameters()).device)
+    mesh = state.mesh
+    sync_grads = _grad_sync(state, state.optimizer)
 
     def train_step(batch: dict, draws: StepDraws) -> dict:
         state.optimizer.zero_grad()
         total, metrics = compute_losses(state.model, config, batch, draws, consts, False,
-                                        trunk_frozen=not trunk_trainable)
+                                        trunk_frozen=not trunk_trainable, mesh=mesh,
+                                        head=state.tp_head)
         total.backward()
+        sync_grads()
         state.optimizer.step()
         state.step += 1
         return metrics
@@ -261,22 +351,28 @@ def make_alternating_train_step(state: TrainState, config: Config,
     if trunk_trainable is None:
         trunk_trainable = config.base_net_trainable
     consts = step_constants(config, next(state.model.parameters()).device)
-    opt = state.optimizer
+    opt, mesh = state.optimizer, state.mesh
+    syncs = {id(adam): _grad_sync(state, adam) for adam in (opt.rpn, opt.det)}
+
+    def update(adam, gate=None):
+        syncs[id(adam)]()
+        adam.step(gate=gate)
 
     def train_step(batch: dict, draws: StepDraws) -> dict:
         model = state.model
         images = _augment_and_preprocess(config, batch["image"], draws, False)
         sample_valid = batch["sample_valid"].float()
         y_rpn = _rpn_targets(config, batch, draws, consts, sample_valid)
+        rpn_dens = _rpn_dens(config, y_rpn, sample_valid, mesh)
 
         # 1. RPN update.
         opt.rpn.zero_grad()
         fmap = model.features(images)
         if not trunk_trainable:
             fmap = fmap.detach()
-        l_rpn_cls, l_rpn_regr = _rpn_losses(config, model.rpn(fmap), y_rpn)
+        l_rpn_cls, l_rpn_regr = _rpn_losses(config, model.rpn(fmap), y_rpn, rpn_dens)
         (l_rpn_cls + l_rpn_regr).backward()
-        opt.rpn.step()
+        update(opt.rpn)
 
         # 2. Proposals from the updated parameters.
         if trunk_trainable:
@@ -286,14 +382,18 @@ def make_alternating_train_step(state: TrainState, config: Config,
         pt, roi_mask = _proposals_and_roi_targets(config, rpn_cls, rpn_regr, batch, draws, consts,
                                                   sample_valid)
 
-        # 3. Detector update, skipped on the device without a valid RoI.
+        # 3. Detector update, skipped on the device without a valid RoI in
+        # the whole batch.
         opt.det.zero_grad()
+        det_dens = _detector_dens(config, pt, roi_mask, mesh)
         l_det_cls, l_det_regr, acc = _detector_losses(model, config, fmap, pt, roi_mask,
-                                                      draws.head_masks)
+                                                      draws.head_masks, dens=det_dens,
+                                                      head=state.tp_head)
         (l_det_cls + l_det_regr).backward()
-        opt.det.step(gate=roi_mask.sum() > 0)
+        update(opt.det, gate=(roi_mask.sum() if det_dens is None else det_dens[0]) > 0)
         state.step += 1
-        return _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid)
+        return _metrics(l_rpn_cls, l_rpn_regr, l_det_cls, l_det_regr, acc, pt, sample_valid,
+                        mesh, rpn_dens)
 
     return train_step
 
@@ -306,11 +406,13 @@ def make_step(state: TrainState, config: Config, trunk_trainable: bool | None = 
 
 
 def make_eval_step(state: TrainState, config: Config):
-    """``step(batch, draws) -> metrics``: losses only, no augmentation."""
+    """``step(batch, draws) -> metrics``: losses only, no augmentation (on a
+    mesh, as :func:`make_train_step` takes its inputs)."""
     consts = step_constants(config, next(state.model.parameters()).device)
 
     @torch.no_grad()
     def eval_step(batch: dict, draws: StepDraws) -> dict:
-        return compute_losses(state.model, config, batch, draws, consts, True)[1]
+        return compute_losses(state.model, config, batch, draws, consts, True, mesh=state.mesh,
+                              head=state.tp_head)[1]
 
     return eval_step

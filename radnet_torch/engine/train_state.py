@@ -20,6 +20,7 @@ RoI through the gate, without reading anything back to the host.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -137,11 +138,22 @@ class PhaseAdams:
 class TrainState:
     """The model (its parameters and frozen statistics), the optimizer over
     its trainable set (a :class:`PhaseAdams` for the alternating schedule),
-    and the number of optimizer steps taken."""
+    and the number of optimizer steps taken.  On a mesh: this rank's
+    ``mesh``, the sharded dimension of each split parameter by name
+    (``shard_dims``), and the tensor-parallel head that runs them
+    (``tp_head``; None where the head is whole)."""
 
     model: FasterRCNN
     optimizer: GatedAdam | PhaseAdams
     step: int = 0
+    mesh: Any = None
+    shard_dims: dict = dataclasses.field(default_factory=dict)
+    tp_head: Any = None
+
+    def adams(self) -> list[GatedAdam]:
+        """The Adam states: one, or the two phases' (RPN first)."""
+        opt = self.optimizer
+        return [opt.rpn, opt.det] if isinstance(opt, PhaseAdams) else [opt]
 
 
 def trainability_labels(model: FasterRCNN, network: str, base_net_trainable: bool) -> dict[str, str]:
@@ -180,10 +192,12 @@ def make_phase_optimizers(model: FasterRCNN, learning_rate: float) -> PhaseAdams
 
 def create_train_state(config: Config, generator: torch.Generator, device,
                        learning_rate: float = 5e-5, base_net_trainable: bool | None = None,
-                       model: FasterRCNN | None = None) -> TrainState:
+                       model: FasterRCNN | None = None, mesh=None) -> TrainState:
     """A seeded model (or ``model``) on ``device`` with Adam over its
     trainable set: one state for the joint ``config.train_schedule``, the
-    two phase states for the alternating one."""
+    two phase states for the alternating one.  ``mesh``: this rank's
+    :class:`~radnet_torch.parallel.mesh.Mesh`; the state is then sharded on
+    it (every rank makes the same whole model from the same generator)."""
     schedule = config.train_schedule
     if schedule not in SCHEDULES:
         raise ValueError(f"train_schedule {schedule!r} is not one of {SCHEDULES}")
@@ -194,5 +208,11 @@ def create_train_state(config: Config, generator: torch.Generator, device,
     model = model.to(device)
     params = set_trainable(model, config.network, base_net_trainable)
     if schedule == "alternating":
-        return TrainState(model, make_phase_optimizers(model, learning_rate))
-    return TrainState(model, GatedAdam(params, learning_rate))
+        state = TrainState(model, make_phase_optimizers(model, learning_rate))
+    else:
+        state = TrainState(model, GatedAdam(params, learning_rate))
+    if mesh is not None:
+        from radnet_torch.parallel.mesh import shard_train_state
+
+        state = shard_train_state(state, mesh)
+    return state

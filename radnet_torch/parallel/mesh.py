@@ -15,7 +15,11 @@ data index first, model index minor, as JAX's ``np.array(devices).reshape(n
   replicated, ``conv2c`` and s5a's ``conv_sc`` column-parallel, the output
   layers row-parallel (``tp.py`` runs them).
 
-Everything else (trunk, RPN) is replicated on every rank.  The rules name
+Everything else (trunk, RPN) is replicated on every rank.  A train state
+(:func:`shard_train_state`) holds the shards as the model's parameters, and
+Adam's moments are cut by the rule of the parameter they mirror; frozen
+batch norm statistics and the step counts stay whole.  Checkpoints hold the
+whole state (:func:`gather_train_state`, :func:`shard_saved_state`).  The rules name
 the port's parameters and layouts (``models/bridge.py``): a conv weight is
 OIHW where JAX's kernel is HWIO, a dense weight ``(out, in)`` where JAX's is
 ``(in, out)``, so each rule's sharded dimension is JAX's moved with the
@@ -190,12 +194,96 @@ def shard_state_dict(state: dict, model_parallel: int, model_index: int, *,
     ``model_parallel`` equal slices along the rule's dimension (a contiguous
     copy), the rest as they are."""
     dims = make_param_shardings(state, model_parallel, warn_label=warn_label)
+    return {name: t if dims[name] is None else _slice(t, dims[name], model_parallel, model_index)
+            for name, t in state.items()}
+
+
+def _slice(t: torch.Tensor, dim: int, parts: int, index: int) -> torch.Tensor:
+    n = t.shape[dim] // parts
+    return t.narrow(dim, index * n, n).contiguous()
+
+
+def shard_of(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` along ``dim``, one of ``mesh.model`` equal
+    ones (a contiguous copy)."""
+    return _slice(t, dim, mesh.model, mesh.model_index)
+
+
+def shard_train_state(state, mesh: Mesh):
+    """Place a whole train state on this rank of ``mesh``, in place, and
+    return it: the head's split parameters become this rank's shards
+    (``tp.shard_head_``), each Adam state's moments of a split parameter are
+    cut by the same rule, and ``state.tp_head`` runs the split head.  On a
+    model axis of one rank only the mesh is recorded."""
+    from radnet_torch.parallel import tp
+
+    model = state.model
+    names = {id(p): n for n, p in model.named_parameters()}
+    dims = {f"head.{k}": d for k, d in tp.shard_head_(model.head, mesh, warn_label="model").items()}
+    params = dict(model.named_parameters())
+    for adam in state.adams():
+        for i, p in enumerate(adam.params):
+            name = names[id(p)]
+            if name in dims:
+                adam.params[i] = params[name]
+                adam.exp_avg[i] = shard_of(adam.exp_avg[i], dims[name], mesh)
+                adam.exp_avg_sq[i] = shard_of(adam.exp_avg_sq[i], dims[name], mesh)
+    state.mesh, state.shard_dims = mesh, dims
+    state.tp_head = tp.tp_head(model.head, mesh) if dims else None
+    return state
+
+
+def _adam_dims(state) -> list[list]:
+    """Each Adam state's sharded dimension of each of its parameters (None:
+    whole)."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [[state.shard_dims.get(names[id(p)]) for p in adam.params] for adam in state.adams()]
+
+
+def _per_adam(state, opt_state: dict, fn) -> dict:
+    """``opt_state`` (the optimizer's state_dict form) with ``fn(moment,
+    dim)`` applied to every moment, each Adam state's parameters' dims."""
+    phases = ["rpn", "det"] if "rpn" in opt_state else [None]
     out = {}
-    for name, t in state.items():
-        dim = dims[name]
-        if dim is None:
-            out[name] = t
-        else:
-            n = t.shape[dim] // model_parallel
-            out[name] = t.narrow(dim, model_index * n, n).contiguous()
+    for phase, dims in zip(phases, _adam_dims(state)):
+        one = dict(opt_state if phase is None else opt_state[phase])
+        for key in ("exp_avg", "exp_avg_sq"):
+            one[key] = [fn(t, d) for t, d in zip(one[key], dims)]
+        if phase is None:
+            return one
+        out[phase] = one
     return out
+
+
+def gather_train_state(state) -> tuple[dict, dict]:
+    """``(model state_dict, optimizer state_dict)`` of a sharded train
+    state, whole, in the single device's form: each shard gathered over the
+    model axis (exact), the rest cloned.  Every rank of the mesh calls it,
+    in step; the tensors are new, so training may go on updating ``state``
+    while they are written."""
+    from radnet_torch.parallel.collectives import all_gather
+
+    mesh = state.mesh
+
+    def whole(t, dim):
+        t = t.detach()
+        return t.clone() if dim is None else all_gather(t.contiguous(), mesh, MODEL_AXIS, dim=dim)
+
+    model_sd = {k: whole(v, state.shard_dims.get(k)) for k, v in state.model.state_dict().items()}
+    opt_sd = _per_adam(state, state.optimizer.state_dict(), whole)
+    for one in (opt_sd["rpn"], opt_sd["det"]) if "rpn" in opt_sd else (opt_sd,):
+        one["count"] = one["count"].detach().clone()
+    return model_sd, opt_sd
+
+
+def shard_saved_state(state, model_sd: dict, opt_sd: dict | None = None) -> tuple[dict, dict | None]:
+    """A whole saved ``(model state_dict, optimizer state_dict)`` cut to
+    this rank's shards of ``state`` (the inverse of
+    :func:`gather_train_state`)."""
+    mesh = state.mesh
+
+    def cut(t, dim):
+        return t if dim is None else shard_of(t, dim, mesh)
+
+    model_sd = {k: cut(v, state.shard_dims.get(k)) for k, v in model_sd.items()}
+    return model_sd, None if opt_sd is None else _per_adam(state, opt_sd, cut)

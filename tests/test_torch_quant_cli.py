@@ -10,8 +10,17 @@ same sets, probabilities within tests/test_torch_quant.py's PROB_TOL) and
 mAP (within PROB_TOL: an AP moves only where two detections trade places).
 The eval step of a model built with ``infer_quantize="int8"`` gives JAX's
 eval losses within 1e-4 relative, the float steps' tolerance (read: at most
-4.5e-6).  ``cv2.resize`` is patched to the port's bicubic, so both packages
-see the same prescaled panels.
+4.5e-6), at one thread and at torch's default thread count.  The losses
+that the int8 head reaches are held on one head input, JAX's, against
+JAX's head run op by op: some stage-5 activations of the tiny ResNet50 sit
+within 4e-6 of an int8 rounding boundary (25.4999966 against 25.5000008),
+so float32 noise decides how their codes round.  The trunk's sums, whose
+order follows the thread count, move the port's head input by that much,
+and JAX's own head, jitted and run op by op on one input, rounds such codes
+apart and gives probabilities 2% apart (one code moves the class loss by
+2e-4 relative).  The port's head reproduces the op-by-op codes bit for bit.
+``cv2.resize`` is patched to the port's bicubic, so both packages see the
+same prescaled panels.
 """
 
 import csv
@@ -24,9 +33,12 @@ import sys
 
 import cv2
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from flax import linen as nn
 
 from radnet_torch.cli import common as tcommon
 from radnet_torch.cli import predict as tpredict
@@ -54,7 +66,11 @@ from tests.util import synthetic_batch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
 import export_jax_model  # noqa: E402
 
+DEFAULT_THREADS = torch.get_num_threads()
 torch.set_num_threads(1)
+
+# The metrics that the RoI head does not reach.
+HEADLESS_KEYS = ("loss_rpn_cls", "loss_rpn_regr", "mean_overlapping_bboxes")
 
 
 @pytest.fixture(scope="module")
@@ -211,27 +227,95 @@ def test_test_cli_int8_matches_jax(jax_dir, tmp_path, same_resize):
         assert abs(got[k] - want[k]) <= PROB_TOL, (k, got[k], want[k])
 
 
+class head_inputs:
+    """A context in which the flax detector's RoI head records its input
+    (the pooled RoIs), also from inside ``jax.jit``."""
+
+    def __init__(self):
+        self.inputs = []
+
+    def _intercept(self, next_fun, args, kwargs, context):
+        if context.module.name == "head" and context.method_name == "__call__":
+            jax.debug.callback(lambda x: self.inputs.append(np.asarray(x)), args[0])
+        return next_fun(*args, **kwargs)
+
+    def __enter__(self):
+        self._ctx = nn.intercept_methods(self._intercept)
+        self._ctx.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._ctx.__exit__(*exc)
+
+
+def _port_eval(ts, tcfg, batch, draws, head_input=None, head_output=None):
+    """The port's eval metrics and its head's input.  ``head_input``: run
+    the head on these pooled RoIs instead of its own; ``head_output``: use
+    these (class probs, deltas) in place of the head's."""
+    head, seen = ts.model.head, []
+    forward = head.forward
+
+    def fwd(rois, *args, **kw):
+        seen.append(rois.detach().clone())
+        if head_output is not None:
+            return head_output
+        return forward(rois if head_input is None else head_input, *args, **kw)
+
+    head.forward = fwd
+    try:
+        got = tsteps.make_eval_step(ts, tcfg)(
+            {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}, draws)
+    finally:
+        del head.forward
+    return {k: float(v) for k, v in got.items()}, seen[0]
+
+
+def _close_metrics(got, want, keys):
+    for k in keys:
+        w = float(want[k])
+        assert abs(got[k] - w) <= max(1e-4 * abs(w), 1e-7), (k, got[k], w)
+
+
 @pytest.mark.parametrize("network", ["resnet50", "vgg16"])
 def test_eval_step_int8_matches_jax(network):
     """make_eval_step of an int8 model: JAX's eval losses (the int8 head on
-    the sampled RoIs, as radnet_tpu's make_eval_step runs it)."""
+    the sampled RoIs, as radnet_tpu's make_eval_step runs it), at one thread
+    and at the default count.  The port's head input is JAX's within
+    float32 noise; the losses the head reaches are held on JAX's head input,
+    against JAX's head run op by op (the module doc)."""
     cfg, _, params, bstats = jax_detector(network, 0)
     qcfg = dataclasses.replace(cfg, infer_quantize="int8")
     batch = synthetic_batch(qcfg, batch=2, seed=3)
     key = jax.random.PRNGKey(12)
     jmodel = jax_build_model(qcfg)
-    _, want = jax.jit(lambda p: jsteps.compute_losses(jmodel, qcfg, p, bstats, batch, key, True))(params)
-    want = jax.device_get(want)
+    with head_inputs() as rec:
+        _, want = jax.jit(lambda p: jsteps.compute_losses(jmodel, qcfg, p, bstats, batch, key,
+                                                          True))(params)
+        want = jax.device_get(want)
+        jax.effects_barrier()
+    jax_pool = torch.from_numpy(rec.inputs[-1].copy())
+    jax_head = tuple(torch.from_numpy(np.array(a)) for a in jmodel.apply(
+        {"params": params, "batch_stats": bstats}, jnp.asarray(rec.inputs[-1]),
+        method=lambda m, x: m.head(x, deterministic=True)))
 
     tcfg = torch_config(qcfg)
     ts = tstate.create_train_state(tcfg, torch.Generator(), "cpu", model=port_model(qcfg, params, bstats))
     assert ts.model.head_quant == "int8"
     draws = jax_step_draws(key, qcfg, 2, batch["image"].shape, grey=True)
-    got = tsteps.make_eval_step(ts, tcfg)({k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
-                                          draws)
     _, fwant = jax.jit(lambda p: jsteps.compute_losses(jax_build_model(cfg), cfg, p, bstats, batch, key,
                                                        True))(params)
     assert float(want["loss_detector_regr"]) != float(fwant["loss_detector_regr"])  # int8 ran
-    for k in tsteps.METRIC_KEYS:
-        w = float(want[k])
-        assert abs(float(got[k]) - w) <= max(1e-4 * abs(w), 1e-7), (k, float(got[k]), w)
+    try:
+        for threads in sorted({1, DEFAULT_THREADS}):
+            torch.set_num_threads(threads)
+            got, pool = _port_eval(ts, tcfg, batch, draws)
+            _close_metrics(got, want, HEADLESS_KEYS)
+            assert pool.shape == jax_pool.shape
+            torch.testing.assert_close(pool, jax_pool, rtol=1e-4,
+                                       atol=1e-4 * float(jax_pool.abs().max()))
+            got, _ = _port_eval(ts, tcfg, batch, draws, head_input=jax_pool)
+            ref, _ = _port_eval(ts, tcfg, batch, draws, head_output=jax_head)
+            assert ref["loss_detector_cls"] > 0
+            _close_metrics(got, ref, tsteps.METRIC_KEYS)
+    finally:
+        torch.set_num_threads(1)

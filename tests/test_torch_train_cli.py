@@ -124,7 +124,9 @@ def test_train_then_cont_train_then_predict(dataset):
     # --weights is searched first: a file that is not there is not found.
     with pytest.raises(SystemExit, match="no weight file was found"):
         ttrain.main(base + ["--config-json", str(cfg_path), "--weights", "x.h5"])
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 13"):
+    # A mesh trains (tests/test_torch_mesh_train_cli.py); a batch that does
+    # not divide over its data axis is refused with the JAX package's message.
+    with pytest.raises(SystemExit, match="batch_size=2 is not divisible by the data-parallel size 4"):
         ttrain.main(base + ["--config-json", str(cfg_path), "--n-devices", "4"])
 
     rc = ttrain.main(base + ["--config-json", str(cfg_path), "--model-name", "smoke",

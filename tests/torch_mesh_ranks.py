@@ -83,3 +83,114 @@ def grey_canvases(n: int, canvas: int, valid: int, seed: int) -> np.ndarray:
             grey[y : y + bh, x : x + bw] = rng.integers(120, 255)
         out[i, :valid, :valid] = grey[..., None]
     return out
+
+
+def draws_to_numpy(draws) -> dict:
+    """A StepDraws as a dict of numpy arrays (it pickles to spawned ranks)."""
+    import dataclasses
+
+    out = {f: getattr(draws, f).numpy() for f in ("rpn_pos_bits", "rpn_neg_bits",
+                                                   "roi_pos_u", "roi_neg_u")}
+    if draws.photometric is not None:
+        for f in dataclasses.fields(draws.photometric):
+            v = getattr(draws.photometric, f.name)
+            if isinstance(v, torch.Tensor):
+                out[f"photo.{f.name}"] = v.numpy()
+    if draws.head_masks is not None:
+        out["mask1"], out["mask2"] = (m.numpy() for m in draws.head_masks)
+    return out
+
+
+def draws_from_numpy(d: dict):
+    from radnet_torch.engine.steps import StepDraws
+    from radnet_torch.ops.augment_device import PhotometricDraws
+
+    t = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    photo = {k[len("photo."):]: v for k, v in t.items() if k.startswith("photo.")}
+    return StepDraws(t["rpn_pos_bits"], t["rpn_neg_bits"], t["roi_pos_u"], t["roi_neg_u"],
+                     PhotometricDraws(**photo) if photo else None,
+                     (t["mask1"], t["mask2"]) if "mask1" in t else None)
+
+
+def _replicated_equal(state, mesh) -> dict:
+    """Whether every replicated parameter is bit-equal across each axis of
+    the mesh (each rank's whole flat copy gathered over the axis)."""
+    from radnet_torch.parallel.collectives import all_gather
+    from radnet_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    flat = torch.cat([p.detach().reshape(-1) for n, p in state.model.named_parameters()
+                      if n not in state.shard_dims])
+    out = {}
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        g = all_gather(flat[None], mesh, axis, dim=0)
+        out[axis] = all(torch.equal(g[0], g[i]) for i in range(g.shape[0]))
+    return out
+
+
+def train_steps(model_parallel: int, jobs: list) -> list:
+    """Each job's train steps of one whole batch on this rank's mesh (all
+    the launched ranks, the model axis ``model_parallel``; rank 0's results
+    in order): each rank takes its rows of the batch and of the draws.  A
+    job's result holds the metrics of each step, the whole state after them
+    (``gather_train_state``), and whether the replicated parameters are
+    bit-equal over each axis after each step.
+
+    A job: ``cfg`` (a Config dict), ``state`` (a numpy state_dict),
+    ``batch`` (numpy), ``draws`` (a list of :func:`draws_to_numpy`, one a
+    step), ``lr``, ``trainable``."""
+    mesh = make_mesh(model_parallel=model_parallel, device_type="cpu")
+    return [_train_job(mesh, job) for job in jobs]
+
+
+def _train_job(mesh, job: dict) -> dict:
+    from radnet_torch.data.pipeline import rank_rows
+    from radnet_torch.engine.steps import make_step, rank_draws
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.parallel.mesh import gather_train_state
+
+    cfg = Config.from_dict(job["cfg"])
+    model = build_model(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in job["state"].items()})
+    state = create_train_state(cfg, torch.Generator(), "cpu", learning_rate=job["lr"],
+                               base_net_trainable=job["trainable"], model=model.train(),
+                               mesh=mesh)
+    step = make_step(state, cfg, trunk_trainable=job["trainable"])
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in rank_rows(job["batch"], mesh).items()}
+    metrics, equal = [], []
+    for d in job["draws"]:
+        m = step(batch, rank_draws(draws_from_numpy(d), mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+        equal.append(_replicated_equal(state, mesh))
+    model_sd, opt_sd = gather_train_state(state)
+    return {"metrics": metrics, "equal": equal, "shard_dims": dict(state.shard_dims),
+            "model": {k: v.numpy() for k, v in model_sd.items()},
+            "optimizer": _tree_numpy(opt_sd)}
+
+
+def _tree_numpy(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.numpy()
+    if isinstance(obj, dict):
+        return {k: _tree_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_tree_numpy(v) for v in obj]
+    return obj
+
+
+def restore_and_gather(model_parallel: int, cfg_dict: dict, ckpt_path: str) -> dict:
+    """A checkpoint restored into a train state sharded on this rank's mesh,
+    then gathered whole again (rank 0's): ``{"step", "model",
+    "optimizer"}`` as numpy, and each rank's shard shapes."""
+    from radnet_torch.engine import checkpoint as ckpt
+    from radnet_torch.engine.train_state import create_train_state
+    from radnet_torch.parallel.mesh import gather_train_state
+
+    mesh = make_mesh(model_parallel=model_parallel, device_type="cpu")
+    cfg = Config.from_dict(cfg_dict)
+    state = create_train_state(cfg, torch.Generator().manual_seed(1), "cpu",
+                               base_net_trainable=cfg.base_net_cont_trainable, mesh=mesh)
+    state, best = ckpt.restore_checkpoint(ckpt_path, state)
+    model_sd, opt_sd = gather_train_state(state)
+    shapes = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+    return {"step": state.step, "best": best, "model": _tree_numpy(model_sd),
+            "optimizer": _tree_numpy(opt_sd), "shard_shapes": shapes}
