@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of radnet_torch, the PyTorch port, on one NVIDIA card.
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--log FILE]
+(--log also appends every line it prints to FILE).
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device     card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -68,11 +69,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 val.csv; radnet_torch.cli.train at the default config (2
                 epochs of 8 steps, validation, --allow-random-init), then
                 cli.cont_train (1 epoch of 8 steps, trunk trainable), then
-                load_radnet(...).predict on a panel: record.csv has 3 rows,
-                the checkpoints, model.pt and each run's dashboard.html exist,
-                and each run launched one NMS and one RoI forward per step or
-                validation batch, and the backward once per trainable step
-                (never when frozen);
+                load_radnet(...).predict on a panel; both run the joint
+                steps in bundles of train_bundle_steps (4: one CUDA graph
+                replay a bundle), and one more cli.train on an epoch of 6
+                steps (a bundle, then 2 single steps, no validation):
+                record.csv has 3 rows (1), metrics.jsonl a line a step in
+                order, the checkpoints, model.pt and each run's
+                dashboard.html exist, the runs made the bundle calls
+                expected and one warm-up step each, and each launched one
+                NMS and one RoI forward per step, validation batch or
+                warm-up step, and the backward once per trainable step or
+                warm-up (never when frozen);
  12. evaluate   on the model cli.train wrote, a test set of 12 synthetic
                 2400 x 2400 panels (the two validation panels and 22 more):
                 radnet_torch.cli.test --coco-map (every class and mAP in
@@ -96,9 +103,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 RoIPoolFunction backward before (zero fill, atomic kernel,
                 cast) and after (one kernel, the only one a call launches);
  14. train_sync_free  one train step under set_sync_debug_mode("error");
- 15. learning   60 steps on one fixed batch, photometric augmentation off:
+ 15. train_bundle  engine.steps.make_train_bundle at the default config (4
+                steps, batch 8), trunk frozen and trainable: under cuDNN's
+                deterministic algorithms, in float32 and bf16, one bundle
+                (warm-up, capture, replay) bit-equal to 4 eager steps from
+                copies of one state and its generators (parameters, Adam's
+                count and moments, the metrics, the draw and Poisson
+                generators); at the default settings beside two eager runs
+                (the first step's metrics, the frozen run at mesh_train's
+                limits; the trainable run printed); a bundle call under
+                set_sync_debug_mode("error"); the launches a replay adds
+                (4 NMS, 4 RoI forwards, 4 backwards trainable, 0 frozen)
+                equal to the kernels torch.profiler sees in it; ms a step
+                over 10 bundles against 40 single steps, the host's ms a
+                step, the busy share, peak memory and the capture's seconds;
+ 16. learning   60 steps on one fixed batch, photometric augmentation off:
                 the mean loss of the last 10 below that of the first 5;
- 16. train_card_vs_cpu  one float32 joint step (TF32 off, batch 2, trunk
+ 17. train_card_vs_cpu  one float32 joint step (TF32 off, batch 2, trunk
                 trainable) on the card and the CPU with the same weights and
                 draws: the proposal sets at most 5% unmatched; with the
                 card's proposals given to the CPU step, losses within 1e-4
@@ -260,13 +281,14 @@ The mesh (radnet_torch/parallel), on the model dirs the serve phases saved:
 The last lines are the kernels JSON line (nine kernels; launches over each
 kernel's main path: the served run, cont_train for the backward, the int8
 served run for the int8 kernels; beside them the launches of the train,
-cont_train, test and test_rpn runs, under "launches_vgg16" those of the
-VGG16 runs, under "launches_int8" those of the int8 runs and under
-"launches_pretrained_train" those of pretrained_train's runs; each kernel's
-rows at the VGG16 shapes under "vgg16"; the mesh kernels' launches over
-the two-rank int8 serve, "launches_mesh_serve" every kernel's there,
-"launches_mesh_train" rank 0's in the two mesh training runs), the
-nvidia-smi line, and {"ok": true, "device": {...}}.
+cont_train, train_remainder, test and test_rpn runs and of one bundle
+call, frozen and trainable ("launches_a_bundle"), under "launches_vgg16"
+those of the VGG16 runs, under "launches_int8" those of the int8 runs and
+under "launches_pretrained_train" those of pretrained_train's runs; each
+kernel's rows at the VGG16 shapes under "vgg16"; the mesh kernels'
+launches over the two-rank int8 serve, "launches_mesh_serve" every
+kernel's there, "launches_mesh_train" rank 0's in the two mesh training
+runs), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -313,12 +335,24 @@ STEM_CASES = [(12, 608, "random"), (6, 608, "random"), (2, 64, "random"), (2, 60
 _START = time.perf_counter()
 
 
+# Files given by --log: each also takes every line of the standard output.
+_LOGS: list = []
+
+
+def out(line: str) -> None:
+    """One line of the standard output, and of each --log file."""
+    print(line, flush=True)
+    for f in _LOGS:
+        f.write(line + "\n")
+        f.flush()
+
+
 def emit(obj) -> None:
     """One JSON line; a phase's line also says when it was printed, seconds
     into the run (``at_s``)."""
     if "phase" in obj:
         obj = {**obj, "at_s": round(time.perf_counter() - _START, 3)}
-    print(json.dumps(obj), flush=True)
+    out(json.dumps(obj))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1638,24 +1672,36 @@ def training_cli_args(tmp: str, dev) -> list:
 @contextlib.contextmanager
 def counting_steps():
     """Counts the train steps and validation batches fit drives, and stamps
-    each train step's start (``train_step_t``): the CLIs import the step
-    factories when they run, so the factories are wrapped."""
+    each train call's start with the steps it runs (``train_step_t``: (time,
+    1) a single step, (time, K) a bundle of K): the CLIs import the step
+    factories when they run, so the factories are wrapped.  ``bundle_calls``
+    counts the bundles' calls and ``bundles`` keeps the bundles made, whose
+    ``warmup_steps`` (a CUDA graph's warm-up step, whose kernels launch)
+    the launch gates add."""
     from radnet_torch.engine import steps as engine_steps
 
-    calls = {"train_step": 0, "eval_step": 0, "train_step_t": []}
+    calls = {"train_step": 0, "eval_step": 0, "train_step_t": [], "bundle_calls": 0, "bundles": []}
     factories = {"make_train_step": "train_step", "make_alternating_train_step": "train_step",
-                 "make_eval_step": "eval_step"}
+                 "make_eval_step": "eval_step", "make_train_bundle": "bundle"}
     real = {f: getattr(engine_steps, f) for f in factories}
 
     def counting(make, key):
         def made(*args, **kwargs):
             fn = make(*args, **kwargs)
+            n = getattr(fn, "_bundle_steps", 1)
+            if key == "bundle":
+                calls["bundles"].append(fn)
 
             def step(*a, **kw):
-                calls[key] += 1
-                if key == "train_step":
-                    calls["train_step_t"].append(time.perf_counter())
+                if key == "eval_step":
+                    calls[key] += 1
+                else:
+                    calls["train_step"] += n
+                    calls["bundle_calls"] += key == "bundle"
+                    calls["train_step_t"].append((time.perf_counter(), n))
                 return fn(*a, **kw)
+            if key == "bundle":
+                step._bundle_steps = n
             return step
         return made
 
@@ -1668,12 +1714,37 @@ def counting_steps():
             setattr(engine_steps, f, real[f])
 
 
+def warmup_steps(calls: dict) -> int:
+    """The warm-up steps the bundles of a :func:`counting_steps` run took."""
+    return sum(getattr(b, "warmup_steps", 0) for b in calls["bundles"])
+
+
+def step_gaps_ms(stamps: list, epoch_len: int) -> list:
+    """Milliseconds a step between the starts of consecutive train calls of
+    one epoch (``counting_steps``' (time, steps) stamps; a bundle's gap is
+    shared by its steps)."""
+    gaps, done = [], 0
+    for (t, n), (t_next, _) in zip(stamps, stamps[1:]):
+        done += n
+        if done % epoch_len:  # the next call starts in the same epoch
+            gaps.append(1e3 * (t_next - t) / n)
+    return gaps
+
+
+# ResNet50's run of cli.train whose epoch (6 steps, no validation) ends in a
+# remainder: one bundle of 4, then 2 single steps.
+REMAINDER_RUN = (["--model-name", "smoke6", "--allow-random-init", "--no-validation"],
+                 "faster_rcnn_resnet50_smoke6", 6)
+
+
 def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "train") -> dict:
     """Phase train: radnet_torch.cli.train (2 epochs, with validation) and
     cli.cont_train (1 epoch, trunk trainable) at the default config
-    (ResNet50: the joint step; VGG16: the alternating schedule, from random
-    init), then load_radnet on the directory they wrote.  Writes the six
-    training panels unless they exist."""
+    (ResNet50: the joint step, in bundles of train_bundle_steps; VGG16: the
+    alternating schedule, from random init), then load_radnet on the
+    directory they wrote; for ResNet50 also cli.train on an epoch of 6 steps
+    (REMAINDER_RUN: a bundle, then 2 single steps).  Writes the six training
+    panels unless they exist."""
     import csv
 
     import torch
@@ -1692,12 +1763,17 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
     common = training_cli_args(tmp, dev)
     out = {}
     model_dir = os.path.join(tmp, "train_models", name)
-    dashboard = os.path.join(model_dir, "dashboard.html")
-    for run, fn, run_argv, steps, epochs in (
-            ("train", train.main, argv + ["--epoch-length", str(epoch_len), "--n-epochs", "2"],
-             2 * epoch_len, 2),
+    runs = [("train", train.main, argv + ["--epoch-length", str(epoch_len), "--n-epochs", "2"],
+             2 * epoch_len, 2, model_dir),
             ("cont_train", cont_train.main, ["--model-name", name, "--epoch-length", str(cont_len),
-                                             "--n-epochs", "1"], cont_len, 1)):
+                                             "--n-epochs", "1"], cont_len, 1, model_dir)]
+    if network == "resnet50":
+        r_argv, r_name, r_len = REMAINDER_RUN
+        runs.append(("train_remainder", train.main, r_argv + ["--epoch-length", str(r_len),
+                                                              "--n-epochs", "1"], r_len, 1,
+                     os.path.join(tmp, "train_models", r_name)))
+    for run, fn, run_argv, steps, epochs, run_dir in runs:
+        dashboard = os.path.join(run_dir, "dashboard.html")
         if os.path.exists(dashboard):  # each run renders its own
             os.remove(dashboard)
         cuda_kernels.reset_launch_counts()
@@ -1706,9 +1782,14 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
         with counting_steps() as calls, contextlib.redirect_stdout(sys.stderr):
             rc = fn(common + run_argv)
         torch.cuda.synchronize()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        bundles = [b for b in calls["bundles"] if hasattr(b, "capture_s")]
         out[run] = {"wall_s": time.perf_counter() - t0, "steps": steps, "epochs": epochs, "rc": rc,
                     "launches": launch_counts(), "nms_calls": nms.NMS_STATS["calls"],
                     "train_steps_run": calls["train_step"], "val_batches_run": calls["eval_step"],
+                    "bundle_calls": calls["bundle_calls"], "warmup_steps": warmup_steps(calls),
+                    "capture_s": [b.capture_s for b in bundles], "metrics_steps": logged,
                     "dashboard": os.path.isfile(dashboard)}
         check(rc == 0, f"{phase}: {run} exited {rc}")
         check(out[run]["dashboard"], f"{phase}: {run} wrote no {dashboard}")
@@ -1723,35 +1804,64 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
     net = load_radnet(model_dir, device=dev)
     panel = read_png(os.path.join(d, "val", "enhanced_topo_grey", "panel0.png"))
     dets = net.predict([panel])
+    remainder_record = None
+    if "train_remainder" in out:
+        with open(os.path.join(runs[-1][5], "record.csv"), newline="") as f:
+            remainder_record = list(csv.DictReader(f))
     emit({"phase": phase, "network": network, "nvidia_smi": smi, "panel": TRAIN_PANEL,
           "write_s": write_s, **out, "record_rows": len(record),
           "record_total_loss": [r["total_loss"] for r in record],
           "record_val_total_loss": [r["val_total_loss"] for r in record],
+          "remainder_record_total_loss": remainder_record and [r["total_loss"] for r in remainder_record],
           "files": files, "alternating_adam_counts": adam_counts, "predict_detections": len(dets)})
     check(len(record) == 3, f"{phase}: record.csv has {len(record)} rows, not 3")
     check(all(files.values()), f"{phase}: missing outputs: {files}")
     if network == "vgg16":  # the alternating checkpoint: both Adam states
         check(adam_counts is not None and adam_counts["rpn"] == cont_len
               and adam_counts["det"] <= cont_len, f"{phase}: checkpoint Adam counts {adam_counts}")
-    for run in ("train", "cont_train"):
+    else:  # the joint checkpoint: one Adam state, a count a step
+        check(int(opt["count"]) == cont_len, f"{phase}: checkpoint Adam count {int(opt['count'])}")
+    if remainder_record is not None:
+        check(len(remainder_record) == 1 and math.isfinite(float(remainder_record[0]["total_loss"])),
+              f"{phase}: train_remainder's record.csv: {remainder_record}")
+    k = 4 if network == "resnet50" else 1  # the default train_bundle_steps; no bundle alternating
+    for run, *_ in runs:
         o, launches = out[run], out[run]["launches"]
-        val = o["val_batches_run"]
+        val, warm = o["val_batches_run"], o["warmup_steps"]
         check(o["train_steps_run"] == o["steps"],
               f"{phase}: {run}: fit ran {o['train_steps_run']} train steps, not {o['steps']}")
-        check(val >= o["epochs"] and val % o["epochs"] == 0,
-              f"{phase}: {run}: {val} validation batches over {o['epochs']} epochs")
-        # Exactly one proposal NMS and one RoI-pool forward a step, train or eval.
-        want = o["steps"] + val
+        check(o["bundle_calls"] == (o["steps"] // o["epochs"] // k) * o["epochs"] * (k > 1)
+              and warm == (o["bundle_calls"] > 0),
+              f"{phase}: {run}: {o['bundle_calls']} bundle calls, {warm} warm-up steps")
+        # metrics.jsonl: the run's lines are a step each, in order, from 0
+        # for a new model.
+        tail = o["metrics_steps"][-o["steps"]:]
+        check(len(tail) == o["steps"] and tail == list(range(tail[0], tail[0] + o["steps"]))
+              and (run == "cont_train" or tail[0] == 0),
+              f"{phase}: {run}: metrics.jsonl steps {o['metrics_steps']}")
+        if run == "train_remainder":
+            check(val == 0, f"{phase}: {run} validated {val} batches")
+        else:
+            check(val >= o["epochs"] and val % o["epochs"] == 0,
+                  f"{phase}: {run}: {val} validation batches over {o['epochs']} epochs")
+        # Exactly one proposal NMS and one RoI-pool forward a step, train or
+        # eval, and a bundle's warm-up step.
+        want = o["steps"] + val + warm
         check(o["nms_calls"] == want and launches["nms_fused"] == want,
               f"{phase}: {run}: {o['nms_calls']} NMS calls, {launches['nms_fused']} launches for "
-              f"{o['steps']} steps + {val} validation batches")
+              f"{o['steps']} steps + {val} validation batches + {warm} warm-up steps")
         check(launches["roi_pool"] == want and launches["grey_stem"] == 0,
-              f"{phase}: {run}: launches {launches} for {o['steps']} steps + {val} validation batches")
-    check(out["train"]["launches"]["roi_pool_backward"] == 0,
-          f"{phase}: the frozen-trunk run launched the backward kernel")
-    check(out["cont_train"]["launches"]["roi_pool_backward"] == cont_len,
+              f"{phase}: {run}: launches {launches} for {o['steps']} steps + {val} validation "
+              f"batches + {warm} warm-up steps")
+    for run in ("train", "train_remainder"):
+        if run in out:
+            check(out[run]["launches"]["roi_pool_backward"] == 0,
+                  f"{phase}: the frozen-trunk run {run} launched the backward kernel")
+    cont = out["cont_train"]
+    check(cont["launches"]["roi_pool_backward"] == cont_len + cont["warmup_steps"],
           f"{phase}: cont_train launched the backward kernel "
-          f"{out['cont_train']['launches']['roi_pool_backward']} times in {cont_len} steps")
+          f"{cont['launches']['roi_pool_backward']} times in {cont_len} steps + "
+          f"{cont['warmup_steps']} warm-up steps")
     return out
 
 
@@ -1927,14 +2037,13 @@ def pretrained_train_phase(tmp: str, dev, smi) -> dict:
                 plots[name] = ET.parse(os.path.join(model_dir, "viz", f"{name}.svg")).getroot().tag
             except (OSError, ET.ParseError) as e:
                 plots[name] = repr(e)
-        stamps = calls["train_step_t"]
-        gaps = [1e3 * (b - a) for e in range(epochs) for a, b in
-                zip(stamps[e * epoch_len: (e + 1) * epoch_len], stamps[e * epoch_len + 1: (e + 1) * epoch_len])]
-        steps, val_batches = calls["train_step"], calls["eval_step"]
+        gaps = step_gaps_ms(calls["train_step_t"], epoch_len)
+        steps, val_batches, warm = calls["train_step"], calls["eval_step"], warmup_steps(calls)
         line = f"Loaded pretrained base-net weights from {path}"
         out[arm] = {"source": source, "network": network, "schedule": "alternating" if "alternating" in argv
                     else "joint", "rc": rc, "wall_s": wall, "file_s": make_s, "load_s": load_s,
-                    "steps": steps, "val_batches": val_batches, "step_gap_ms_median":
+                    "steps": steps, "val_batches": val_batches, "bundle_calls": calls["bundle_calls"],
+                    "warmup_steps": warm, "step_gap_ms_median":
                     statistics.median(gaps) if gaps else None, "step_gaps_ms": gaps,
                     "launches": launches, "nms_calls": nms.NMS_STATS["calls"],
                     "loaded_tensors": len(loaded), "frozen_bit_equal": len(frozen) - len(unequal),
@@ -1953,11 +2062,14 @@ def pretrained_train_phase(tmp: str, dev, smi) -> dict:
               f"pretrained_train: {arm}: none of the {len(loaded) - len(frozen)} trained tensors moved")
         check(steps == epochs * epoch_len and (val_batches > 0) == val,
               f"pretrained_train: {arm}: {steps} steps, {val_batches} validation batches")
-        want_k = steps + val_batches  # one proposal NMS and one RoI-pool forward a batch
+        # One proposal NMS and one RoI-pool forward a batch, the bundle's
+        # warm-up step included.
+        want_k = steps + val_batches + warm
         check(launches["nms_fused"] == want_k and out[arm]["nms_calls"] == want_k
               and launches["roi_pool"] == want_k and launches["grey_stem"] == 0
               and launches["roi_pool_backward"] == 0,
-              f"pretrained_train: {arm}: launches {launches} for {steps} steps + {val_batches} batches")
+              f"pretrained_train: {arm}: launches {launches} for {steps} steps + {val_batches} "
+              f"batches + {warm} warm-up steps")
         check(losses and all(math.isfinite(v) for v in losses), f"pretrained_train: {arm}: losses {losses}")
         check(all(t.endswith("svg") for t in plots.values()), f"pretrained_train: {arm}: plots {plots}")
         del host, want, trained
@@ -2203,6 +2315,12 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
 def training_batch(tmp: str, cfg, dev, n_samples: int = 64):
     """The host's samples/s from parallel_sample_generator alone (warm tile
     caches), and one batch of ``cfg.batch_size`` on ``dev``."""
+    batches, samples_per_s = training_batches(tmp, cfg, dev, 1, n_samples)
+    return batches[0], samples_per_s
+
+
+def training_batches(tmp: str, cfg, dev, n_batches: int, n_samples: int = 64):
+    """:func:`training_batch` with ``n_batches`` batches."""
     from radnet_torch.data.dataset import get_data
     from radnet_torch.data.pipeline import batch_samples, parallel_sample_generator, upload_batch
 
@@ -2216,9 +2334,10 @@ def training_batch(tmp: str, cfg, dev, n_samples: int = 64):
     for _ in range(n_samples):
         next(gen)
     samples_per_s = n_samples / (time.perf_counter() - t0)
-    batch = upload_batch(batch_samples([next(gen) for _ in range(cfg.batch_size)]), dev)
+    batches = [upload_batch(batch_samples([next(gen) for _ in range(cfg.batch_size)]), dev)
+               for _ in range(n_batches)]
     gen.close()
-    return batch, samples_per_s
+    return batches, samples_per_s
 
 
 def captured_kernel_inputs(step, batch, draws):
@@ -2474,6 +2593,316 @@ def train_sync_free_phase(batch, cfg, dev, phase: str = "train_sync_free") -> No
     emit({"phase": phase, "schedule": cfg.train_schedule, "queue_ms": (t1 - t0) * 1e3,
           "card_done_after_ms": (t2 - t0) * 1e3, "total_loss": total})
     check(np.isfinite(total), f"{phase}: the step's loss is not finite")
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.detach().contiguous().view(-1).view(torch.uint8),
+                       b.detach().contiguous().view(-1).view(torch.uint8))
+
+
+def _bundle_sides(batches, cfg, dev, trainable: bool, seed: int = SEED) -> list:
+    """Two copies of one seeded train state, each with its draw and Poisson
+    generators and the draws of len(batches) steps drawn from them, in the
+    training loop's order: [(state, draw generator, noise generator,
+    draws)] * 2."""
+    import torch
+
+    from radnet_torch.engine.steps import draw_step
+    from radnet_torch.engine.train_state import create_train_state
+
+    sides = []
+    state = create_train_state(cfg, torch.Generator().manual_seed(seed), dev,
+                               base_net_trainable=trainable)
+    for state in (state, copy.deepcopy(state)):
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        noise = torch.Generator(device=dev).manual_seed(seed + 2)
+        draws = []
+        for b in batches:
+            d = draw_step(gen, cfg, b["image"].shape[0], dev)
+            if d.photometric is not None:
+                d.photometric.poisson_generator = noise
+            draws.append(d)
+        sides.append((state, gen, noise, draws))
+    return sides
+
+
+def _state_gaps(sa, sb, got: dict, want: dict, steps: int, draws) -> dict:
+    """How far two train states and their stacked metrics are apart: the
+    parameters, Adam's count and moments, the metrics, each as how many
+    tensors differ in any bit and the largest gap (moments also as
+    _moment_share)."""
+    import torch
+
+    from radnet_torch.engine.steps import METRIC_KEYS
+
+    pb = dict(sb.model.named_parameters())
+    params = [(p, pb[n]) for n, p in sa.model.named_parameters()]
+    moments = list(zip(sa.optimizer.exp_avg + sa.optimizer.exp_avg_sq,
+                       sb.optimizer.exp_avg + sb.optimizer.exp_avg_sq))
+    share, where, share_max = _moment_share(sa.optimizer.state_dict(), sb.optimizer.state_dict())
+    return {
+        "steps": steps, "state_step": [sa.step, sb.step],
+        "params_unequal": sum(not _bits_equal(a, b) for a, b in params), "params": len(params),
+        "param_max_abs_gap": max(float((a.detach().float() - b.detach().float()).abs().max())
+                                 for a, b in params),
+        "adam_count": [int(sa.optimizer.count), int(sb.optimizer.count)],
+        "moments_unequal": sum(not _bits_equal(a, b) for a, b in moments), "moments": len(moments),
+        "moment_max_abs_gap": max(float((a - b).abs().max()) for a, b in moments),
+        "moment_share": share, "moment_share_at": where, "moment_share_elementwise": share_max,
+        "metrics_bit_equal": all(_bits_equal(got[k], want[k]) for k in METRIC_KEYS),
+        "metric_max_rel_gap": max(float(((got[k] - want[k]).abs()
+                                         / want[k].abs().clamp_min(1e-6)).max())
+                                  for k in METRIC_KEYS),
+        # The first step's metrics come before any update: its forward alone.
+        "first_step_metrics_bit_equal": all(_bits_equal(got[k][0], want[k][0]) for k in METRIC_KEYS),
+        "first_step_metric_max_rel_gap": max(float((got[k][0] - want[k][0]).abs()
+                                                   / want[k][0].abs().clamp_min(1e-6))
+                                             for k in METRIC_KEYS),
+        "metrics": {k: got[k].tolist() for k in METRIC_KEYS},
+        "poisson_tiles": sum(int(((d.photometric.noise_coin < 0.5)
+                                  & (d.photometric.noise_pick == 2)).sum())
+                             for d in draws if d.photometric is not None),
+    }
+
+
+def bundle_vs_single(batches, cfg, dev, trainable: bool, bundled: bool = True) -> dict:
+    """One make_train_bundle call of K = len(batches) steps (its warm-up,
+    capture and first replay) against K eager steps of make_train_step,
+    from two copies of one seeded state and its generators, on the same
+    batches and equal draws (``bundled`` False: K eager steps on both
+    sides, how far two eager runs land apart).  Returns :func:`_state_gaps`,
+    whether each generator pair's states are equal, how many parameters the
+    steps moved, and under "bundle" the bundle, its state and draws, which
+    the caller may go on with."""
+    import torch
+
+    from radnet_torch.engine.steps import METRIC_KEYS, make_train_bundle, make_train_step
+
+    (sa, ga, na, da), (sb, gb, nb, db) = _bundle_sides(batches, cfg, dev, trainable)
+    before = [p.detach().clone() for p in sa.model.parameters()]
+    if bundled:
+        bundle = make_train_bundle(sa, cfg, len(batches), trunk_trainable=trainable)
+        got = bundle(batches, da)
+    else:
+        bundle, step_a = None, make_train_step(sa, cfg, trunk_trainable=trainable)
+        ms = [step_a(b, d) for b, d in zip(batches, da)]
+        got = {k: torch.stack([m[k] for m in ms]) for k in METRIC_KEYS}
+    step = make_train_step(sb, cfg, trunk_trainable=trainable)
+    single = [step(b, d) for b, d in zip(batches, db)]
+    torch.cuda.synchronize()
+    want = {k: torch.stack([m[k] for m in single]) for k in METRIC_KEYS}
+    return {"trainable": trainable, "bundled": bundled,
+            **_state_gaps(sa, sb, got, want, len(batches), da),
+            "moved_params": sum(not _bits_equal(a, b) for a, b in zip(sa.model.parameters(), before)),
+            "draw_generator_equal": torch.equal(ga.get_state(), gb.get_state()),
+            "noise_generator_equal": torch.equal(na.get_state(), nb.get_state()),
+            "capture_s": getattr(bundle, "capture_s", None), "bundle": (bundle, sa, da)}
+
+
+def _bit_equal_gate(r: dict) -> bool:
+    return (r["params_unequal"] == 0 and r["moments_unequal"] == 0 and r["metrics_bit_equal"]
+            and r["adam_count"][0] == r["adam_count"][1] == r["steps"]
+            and r["state_step"][0] == r["state_step"][1] == r["steps"])
+
+
+def bundle_launches(bundle, batches, draws) -> dict:
+    """One more call of a captured bundle: the launches its wrappers count
+    (the capture's, added on the replay) beside the kernels torch.profiler
+    saw run on the card in it, by device function."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from radnet_torch.ops import cuda_kernels
+
+    symbols = {"nms_fused": "nms_fused_kernel", "roi_pool": "roi_pool_kernel",
+               "roi_pool_backward": "roi_pool_backward_kernel", "grey_stem": "grey_stem_kernel"}
+    torch.cuda.synchronize()
+    cuda_kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bundle(batches, draws)
+        torch.cuda.synchronize()
+    counted = launch_counts()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(sym in n for n in names) for k, sym in symbols.items()}
+    return {"counted": counted, "profiler": seen, "profiler_device_events": len(names)}
+
+
+def _timed_run(fn, n_steps: int) -> dict:
+    """ms a step between CUDA events around ``fn()``, and the host's ms a
+    step until ``fn()`` returned."""
+    import torch
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    b.record()
+    b.synchronize()
+    return {"ms_per_step": a.elapsed_time(b) / n_steps, "host_ms_per_step": host * 1e3 / n_steps}
+
+
+def bundle_timing(batches, cfg, dev, trainable: bool, n_calls: int = 10) -> dict:
+    """Bundled against single steps on one state at ``cfg``'s settings:
+    ``n_calls`` bundle calls of K steps against as many steps one at a time
+    (draws drawn beforehand), in turns bundled, single, single, bundled: ms
+    a step between CUDA events, the host's ms a step until the calls
+    returned (and of each of up to 4 calls back to back from an idle card),
+    the card's busy share (device_busy), peak memory allocated and reserved
+    (the graph's pool included, after its capture), and the first call's
+    seconds of warm-up and capture."""
+    import torch
+
+    from radnet_torch.engine.steps import draw_step, make_train_bundle, make_train_step
+    from radnet_torch.engine.train_state import create_train_state
+
+    k = len(batches)
+    torch.cuda.synchronize()
+    state = create_train_state(cfg, torch.Generator().manual_seed(SEED), dev,
+                               base_net_trainable=trainable)
+    step = make_train_step(state, cfg, trunk_trainable=trainable)
+    bundle = make_train_bundle(state, cfg, k, trunk_trainable=trainable)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    draws = [[draw_step(gen, cfg, b["image"].shape[0], dev) for b in batches] for _ in range(n_calls)]
+
+    def singles():
+        for call in draws:
+            for b, d in zip(batches, call):
+                step(b, d)
+
+    def bundles():
+        for call in draws:
+            bundle(batches, call)
+
+    torch.cuda.reset_peak_memory_stats()
+    singles()  # first-use constants, cuDNN's choices
+    torch.cuda.synchronize()
+    peak_single = (torch.cuda.max_memory_allocated() / 1e9, torch.cuda.max_memory_reserved() / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle(batches, draws[0])
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    host_calls_ms = []  # back to back, from an idle card
+    for call in draws[:4]:
+        t0 = time.perf_counter()
+        bundle(batches, call)
+        host_calls_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    runs = {"bundled": [], "single": []}
+    for name in ("bundled", "single", "single", "bundled"):
+        runs[name].append(_timed_run(bundles if name == "bundled" else singles, n_calls * k))
+    peak_bundle = (torch.cuda.max_memory_allocated() / 1e9, torch.cuda.max_memory_reserved() / 1e9)
+    out = {"trainable": trainable, "steps_timed": n_calls * k,
+           "capture_s": getattr(bundle, "capture_s", None),
+           "first_call_s": first_call_s, "host_ms_calls_from_an_idle_card": host_calls_ms}
+    for name, fn in (("bundled", bundles), ("single", singles)):
+        wall_ms, busy_ms = device_busy(fn)
+        out[name] = {"ms_per_step": statistics.mean(r["ms_per_step"] for r in runs[name]),
+                     "host_ms_per_step": statistics.mean(r["host_ms_per_step"] for r in runs[name]),
+                     "runs": runs[name], "busy_ms": busy_ms, "wall_ms": wall_ms,
+                     "busy_share": busy_ms / wall_ms}
+    out["bundled"]["peak_allocated_gb"], out["bundled"]["peak_reserved_gb"] = peak_bundle
+    out["single"]["peak_allocated_gb"], out["single"]["peak_reserved_gb"] = peak_single
+    return out
+
+
+def train_bundle_phase(batches, cfg, dev, smi, phase: str = "train_bundle") -> dict:
+    """Phase train_bundle: make_train_bundle at ``cfg.train_bundle_steps``
+    (K, one CUDA graph of K joint steps) on K batches, frozen and trainable
+    trunk.  Under cuDNN's deterministic algorithms (TF32 off), in float32
+    and in ``cfg``'s type, one bundle against K eager single steps from
+    copies of one state and its generators (bundle_vs_single): the
+    parameters, Adam's count and moments, the metrics and both generators'
+    states bit-equal.  At ``cfg``'s settings (cuDNN's default algorithms,
+    whose weight gradients are not deterministic) the same reading beside
+    two eager runs' (the spread of the algorithms alone): Adam's counts,
+    the steps and the generators equal, the first step's metrics (its
+    forward, before any update) within MESH_TRAIN_LOSS_LIMIT, and the
+    frozen trunk's whole reading within mesh_train's limits
+    (MESH_TRAIN_LOSS_LIMIT, MESH_TRAIN_MOMENT_LIMIT).  With the trunk
+    trainable the reading is printed, not gated: two eager runs land as far
+    apart as the bundle from them, or farther (0.003-0.194 of a moment's
+    norm over 4 steps; PERF.md section 6).  One bundle
+    call under set_sync_debug_mode("error").  The launches a replay adds: K
+    NMS, K RoI forwards, K backwards trainable and none frozen, equal to the
+    kernels torch.profiler sees run in it.  Then bundle_timing.  Returns the
+    readings."""
+    import torch
+
+    k = cfg.train_bundle_steps
+    check(len(batches) == k and k > 1, f"{phase}: {len(batches)} batches for K = {k}")
+    out = {"deterministic": {}, "default_settings": {}, "default_settings_eager_pair": {},
+           "launches": {}, "timing": {}}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in ("float32", cfg.compute_dtype):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            for trainable in (False, True):
+                r = bundle_vs_single(batches, c, dev, trainable)
+                r.pop("bundle")
+                out["deterministic"][f"{dtype}_{'trainable' if trainable else 'frozen'}"] = r
+    finally:
+        torch.backends.cudnn.deterministic = det
+    sync_ms = None
+    for trainable in (False, True):
+        key = "trainable" if trainable else "frozen"
+        pair = bundle_vs_single(batches, cfg, dev, trainable, bundled=False)
+        pair.pop("bundle")
+        out["default_settings_eager_pair"][key] = pair
+        r = bundle_vs_single(batches, cfg, dev, trainable)
+        bundle, state, draws = r.pop("bundle")
+        out["default_settings"][key] = r
+        out["launches"][key] = bundle_launches(bundle, batches, draws)
+        if trainable:  # one call under the sync check
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                bundle(batches, draws)
+                sync_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        del bundle, state, draws
+    for trainable in (False, True):
+        out["timing"]["trainable" if trainable else "frozen"] = bundle_timing(batches, cfg, dev,
+                                                                              trainable)
+    emit({"phase": phase, "nvidia_smi": smi, "k": k, "batch": cfg.batch_size,
+          "canvas": cfg.canvas_size, "dtype": cfg.compute_dtype, **out,
+          "sync_free_call_ms": sync_ms})
+
+    def brief(r):
+        return {n: v for n, v in r.items() if n != "metrics"}
+
+    for key, r in out["deterministic"].items():
+        check(_bit_equal_gate(r) and r["draw_generator_equal"] and r["noise_generator_equal"],
+              f"{phase}: {key}, deterministic: the bundle is not bit-equal to {k} single "
+              f"steps: {brief(r)}")
+        check(r["moved_params"] > 0, f"{phase}: {key}: the steps moved no parameter")
+    for key, r in out["default_settings"].items():
+        whole = key == "trainable" or (r["metric_max_rel_gap"] <= MESH_TRAIN_LOSS_LIMIT
+                                       and r["moment_share"] <= MESH_TRAIN_MOMENT_LIMIT)
+        check(r["adam_count"] == [k, k] and r["state_step"] == [k, k]
+              and r["draw_generator_equal"] and r["noise_generator_equal"]
+              and r["first_step_metric_max_rel_gap"] <= MESH_TRAIN_LOSS_LIMIT and whole,
+              f"{phase}: {cfg.compute_dtype} {key}, cuDNN's default algorithms: bundle against "
+              f"single steps {brief(r)}, two eager runs "
+              f"{brief(out['default_settings_eager_pair'][key])}")
+    for key, r in out["launches"].items():
+        want = {"nms_fused": k, "roi_pool": k, "roi_pool_backward": k if key == "trainable" else 0,
+                "grey_stem": 0}
+        check(all(r["counted"][n] == v for n, v in want.items()),
+              f"{phase}: {key}: a bundle counted launches {r['counted']}, not {want}")
+        check(r["profiler"] == want, f"{phase}: {key}: the profiler saw {r['profiler']} "
+              f"in a replay, the wrappers counted {r['counted']}")
+    return out
 
 
 def learning_phase(batch, cfg, dev, n_steps: int = 60, lr: float = 1e-5,
@@ -4889,7 +5318,17 @@ def mesh_train_phase(tmp: str, batch: dict, dev, kind, smi, config: dict | None 
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="Smoke test of radnet_torch on one CUDA card.")
+    parser.add_argument("--log", help="also append every line of the standard output to this "
+                        "file (the phases' lines outlast a tail of the output there)")
+    args = parser.parse_args()
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
+        _LOGS.append(open(args.log, "a"))
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -4965,8 +5404,8 @@ def main() -> int:
         mesh_launches = mesh_serve_phase(tmp, paths, images, served, int8_served, dev, kind, smi)
         del images
 
-    # 10-16. training and evaluation: the CLIs, per-step numbers, sync-free,
-    # learning, card vs CPU; each for ResNet50 (joint) and VGG16 (alternating).
+    # 10-17. training and evaluation: the CLIs, per-step numbers, sync-free,
+    # the bundle, learning, card vs CPU; each for ResNet50 (joint) and VGG16 (alternating).
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_phase(tmp, dev, smi)
         evaluated = evaluate_phase(tmp, dev, smi, serve_weights)
@@ -4976,10 +5415,13 @@ def main() -> int:
         vgg_test = vgg_evaluate_phase(tmp, dev, smi, vgg_weights)
         int8_launches["vgg16"]["test"] = int8_test_phase(tmp, "vgg16", dev, smi, "vgg_int8_test", 6)
         pretrained = pretrained_train_phase(tmp, dev, smi)
-        batch, samples_per_s = training_batch(tmp, cfg, dev)
+        batches, samples_per_s = training_batches(tmp, cfg, dev, cfg.train_bundle_steps)
+        batch = batches[0]
         mesh_trained = mesh_train_phase(tmp, batch, dev, kind, smi)
     train_k = train_step_phase(batch, samples_per_s, cfg, dev, smi, errs, earlier)
     train_sync_free_phase(batch, cfg, dev)
+    bundled = train_bundle_phase(batches, cfg, dev, smi)
+    del batches
     learning_phase(batch, cfg, dev)
     train_card_vs_cpu_phase(batch, cfg, dev)
     valt = dataclasses.replace(vcfg, train_schedule="alternating")
@@ -5005,6 +5447,8 @@ def main() -> int:
         name = k["name"]
         k["launches_train"] = trained["train"]["launches"][name]
         k["launches_cont_train"] = trained["cont_train"]["launches"][name]
+        k["launches_train_remainder"] = trained["train_remainder"]["launches"][name]
+        k["launches_a_bundle"] = {key: r["counted"][name] for key, r in bundled["launches"].items()}
         k["launches_test"] = evaluated["test"][name]
         k["launches_test_rpn"] = evaluated["test_rpn"][name]
         k["launches_vgg16"] = {"serve": vgg_launches[name], "batch": vgg_per_batch[name],
@@ -5030,10 +5474,10 @@ def main() -> int:
         k["launches_mesh_train"] = {run: counts[k["name"]] for run, counts in mesh_trained.items()}
     # The backward's main path is the trainable-trunk run of cont_train.
     kernels_line["roi_pool_backward"]["launches"] = trained["cont_train"]["launches"]["roi_pool_backward"]
-    print(json.dumps({"kernels": list(kernels_line.values())}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    out(json.dumps({"kernels": list(kernels_line.values())}))
+    out(smi)
+    out(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -154,7 +154,7 @@ def train_rank(args, config_dict: dict, model_path: str, data=None) -> None:
     from radnet_torch.cli.common import mesh_from_args, training_pipelines
     from radnet_torch.config import Config
     from radnet_torch.engine.loop import fit
-    from radnet_torch.engine.steps import make_eval_step, make_step
+    from radnet_torch.engine.steps import make_eval_step, make_step, make_train_bundle
     from radnet_torch.engine.train_state import create_train_state
     from radnet_torch.inference import resolve_device
     from radnet_torch.parallel.mesh import shard_train_state
@@ -170,12 +170,16 @@ def train_rank(args, config_dict: dict, model_path: str, data=None) -> None:
     if mesh is not None:
         state = shard_train_state(state, mesh)
     train_step = make_step(state, config)
+    # K steps a host call for the joint schedule, where the JAX package
+    # builds its bundle; the alternating schedule runs single steps.
+    train_bundle = (make_train_bundle(state, config, config.train_bundle_steps)
+                    if config.train_schedule == "joint" and config.train_bundle_steps > 1 else None)
     eval_step = make_eval_step(state, config) if not args.no_validation else None
     train_batches, val_factory = training_pipelines(args, config, data_train, class_count,
                                                     data_val, device, mesh)
     fit(config, state, train_step, train_batches, model_path, epoch_length=args.epoch_length,
         n_epochs=args.n_epochs, eval_step=eval_step, val_batches_factory=val_factory,
-        seed=args.seed)
+        seed=args.seed, train_bundle=train_bundle)
 
 
 if __name__ == "__main__":

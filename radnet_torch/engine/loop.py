@@ -94,10 +94,13 @@ def write_record(path: str, rows: list[dict[str, Any]]) -> None:
 
 
 def _fetch(metrics: list[dict[str, torch.Tensor]]) -> list[dict[str, float]]:
-    """One device -> host copy of an epoch's step metrics."""
+    """One device -> host copy of an epoch's step metrics: a row a step, a
+    bundle's entry (each metric stacked ``(K,)``) flattened into its K
+    steps' rows."""
     if not metrics:
         return []
-    table = torch.stack([torch.stack([m[k].float() for k in METRIC_KEYS]) for m in metrics])
+    table = torch.cat([torch.stack([m[k].float() for k in METRIC_KEYS], dim=-1)
+                       .reshape(-1, len(METRIC_KEYS)) for m in metrics])
     return [dict(zip(METRIC_KEYS, row)) for row in table.cpu().tolist()]
 
 
@@ -177,11 +180,16 @@ def fit(
     seed: int = 64,
     best_total_loss: float = float("inf"),
     record: list[dict[str, Any]] | None = None,
+    train_bundle: Callable | None = None,
 ) -> tuple[TrainState, list[dict[str, Any]]]:
     """Run ``n_epochs`` of ``epoch_length`` steps; returns the state and the
     record rows.  Each step's :class:`~radnet_torch.engine.steps.StepDraws`
     come from a ``torch.Generator`` on the model's device seeded by
-    ``seed``."""
+    ``seed``.  ``train_bundle`` (``engine.steps.make_train_bundle``) runs
+    K steps a call: while K steps of an epoch remain, K batches and their K
+    steps' draws, drawn in the single steps' order, go through it; the rest
+    of the epoch runs ``train_step``.  The trajectory and the logs are the
+    unbundled loop's."""
     mesh = getattr(state, "mesh", None)  # any state without one runs on one device
     main = mesh is None or mesh.is_main
     dp = 1 if mesh is None else mesh.data
@@ -204,6 +212,7 @@ def fit(
             draws.photometric.poisson_generator = noise_gen
         return rank_draws(draws, mesh)
 
+    bundle_k = getattr(train_bundle, "_bundle_steps", 1) if train_bundle is not None else 1
     start_time = time.time()
     saver = AsyncSaver() if main else None
 
@@ -215,10 +224,16 @@ def fit(
     try:
         for epoch in range(n_epochs):
             print(f"Epoch {epoch + 1}/{n_epochs}")
-            step_metrics = []
-            for _ in range(epoch_length):
-                batch = next(train_batches)
-                step_metrics.append(train_step(batch, draws_for(batch)))
+            step_metrics, done = [], 0
+            while done < epoch_length:
+                if bundle_k > 1 and epoch_length - done >= bundle_k:
+                    batches = [next(train_batches) for _ in range(bundle_k)]
+                    step_metrics.append(train_bundle(batches, [draws_for(b) for b in batches]))
+                    done += bundle_k
+                else:
+                    batch = next(train_batches)
+                    step_metrics.append(train_step(batch, draws_for(batch)))
+                    done += 1
             rows = _fetch(step_metrics)  # the epoch's one read back
             first_step = state.step - epoch_length
             if main:

@@ -30,14 +30,20 @@ parameters' are made one over the model axis
 (``collectives.all_reduce_grads``).  The metrics are the whole batch's, and
 so is the alternating schedule's gate, which stays on the device.
 
-``Config.train_bundle_steps`` (the JAX package fuses K steps into one
-program with the same trajectory as K single steps) runs as K single steps
-here.
+:func:`make_train_bundle` is the JAX package's ``make_train_bundle``: K
+joint steps with the trajectory of K single steps, for one host call.  On a
+CUDA device it is one CUDA graph that holds the K steps, captured at the
+first call and replayed at every call after it; on the CPU it runs the K
+steps one after another.  On a mesh it runs K single steps too: two ranks
+sharing a card talk over gloo, whose collectives a graph cannot capture,
+and a capture over NCCL across cards cannot be measured on the one-card
+host (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -45,10 +51,10 @@ import torch
 from radnet_torch import losses
 from radnet_torch.config import Config, feature_extent
 from radnet_torch.data.pipeline import preprocess_on_device
-from radnet_torch.engine.train_state import TrainState
+from radnet_torch.engine.train_state import PhaseAdams, TrainState
 from radnet_torch.models import vgg
 from radnet_torch.models.detector import FasterRCNN
-from radnet_torch.ops import augment_device
+from radnet_torch.ops import augment_device, cuda_kernels, nms
 from radnet_torch.ops.anchors import feature_anchors_xywh, image_anchors_xyxy
 from radnet_torch.ops.proposals import decode_proposals
 from radnet_torch.ops.targets import proposal_targets, rpn_targets, subset_bits
@@ -305,6 +311,28 @@ def _grad_sync(state: TrainState, adam):
     return lambda: all_reduce_grads(adam.params, state.mesh, replicated)
 
 
+def _joint_update(state: TrainState, config: Config, trunk_trainable: bool):
+    """``update(batch, draws, gate=None) -> metrics``: the joint step's work
+    on the device (losses, backward, the gradients' sums on a mesh, the Adam
+    update; ``gate`` a device bool, False moving nothing), without the
+    host's step count."""
+    consts = step_constants(config, next(state.model.parameters()).device)
+    mesh = state.mesh
+    sync_grads = _grad_sync(state, state.optimizer)
+
+    def update(batch: dict, draws: StepDraws, gate: torch.Tensor | None = None) -> dict:
+        state.optimizer.zero_grad()
+        total, metrics = compute_losses(state.model, config, batch, draws, consts, False,
+                                        trunk_frozen=not trunk_trainable, mesh=mesh,
+                                        head=state.tp_head)
+        total.backward()
+        sync_grads()
+        state.optimizer.step(gate=gate)
+        return metrics
+
+    return update
+
+
 def make_train_step(state: TrainState, config: Config, trunk_trainable: bool | None = None):
     """``step(batch, draws) -> metrics``: one Adam update of ``state`` in
     place.  ``trunk_trainable`` must match the partition the optimizer was
@@ -312,22 +340,216 @@ def make_train_step(state: TrainState, config: Config, trunk_trainable: bool | N
     takes this rank's tiles and :func:`rank_draws`."""
     if trunk_trainable is None:
         trunk_trainable = config.base_net_trainable
-    consts = step_constants(config, next(state.model.parameters()).device)
-    mesh = state.mesh
-    sync_grads = _grad_sync(state, state.optimizer)
+    update = _joint_update(state, config, trunk_trainable)
 
     def train_step(batch: dict, draws: StepDraws) -> dict:
-        state.optimizer.zero_grad()
-        total, metrics = compute_losses(state.model, config, batch, draws, consts, False,
-                                        trunk_frozen=not trunk_trainable, mesh=mesh,
-                                        head=state.tp_head)
-        total.backward()
-        sync_grads()
-        state.optimizer.step()
+        metrics = update(batch, draws)
         state.step += 1
         return metrics
 
     return train_step
+
+
+def make_train_bundle(state: TrainState, config: Config, n_steps: int,
+                      trunk_trainable: bool | None = None):
+    """``fn(batches, draws_list) -> metrics``: ``n_steps`` joint steps of
+    ``state`` in place, step ``k`` on ``batches[k]`` with ``draws_list[k]``,
+    as ``n_steps`` calls of :func:`make_train_step`'s step would run them;
+    every metric comes back stacked with a leading ``n_steps`` axis, and
+    ``state.step`` moves by ``n_steps``.  ``fn._bundle_steps`` is
+    ``n_steps``.  The alternating schedule has no bundle, as in the JAX
+    package.
+
+    On a CUDA device without a mesh the bundle is a :class:`GraphBundle`:
+    one CUDA graph replay a call.  A capture that fails raises; it never
+    runs single steps instead.  On the CPU, and on a mesh (``state.mesh``:
+    gloo's collectives cannot be captured, and NCCL capture across cards is
+    not measured), it runs the ``n_steps`` steps one after another."""
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+    if isinstance(state.optimizer, PhaseAdams) or config.train_schedule != "joint":
+        raise ValueError("make_train_bundle runs the joint schedule; the alternating schedule "
+                         "runs single steps, as in the JAX package")
+    if trunk_trainable is None:
+        trunk_trainable = config.base_net_trainable
+    update = _joint_update(state, config, trunk_trainable)
+    if graph_bundled(state):
+        return GraphBundle(state, update, n_steps, next(state.model.parameters()).device)
+
+    def train_bundle(batches: list, draws_list: list) -> dict:
+        _check_count(batches, draws_list, n_steps)
+        rows = [update(b, d) for b, d in zip(batches, draws_list)]
+        state.step += n_steps
+        return {k: torch.stack([m[k] for m in rows]) for k in METRIC_KEYS}
+
+    train_bundle._bundle_steps = n_steps
+    return train_bundle
+
+
+def graph_bundled(state: TrainState) -> bool:
+    """Whether :func:`make_train_bundle` captures ``state``'s steps as a CUDA
+    graph: on a CUDA device without a mesh."""
+    return next(state.model.parameters()).device.type == "cuda" and state.mesh is None
+
+
+def _check_count(batches: list, draws_list: list, n_steps: int) -> None:
+    if len(batches) != n_steps or len(draws_list) != n_steps:
+        raise ValueError(f"a bundle of {n_steps} steps takes {n_steps} batches and draws, "
+                         f"not {len(batches)} and {len(draws_list)}")
+
+
+def _draw_tensors(d: StepDraws) -> list[torch.Tensor]:
+    """The tensors of a StepDraws, in a fixed order."""
+    out = [d.rpn_pos_bits, d.rpn_neg_bits, d.roi_pos_u, d.roi_neg_u]
+    if d.photometric is not None:
+        out += [getattr(d.photometric, f.name) for f in dataclasses.fields(d.photometric)
+                if isinstance(getattr(d.photometric, f.name), torch.Tensor)]
+    if d.head_masks is not None:
+        out += list(d.head_masks)
+    return out
+
+
+def _clone_draws(d: StepDraws) -> StepDraws:
+    photo = d.photometric
+    if photo is not None:
+        photo = dataclasses.replace(photo, **{
+            f.name: getattr(photo, f.name).clone() for f in dataclasses.fields(photo)
+            if isinstance(getattr(photo, f.name), torch.Tensor)})
+    masks = None if d.head_masks is None else tuple(m.clone() for m in d.head_masks)
+    return StepDraws(d.rpn_pos_bits.clone(), d.rpn_neg_bits.clone(), d.roi_pos_u.clone(),
+                     d.roi_neg_u.clone(), photo, masks)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(-1).view(torch.uint8)
+
+
+class GraphBundle:
+    """:func:`make_train_bundle` on a CUDA device: one ``torch.cuda.CUDAGraph``
+    that holds ``n_steps`` joint steps.
+
+    It keeps static device buffers: ``n_steps`` batches and ``n_steps``
+    :class:`StepDraws`, and the metrics as one ``(n_steps,
+    len(METRIC_KEYS))`` float32 table.  A call copies its inputs into them on
+    the current stream (so after the uploads that made them), replays the
+    graph once and returns a clone of the table's columns, which the next
+    replay cannot overwrite.  The draws stay inputs, drawn by the caller in
+    the single steps' order.  The Poisson sampler's generator (the draws'
+    ``photometric.poisson_generator``) is registered with the graph, so each
+    replay takes its numbers from the generator's state at the replay and
+    moves it as the ``n_steps`` eager steps would.
+
+    The first call captures.  It first runs one warm-up step on a side
+    stream with the Adam update shut (``GatedAdam.step(gate=False)``:
+    neither the parameters, the moments nor the count move) to build the
+    first-use constants, handles and workspaces that a capture may not
+    create, then captures the ``n_steps`` steps (which runs nothing).  The
+    generators' states are saved before and restored after both, and the
+    call raises unless the parameters, the moments and the count are bit
+    for bit as they were.  ``warmup_steps`` (1 after the capture) counts the
+    warm-up's step, whose kernels did launch; ``capture_s`` is the first
+    call's seconds of warm-up and capture.  The capture's launch counts are
+    added on every replay (``cuda_kernels.CapturedLaunches``), and so are
+    its ``nms.NMS_STATS`` calls."""
+
+    def __init__(self, state: TrainState, update, n_steps: int, device):
+        self.state, self.update, self._bundle_steps = state, update, n_steps
+        self.device = device
+        self.graph = None
+        self.warmup_steps = 0
+        self.capture_s = None
+
+    def __call__(self, batches: list, draws_list: list) -> dict:
+        _check_count(batches, draws_list, self._bundle_steps)
+        if self.graph is None:
+            self._capture(batches, draws_list)
+        else:
+            self._load(batches, draws_list)
+        self.graph.replay()
+        self.launches.replayed()
+        self.state.step += self._bundle_steps
+        table = self.table.clone()
+        return {k: table[:, i] for i, k in enumerate(METRIC_KEYS)}
+
+    def _flat(self, batches: list, draws_list: list) -> list[torch.Tensor]:
+        out = []
+        for b, d in zip(batches, draws_list):
+            out += [b[k] for k in sorted(b)] + _draw_tensors(d)
+        return out
+
+    def _load(self, batches: list, draws_list: list) -> None:
+        for b, d, sd in zip(batches, draws_list, self.static_draws):
+            if sorted(b) != self.keys:
+                raise ValueError(f"a captured bundle takes batches of {self.keys}, not {sorted(b)}")
+            gen = None if d.photometric is None else d.photometric.poisson_generator
+            if (d.photometric is None) != (sd.photometric is None) or gen is not self.gen:
+                raise ValueError("a captured bundle takes draws like those it captured, its "
+                                 "Poisson noise from the generator it captured")
+        src = self._flat(batches, draws_list)
+        if len(src) != len(self.static):
+            raise ValueError("a captured bundle takes draws like those it captured")
+        for dst, t in zip(self.static, src):
+            if t.shape != dst.shape or t.dtype != dst.dtype:
+                raise ValueError(f"a captured bundle takes {tuple(dst.shape)} {dst.dtype} here, "
+                                 f"not {tuple(t.shape)} {t.dtype}")
+            dst.copy_(t, non_blocking=True)
+
+    def _capture(self, batches: list, draws_list: list) -> None:
+        t0 = time.perf_counter()
+        dev, n = self.device, self._bundle_steps
+        self.keys = sorted(batches[0])
+        self.static_batches = [{k: b[k].clone() for k in sorted(b)} for b in batches]
+        self.static_draws = [_clone_draws(d) for d in draws_list]
+        self.static = self._flat(self.static_batches, self.static_draws)
+        photo = draws_list[0].photometric
+        self.gen = None if photo is None else photo.poisson_generator
+        self._load(batches, draws_list)  # checks every step's structure
+        gens = [torch.cuda.default_generators[dev.index if dev.index is not None
+                                               else torch.cuda.current_device()]]
+        if self.gen is not None and self.gen is not gens[0]:
+            gens.append(self.gen)
+        names = {id(p): name for name, p in self.state.model.named_parameters()}
+        moving = {}  # what neither the warm-up nor the capture may move, by name
+        for a in self.state.adams():
+            moving["Adam's count"] = a.count
+            for p, m, v in zip(a.params, a.exp_avg, a.exp_avg_sq):
+                moving.update({names[id(p)]: p, f"exp_avg of {names[id(p)]}": m,
+                               f"exp_avg_sq of {names[id(p)]}": v})
+        before = {k: t.detach().clone() for k, t in moving.items()}
+        saved = [g.get_state() for g in gens]
+
+        # Warm-up: one step with the update shut, on a side stream.
+        shut = torch.zeros((), dtype=torch.bool, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.update(self.static_batches[0], self.static_draws[0], gate=shut)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.warmup_steps = 1
+        for g, st in zip(gens, saved):
+            g.set_state(st)
+
+        self.table = torch.zeros((n, len(METRIC_KEYS)), dtype=torch.float32, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        for g in gens[1:]:  # the default generator is registered by the capture itself
+            graph.register_generator_state(g)
+        try:
+            with cuda_kernels.CapturedLaunches(counters=(nms.NMS_STATS,)) as launches, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                for k in range(n):
+                    m = self.update(self.static_batches[k], self.static_draws[k])
+                    self.table[k].copy_(torch.stack([m[key].float() for key in METRIC_KEYS]))
+        except Exception as e:
+            raise RuntimeError(f"capturing the {n}-step train bundle as a CUDA graph failed "
+                               f"(the operation that broke it is in the traceback): {e}") from e
+        for g, st in zip(gens, saved):
+            g.set_state(st)
+        moved = [k for k, t in moving.items() if not torch.equal(_bits(t), _bits(before[k]))]
+        if moved:
+            raise RuntimeError(f"the train bundle's warm-up or capture moved {len(moved)} of "
+                               f"{len(moving)} tensors of the training state: {moved[:8]}")
+        self.graph, self.launches = graph, launches
+        self.capture_s = time.perf_counter() - t0
 
 
 def make_alternating_train_step(state: TrainState, config: Config,

@@ -43,7 +43,9 @@ class GatedAdam:
     optional device bool ``gate``; where it is False, neither the
     parameters nor the state move, and nothing is read back to the host.
     A parameter without a gradient updates as one with a zero gradient, as
-    optax does."""
+    optax does.  Its tensors keep their identity (a learning-rate change and
+    :meth:`load_state_dict` write in place), so a CUDA graph that captured
+    :meth:`step` stays valid."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8):
         self.params = list(params)
@@ -52,8 +54,6 @@ class GatedAdam:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.exp_avg = [torch.zeros_like(p) for p in self.params]
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
-        self._shut = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.0], device=dev)
-        self._true = torch.ones((), dtype=torch.bool, device=dev)
         self.lr = lr
 
     @property
@@ -62,51 +62,78 @@ class GatedAdam:
 
     @lr.setter
     def lr(self, lr: float) -> None:
-        # The factors with the gate open, uploaded here and not in a step:
-        # an upload from pageable memory waits for the card.
+        # The update's factors, uploaded here and not in a step:
+        # an upload from pageable memory waits for the card.  Written in
+        # place once they exist: a CUDA graph that captured a step reads the
+        # address it captured.
         b1, b2 = self.betas
         self._lr = lr
-        self._open = torch.tensor([b1, b2, 1.0 - b1, 1.0 - b2, -lr], device=self.count.device)
+        factors = torch.tensor([b1, b2, 1.0 - b1, 1.0 - b2, -lr])
+        if hasattr(self, "_open"):
+            self._open.copy_(factors)
+        else:
+            self._open = factors.to(self.count.device)
 
     def zero_grad(self) -> None:
+        """Drop the gradients; the next backward allocates them anew.  Inside
+        a CUDA graph's capture (``engine/steps.py::make_train_bundle``) they
+        are then allocated from the graph's memory pool, and after the
+        capture each ``p.grad`` is the graph's last buffer, which every
+        replay rewrites."""
         for p in self.params:
             p.grad = None
 
     @torch.no_grad()
     def step(self, gate: torch.Tensor | None = None) -> None:
-        b1, b2 = self.betas
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        gate = self._true if gate is None else gate
-        # Open: m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2, p -= lr m^ /
-        # (sqrt(v^) + eps), in optax's order of operations.  Shut: factors
-        # 1, 1, 0, 0, 0, so nothing moves.
-        keep1, keep2, take1, take2, neg_lr = torch.where(gate, self._open, self._shut).unbind()
-        torch._foreach_mul_(self.exp_avg, keep1)
-        torch._foreach_add_(self.exp_avg, torch._foreach_mul(grads, take1))
+        if gate is None:
+            self._update(self.exp_avg, self.exp_avg_sq, self.params, self.count, grads)
+            return
+        # With a gate the update runs on copies, and the gate picks each
+        # tensor's new or old value: a shut gate keeps them bit for bit,
+        # whatever the gradients hold (a gradient whose square overflows
+        # float32 times a zero factor would be NaN).
+        m, v, p = ([t.clone() for t in ts] for ts in (self.exp_avg, self.exp_avg_sq, self.params))
+        count = self.count.clone()
+        self._update(m, v, p, count, grads)
+        for old, new in zip(self.exp_avg + self.exp_avg_sq + self.params + [self.count],
+                            m + v + p + [count]):
+            torch.where(gate, new, old, out=old)
+
+    def _update(self, exp_avg, exp_avg_sq, params, count, grads) -> None:
+        """One Adam update of these tensors, in place: m = b1 m + (1 - b1) g,
+        v = b2 v + (1 - b2) g^2, p -= lr m^ / (sqrt(v^) + eps), in optax's
+        order of operations."""
+        b1, b2 = self.betas
+        keep1, keep2, take1, take2, neg_lr = self._open.unbind()
+        torch._foreach_mul_(exp_avg, keep1)
+        torch._foreach_add_(exp_avg, torch._foreach_mul(grads, take1))
         sq = torch._foreach_mul(grads, grads)
         torch._foreach_mul_(sq, take2)
-        torch._foreach_mul_(self.exp_avg_sq, keep2)
-        torch._foreach_add_(self.exp_avg_sq, sq)
-        self.count.add_(gate.to(torch.int32))
+        torch._foreach_mul_(exp_avg_sq, keep2)
+        torch._foreach_add_(exp_avg_sq, sq)
+        count.add_(1)
         # Bias corrections of the count; at least one, so moments that
         # never moved (zero) divide by a finite number.
-        n = self.count.clamp_min(1).float()
+        n = count.clamp_min(1).float()
         bc1 = 1.0 - torch.pow(b1, n)
         bc2 = 1.0 - torch.pow(b2, n)
-        denom = torch._foreach_div(self.exp_avg_sq, bc2)
+        denom = torch._foreach_div(exp_avg_sq, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(self.exp_avg, bc1)
+        upd = torch._foreach_div(exp_avg, bc1)
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, neg_lr)
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_add_(params, upd)
 
     def state_dict(self) -> dict:
         return {"count": self.count, "exp_avg": list(self.exp_avg),
                 "exp_avg_sq": list(self.exp_avg_sq), "n_params": len(self.params), "lr": self.lr}
 
     def load_state_dict(self, state: dict) -> None:
-        """The moments and the count; the learning rate stays this one's."""
+        """The moments and the count, copied into the tensors this optimizer
+        holds (a captured graph keeps their addresses); the learning rate
+        stays this one's."""
         if state["n_params"] != len(self.params):
             raise ValueError(f"Adam state for {state['n_params']} parameters, "
                              f"this optimizer has {len(self.params)}")

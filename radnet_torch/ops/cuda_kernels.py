@@ -8,6 +8,10 @@ on that stream and returns ``cudaGetLastError()``; the wrapper raises if it
 is not 0.  Nothing here touches CUDA when the module is imported.
 
 Every kernel keeps ``launches``, the number of times its wrapper launched it.
+A CUDA graph's replay launches its kernels without calling Python, so a
+capture is wrapped in :class:`CapturedLaunches`: it takes back the counts the
+capture added (a capture launches nothing) and adds them again on every
+replay.
 """
 
 from __future__ import annotations
@@ -197,6 +201,48 @@ KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD, QUANTIZE_ROWS, INT
 # the int8 head split over a model axis the quantizer's two other modes and
 # the epilogue on all-reduced sums.
 SERVING_KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
+
+
+class CapturedLaunches:
+    """Launch counts across a CUDA graph's capture and replays.
+
+    ``with CapturedLaunches() as c:`` around the capture records, for each
+    of ``kernels`` (default: :data:`KERNELS`), the launches its wrapper
+    counted inside the block, and for each key of the ``counters`` dicts
+    (plain int counters, such as ``ops.nms.NMS_STATS``) its increase; on
+    leaving, every count is set back to its value before the block.
+    :meth:`replayed` then adds those deltas once: call it after each
+    replay of the graph."""
+
+    def __init__(self, kernels=None, counters: tuple = ()):
+        self.kernels = list(KERNELS if kernels is None else kernels)
+        self.counters = list(counters)
+        self.deltas: list = []  # (kernel, launches) pairs
+        self.counter_deltas: list = []  # (dict, key, increase) triples
+
+    def __enter__(self) -> "CapturedLaunches":
+        self._before = [k.launches for k in self.kernels]
+        self._counters_before = [dict(c) for c in self.counters]
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.deltas = [(k, k.launches - b) for k, b in zip(self.kernels, self._before)
+                       if k.launches != b]
+        self.counter_deltas = [(c, key, c[key] - before.get(key, 0))
+                               for c, before in zip(self.counters, self._counters_before)
+                               for key in c if c[key] != before.get(key, 0)]
+        for k, b in zip(self.kernels, self._before):
+            k.launches = b
+        for c, key, d in self.counter_deltas:
+            c[key] -= d
+        return False
+
+    def replayed(self) -> None:
+        """One replay of the captured graph: each kernel's and counter's delta."""
+        for k, d in self.deltas:
+            k.launches += d
+        for c, key, d in self.counter_deltas:
+            c[key] += d
 
 
 def reset_launch_counts() -> None:

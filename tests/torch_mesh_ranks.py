@@ -137,9 +137,24 @@ def train_steps(model_parallel: int, jobs: list) -> list:
 
     A job: ``cfg`` (a Config dict), ``state`` (a numpy state_dict),
     ``batch`` (numpy), ``draws`` (a list of :func:`draws_to_numpy`, one a
-    step), ``lr``, ``trainable``."""
+    step), ``lr``, ``trainable``, and optionally ``fault``:
+    "mean_of_ratios" has each rank divide its losses by its own tiles'
+    denominators (no all-reduce of them), a deliberately wrong step."""
+    from radnet_torch.engine import steps
+
     mesh = make_mesh(model_parallel=model_parallel, device_type="cpu")
-    return [_train_job(mesh, job) for job in jobs]
+    out = []
+    for job in jobs:
+        real = steps._whole_batch
+        if job.get("fault") == "mean_of_ratios":
+            steps._whole_batch = lambda mesh, *local: None
+        elif job.get("fault") is not None:
+            raise ValueError(f"unknown fault {job['fault']!r}")
+        try:
+            out.append(_train_job(mesh, job))
+        finally:
+            steps._whole_batch = real
+    return out
 
 
 def _train_job(mesh, job: dict) -> dict:
@@ -165,6 +180,39 @@ def _train_job(mesh, job: dict) -> dict:
     return {"metrics": metrics, "equal": equal, "shard_dims": dict(state.shard_dims),
             "model": {k: v.numpy() for k, v in model_sd.items()},
             "optimizer": _tree_numpy(opt_sd)}
+
+
+def bundle_steps(job: dict) -> dict:
+    """A bundle of len(job["draws"]) joint steps against as many single
+    steps, each from the same state on this rank's mesh (all the launched
+    ranks on the data axis), each rank with its rows of the batches and the
+    draws.  Rank 0's: whether the bundle is a CUDA graph, whether the
+    metrics and the parameters are bit-equal, and each state's step."""
+    from radnet_torch.data.pipeline import rank_rows
+    from radnet_torch.engine import steps
+    from radnet_torch.engine.train_state import create_train_state
+
+    mesh = make_mesh(model_parallel=1, device_type="cpu")
+    cfg = Config.from_dict(job["cfg"])
+    states = []
+    for _ in range(2):
+        model = build_model(cfg)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in job["state"].items()})
+        states.append(create_train_state(cfg, torch.Generator(), "cpu", learning_rate=job["lr"],
+                                         model=model.train(), mesh=mesh))
+    batches = [{k: torch.from_numpy(np.array(v)) for k, v in rank_rows(b, mesh).items()}
+               for b in job["batches"]]
+    draws = [steps.rank_draws(draws_from_numpy(d), mesh) for d in job["draws"]]
+    bundle = steps.make_train_bundle(states[0], cfg, len(draws))
+    got = bundle(batches, draws)
+    step = steps.make_train_step(states[1], cfg)
+    want = [step(b, d) for b, d in zip(batches, draws)]
+    return {"graph": isinstance(bundle, steps.GraphBundle),
+            "metrics_equal": all(torch.equal(got[k], torch.stack([m[k] for m in want]))
+                                 for k in steps.METRIC_KEYS),
+            "params_equal": all(torch.equal(a, b) for a, b in zip(states[0].model.parameters(),
+                                                                  states[1].model.parameters())),
+            "steps": [s.step for s in states]}
 
 
 def _tree_numpy(obj):
