@@ -48,7 +48,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 any operation that waits for the card fails the run;
   8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
                 3000 grey panels and a blended map (launch counts read around
-                it), then one panel down each other path through
+                it); the label glyph table loads with numpy alone, and every
+                detection in all_predictions.png has its white label box,
+                clipped at the image's edges, with dark text pixels in it
+                wherever the box lies wholly inside; then one panel down each other path through
                 RADNet.predict: host tiles on a shortest-side canvas, host
                 tiles on the square canvas, full-resolution device tiling and
                 include_full_img;
@@ -234,12 +237,16 @@ Pretrained backbone weights, on the training set of phase 11:
                 the flag, the exit with JAX's message.
 
 The mesh (radnet_torch/parallel), on the model dirs the serve phases saved:
-  mesh_kernels  (beside int8_kernels) the quantizer's amax-only and
-                given-amax modes on the rows a model axis of 2 splits
+  mesh_kernels  (beside int8_kernels) csrc/row_amax.cu and the quantizer's
+                given-amax mode on the rows a model axis of 2 splits
                 (MESH_QUANT_CASES: s5b's input, the conv2a weights, VGG16's
                 fc2 input and weight), bit-equal to their plain versions,
                 the pieces given the all-reduced max bit-equal to the whole
-                row's quantization; csrc/int8_epilogue.cu on int32 sums
+                row's quantization; row_amax.cu also on AMAX_SPECIAL_LENGTHS
+                rows of zeros, -0.0, +-inf, subnormals, a NaN (a NaN amax),
+                and timed in turns beside its earlier design (the
+                quantizer's amax-only mode) and vector_norm(ord=inf);
+                csrc/int8_epilogue.cu on int32 sums
                 bit-equal to int8_gemm.cu's fused epilogue on the same sums
                 and to its plain version under all 8 INT8_EPILOGUES
                 (s5a.conv2a, s5b.conv2a, fc2); device ms, plain ms, bound;
@@ -882,7 +889,9 @@ def earlier_kernels() -> dict:
     atomics into a zeroed map), the int8 product (mma.sync tiles fed by
     cp.async, a float32 output) and the quantizer (one block a row, each
     row read twice), kept in radnet_torch/csrc/earlier/ to be timed beside
-    the current kernels."""
+    the current kernels; and the split row's amax (the quantizer's amax-only
+    mode, which stages each row in shared memory), kept in
+    csrc/quantize_rows.cu."""
     import ctypes
 
     from radnet_torch.ops.cuda_kernels import CudaKernel
@@ -903,7 +912,27 @@ def earlier_kernels() -> dict:
                                 [ptr] * 6 + [i32] * 8, extra_flags=("--fmad=false",)),
         "quantize_rows": CudaKernel("earlier/quantize_rows_two_pass.cu", "radnet_earlier_quantize_rows",
                                     [ptr] * 3 + [i32, ctypes.c_longlong, i32]),
+        "quantize_rows_amax": CudaKernel("quantize_rows.cu", "radnet_quantize_rows_amax",
+                                         [ptr] * 2 + [i32, ctypes.c_longlong] + [i32] * 4,
+                                         name="quantize_rows_amax_staged"),
     }
+
+
+def earlier_row_amax(kernel, x):
+    """The earlier amax kernel (csrc/quantize_rows.cu's amax-only mode) as
+    its wrapper ran it: each row staged in shared memory by a bulk copy, on
+    the quantizer's plan."""
+    import torch
+
+    from radnet_torch.ops import quant
+    from radnet_torch.ops.cuda_kernels import ptr
+
+    rows = x.shape[0]
+    length = x.numel() // rows
+    amax = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    kernel.launch(ptr(x), ptr(amax), rows, length, quant._DTYPE_CODE[x.dtype],
+                  *quant.quantize_plan(length, x.dtype))
+    return amax
 
 
 def earlier_quantize_rows(kernel, x):
@@ -1394,6 +1423,52 @@ def sync_free_phase(net, images, panel3, phase: str = "sync_free"):
     check(len(dets) > 0, "the panel dispatched under the sync check found nothing")
 
 
+def label_gate(drawn, preds: list) -> dict:
+    """The labels in ``drawn`` (all_predictions.png) of the detections
+    ``preds`` (predictions.json), in drawing order.  Each detection's label
+    box, placed as cli.common.draw_detections places it and clipped to the
+    image, that no later detection's outline or label box overlaps must be
+    white but for its text: at least half its pixels white where it lies
+    wholly inside the image (a label alone leaves 0.65-0.70), a quarter
+    where clipped, and a box wholly inside must hold dark text pixels.
+    Overlapped boxes are counted.  Also gates that the glyph table loaded
+    with numpy alone."""
+    from radnet_torch.cli.common import glyph_table, text_size
+
+    glyphs, height, drawn_with = glyph_table()
+    check(len(glyphs) == 191 and height > 0, f"the label glyph table holds {len(glyphs)} glyphs")
+    h, w = drawn.shape[:2]
+    # Each detection's label box and the 8-px outline's four bands, (x0,
+    # y0, x1, y1) inclusive.
+    rects = np.zeros((len(preds), 5, 4), np.int64)
+    for i, d in enumerate(preds):
+        (tw, th), base = text_size("{}: {}".format(d["label"], int(100 * d["confidence"])))
+        xa, xb = sorted((d["x1"], d["x2"]))
+        ya, yb = sorted((d["y1"], d["y2"]))
+        rects[i] = [(d["x1"] - 5, d["y1"] - th - 5, d["x1"] + tw + 5, d["y1"] + base - 5),
+                    (xa - 4, ya - 4, xb + 4, ya + 4), (xa - 4, yb - 4, xb + 4, yb + 4),
+                    (xa - 4, ya - 4, xa + 4, yb + 4), (xb - 4, ya - 4, xb + 4, yb + 4)]
+    counts = {"whole": 0, "clipped": 0, "overlapped": 0, "off_the_image": 0}
+    for i, (x0, y0, x1, y1) in enumerate(rects[:, 0].tolist()):
+        r0, r1, c0, c1 = max(y0, 0), min(y1, h - 1), max(x0, 0), min(x1, w - 1)
+        if r0 > r1 or c0 > c1:
+            counts["off_the_image"] += 1
+            continue
+        later = rects[i + 1:].reshape(-1, 4)
+        if ((later[:, 0] <= x1) & (x0 <= later[:, 2]) & (later[:, 1] <= y1) & (y0 <= later[:, 3])).any():
+            counts["overlapped"] += 1
+            continue
+        box = drawn[r0:r1 + 1, c0:c1 + 1]
+        white = float((box == 255).all(axis=-1).mean())
+        inside = 0 <= x0 and x1 < w and 0 <= y0 and y1 < h
+        counts["whole" if inside else "clipped"] += 1
+        check(white >= (0.5 if inside else 0.25), f"the label box of {preds[i]} is {white:.2f} white")
+        check(not inside or int((box.max(axis=-1) < 128).sum()) > 0,
+              f"the label box of {preds[i]} holds no text")
+    check(counts["whole"] > 0, f"no label box to check lies wholly inside the image: {counts}")
+    return {"glyphs": len(glyphs), "table_drawn_with_cv2": drawn_with, "label_boxes": counts}
+
+
 def predict_phase(tmp, net, kind, smi):
     """Phase 8: radnet_torch.cli.predict on a scan directory at the full
     config, then one panel down each other path of RADNet.predict."""
@@ -1425,11 +1500,16 @@ def predict_phase(tmp, net, kind, smi):
     for name in ("all", "boat", "human", "other"):
         out = os.path.join(scan, "img", "predictions", f"{name}_predictions.png")
         check(os.path.isfile(out), f"predict wrote no {out}")
-        pngs[name] = list(read_png(out).shape)
+        img = read_png(out)
+        pngs[name] = list(img.shape)
+        if name == "all":
+            check(len(preds) > 0, "predict wrote no detections")
+            t0 = time.perf_counter()
+            labels = label_gate(img, preds)
+            labels["gate_s"] = time.perf_counter() - t0
     emit({"phase": "predict_cli", "kind": kind, "nvidia_smi": smi, "img_types": cfg.img_types,
           "panel_hw": list(PANEL_HW), "detections": len(preds), "wall_s": wall_s,
-          "launches": launches, "prediction_pngs": pngs})
-    check(len(preds) > 0, "predict wrote no detections")
+          "launches": launches, "prediction_pngs": pngs, "labels": labels})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was never launched by the predict CLI")
 
@@ -4444,21 +4524,94 @@ def mesh_quant_inputs(case, dev, seed: int):
     return x.to(getattr(torch, dtype))
 
 
-def mesh_kernel_checks(dev) -> dict:
-    """Phase mesh_kernels: the quantizer's amax-only and given-amax modes on
-    the rows a model axis of 2 splits (MESH_QUANT_CASES: each piece's amax
-    and q and scale bit-equal to the plain versions, and the pieces,
-    given the all-reduced max, bit-equal to the whole row's plain
-    quantization), and the epilogue kernel on int32 sums bit-equal to
-    int8_gemm.cu's fused epilogue on the same sums (and to its plain
-    version) under all 8 INT8_EPILOGUES at the products whose K the axis
-    splits (MESH_EPILOGUE_CASES); each timed (device ms, plain ms, bound).
-    Returns the kernels line's rows of the three, at one tensor-parallel
-    head call of ResNet50 (VGG16's beside them)."""
+# Row lengths of row_amax.cu's special rows (amax_special_inputs), in both
+# types: a row of 16 values, and rows of one 16-value group over a whole
+# number of a thread group's unrolled passes, at a warp's and a CTA's plan.
+AMAX_SPECIAL_LENGTHS = (16, 2064, 50192)
+AMAX_SPECIAL_ROWS = 40
+
+
+def amax_special_inputs(dtype_name: str, length: int, dev, seed: int):
+    """AMAX_SPECIAL_ROWS seeded N(0, 1) rows of ``length`` values made on
+    the card, the first eight special: all +0.0, all -0.0, +inf and -inf
+    among numbers, only subnormals, a NaN among numbers, a -NaN in row 6,
+    and the largest magnitude in the last value of row 7."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dtype = getattr(torch, dtype_name)
+    x = torch.randn((AMAX_SPECIAL_ROWS, length), generator=g, device=dev)
+    sub = 2.0 ** -126  # the least normal float32 and bfloat16
+    pos = torch.randint(0, length, (8,), generator=g, device=dev)
+    x[0] = 0.0
+    x[1] = -0.0
+    x[2, pos[2]] = float("inf")
+    x[3, pos[3]] = float("-inf")
+    x[4] = x[4].sign() * sub * torch.rand(length, generator=g, device=dev)
+    x[5, pos[5]] = float("nan")
+    x[6, pos[6]] = -float("nan")
+    x[7, -1] = -1e4
+    return x.to(dtype)
+
+
+def amax_bits_equal(got, want) -> bool:
+    """NaN where the other is NaN, every other value's float32 bits equal
+    (so +0.0 is not -0.0)."""
+    import torch
+
+    nan = want.isnan()
+    return (bool(torch.equal(got.isnan(), nan))
+            and bool(torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))))
+
+
+def amax_special_checks(dev, earlier_kernel=None) -> dict:
+    """row_amax.cu on amax_special_inputs at AMAX_SPECIAL_LENGTHS, both
+    types, against its plain version (amax_bits_equal); the earlier design's
+    agreement beside it, printed."""
+    from radnet_torch.ops import quant
+
+    out = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for k, length in enumerate(AMAX_SPECIAL_LENGTHS):
+            x = amax_special_inputs(dtype_name, length, dev, SEED + 140 + k)
+            want = quant.quantize_rows_amax_plain(x)
+            got = quant.quantize_rows_amax_cuda(x)
+            key = f"{dtype_name}_{length}"
+            out[key] = {"plan": quant.row_amax_plan(x.shape[0], length, x.dtype)._asdict(),
+                        "bit_equal": amax_bits_equal(got, want),
+                        "nan_rows": [bool(v) for v in want[5:7].isnan()]}
+            if earlier_kernel is not None:
+                old = earlier_row_amax(earlier_kernel, x)
+                out[key]["earlier_bit_equal"] = amax_bits_equal(old, want)
+                out[key]["earlier_nan_rows"] = [float(v) for v in old[5:7]]
+            check(out[key]["bit_equal"] and all(out[key]["nan_rows"]),
+                  f"row_amax disagrees with its plain version on the special rows {key}: "
+                  f"{got[:8].tolist()} against {want[:8].tolist()}")
+    return out
+
+
+def mesh_kernel_checks(dev, earlier: dict | None = None) -> dict:
+    """Phase mesh_kernels: csrc/row_amax.cu and the quantizer's given-amax
+    mode on the rows a model axis of 2 splits (MESH_QUANT_CASES: each
+    piece's amax and q and scale bit-equal to the plain versions, and the
+    pieces, given the all-reduced max, bit-equal to the whole row's plain
+    quantization), row_amax.cu on special rows (amax_special_checks), and
+    the epilogue kernel on int32 sums bit-equal to int8_gemm.cu's fused
+    epilogue on the same sums (and to its plain version) under all 8
+    INT8_EPILOGUES at the products whose K the axis splits
+    (MESH_EPILOGUE_CASES); each timed (device ms, plain ms, bound), the
+    amax kernel in turns with its earlier design (``earlier``'s
+    "quantize_rows_amax", where given) and vector_norm(ord=inf).  Returns
+    the kernels line's rows of the three, at one tensor-parallel head call
+    of ResNet50 (VGG16's beside them)."""
     import torch
 
     from radnet_torch.ops import quant
 
+    old_amax = (earlier or {}).get("quantize_rows_amax")
+    special = amax_special_checks(dev, old_amax)
+    emit({"phase": "mesh_kernels", "kernel": "row_amax special rows", "rows": AMAX_SPECIAL_ROWS,
+          "cases": special})
     m_ax = MESH_MODEL_AXIS
     qrows = []
     for i, case in enumerate(MESH_QUANT_CASES):
@@ -4469,8 +4622,11 @@ def mesh_kernel_checks(dev) -> dict:
         amaxes = [quant.quantize_rows_amax_cuda(p) for p in pieces]
         torch.cuda.synchronize()
         for p, a in zip(pieces, amaxes):
-            check(torch.equal(a, quant.quantize_rows_amax_plain(p)),
-                  f"quantize_rows_amax disagrees with its plain version on {name}")
+            check(amax_bits_equal(a, quant.quantize_rows_amax_plain(p)),
+                  f"row_amax disagrees with its plain version on {name}")
+            if old_amax is not None:
+                check(amax_bits_equal(earlier_row_amax(old_amax, p), a),
+                      f"the earlier amax kernel disagrees with row_amax on {name}")
         amax = torch.stack(amaxes).amax(dim=0)
         whole = quant.quantize_rows_plain(x)
         for j, p in enumerate(pieces):
@@ -4492,13 +4648,25 @@ def mesh_kernel_checks(dev) -> dict:
                                                   f"result on {name}")
         a_bound, a_by = bound_ms(vals * p.element_size() + 4 * rows, 1.0 * vals)
         g_bound, g_by = bound_ms(vals * (p.element_size() + 1) + 8 * rows, 4.0 * vals)
+        # In turns: the kernel, its earlier design, the library call, then
+        # back in the other order.
+        arms = {"amax_ms": lambda: kernel_ms(lambda: quant.quantize_rows_amax_cuda(p), "row_amax_kernel"),
+                "amax_library_ms": lambda: call_device_ms(library)}
+        if old_amax is not None:
+            arms["amax_earlier_ms"] = lambda: kernel_ms(lambda: earlier_row_amax(old_amax, p),
+                                                        "quantize_rows_kernel")
+        order = ["amax_ms", "amax_earlier_ms", "amax_library_ms"]
+        turns = {k: [] for k in arms}
+        for k in [k for k in order + order[::-1] if k in arms]:
+            turns[k].append(arms[k]())
         row = {
             "case": name, "backbone": backbone, "piece": list(p.shape), "dtype": dtype, "uses": uses,
             "zero_share": float((p == 0).float().mean()),
-            "amax_ms": kernel_ms(lambda: quant.quantize_rows_amax_cuda(p), "quantize_rows_kernel"),
+            "amax_plan": quant.row_amax_plan(rows, vals // rows, p.dtype)._asdict(),
+            **{k: statistics.mean(v) for k, v in turns.items()},
+            **{f"{k}_turns": v for k, v in turns.items()},
             "amax_plain_ms": time_cuda(lambda: quant.quantize_rows_amax_plain(p), iters=3, warmup=1),
             "amax_bound_ms": a_bound, "amax_bound_by": a_by,
-            "amax_library_ms": call_device_ms(library),
             "given_ms": kernel_ms(lambda: quant.quantize_rows_given_cuda(p, amax), "quantize_rows_kernel"),
             "given_plain_ms": time_cuda(lambda: quant.quantize_rows_given_plain(p, amax), iters=3, warmup=1),
             "given_bound_ms": g_bound, "given_bound_by": g_by,
@@ -4578,12 +4746,18 @@ def mesh_kernel_rows(qrows: list, erows: list) -> dict:
                    "bound_ms": call(qrows, b, f"{mode}_bound_ms"),
                    "library_ms": call(qrows, b, "amax_library_ms") if mode == "amax" else None,
                    "whole_row_mode_ms": call(qrows, b, "whole_ms")} for b in ("resnet50", "vgg16")}
+        if mode == "amax" and all("amax_earlier_ms" in r for r in qrows):
+            for b in per:
+                per[b]["earlier_ms"] = call(qrows, b, "amax_earlier_ms")
         line[name] = {
-            "name": name, "route": "cuda", "source": "radnet_torch/csrc/quantize_rows.cu",
+            "name": name, "route": "cuda",
+            "source": ("radnet_torch/csrc/row_amax.cu" if mode == "amax" else
+                       "radnet_torch/csrc/quantize_rows.cu"),
             "replaces": "radnet_tpu/models/quant.py:45",
             "replaces_also": "quantize_sym's max over a row the model axis splits, which GSPMD "
                              "all-reduces (no Pallas kernel)",
-            "mode": ("amax-only: each row's amax, nothing else" if mode == "amax" else
+            "mode": ("each row's amax, streamed (earlier_ms: quantize_rows.cu's amax-only mode, "
+                     "which stages the row)" if mode == "amax" else
                      "given-amax: scale = max(amax, 1e-12) / 127 from the all-reduced amax, then q"),
             "shape": "one tensor-parallel int8 head call of ResNet50, model axis 2, a 12-tile batch",
             **per["resnet50"], "bound_by": by(qrows, f"{mode}_bound_ms", f"{mode}_bound_by"),
@@ -5363,7 +5537,7 @@ def main() -> int:
     vgg_errs = vgg_kernel_checks(dev)
     kernels_line = timings(dev, errs, earlier)
     kernels_line.update(int8_kernel_checks(dev, earlier))
-    kernels_line.update(mesh_kernel_checks(dev))
+    kernels_line.update(mesh_kernel_checks(dev, earlier))
 
     # 7-8. the main path through serve, per-stage times, then predict.
     cfg, vcfg = Config(), vgg_config()

@@ -5,9 +5,11 @@ shared flags, data and pipelines."""
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import random
 import sys
+from typing import NamedTuple
 
 import numpy as np
 
@@ -91,33 +93,164 @@ def mesh_from_args(args):
 
 def draw_rectangle(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color,
                    thickness: int = 8) -> np.ndarray:
-    """Draw the outline of the rectangle with corners (x1, y1) and (x2, y2)
-    on a BGR ``(H, W, 3)`` image in place: four bands ``thickness`` px wide,
-    centred on the edges, clipped to the image.  The corners are square."""
+    """Draw the rectangle with corners (x1, y1) and (x2, y2) on an ``(H, W,
+    C)`` image in place, pixel for pixel as ``cv2.rectangle`` draws it
+    (``LINE_8``), clipped to the image.
+
+    ``thickness`` -1 fills every pixel between the corners, inclusive; 0 or
+    1 draws the 1-px outline.  Above 1, with ``r = (thickness + 1) // 2``,
+    each edge is a band of ``2 r + 1`` px centred on it (its rows ``y - r``
+    to ``y + r``, along the edge between the corners) and each corner a
+    filled disc of radius ``r`` in OpenCV's midpoint circle raster, so the
+    outer corners are rounded: at thickness 8 a band is 9 px wide and the
+    disc's half-widths are 4, 3, 3, 2, 0 at rows 0, +-1, +-2, +-3, +-4."""
     h, w = img.shape[:2]
-    lo, hi = thickness // 2, thickness - thickness // 2
     xa, xb = sorted((int(x1), int(x2)))
     ya, yb = sorted((int(y1), int(y2)))
     color = np.asarray(color, np.uint8)
 
-    def band(r0, r1, c0, c1):
-        r0, r1 = max(r0, 0), min(r1, h)
-        c0, c1 = max(c0, 0), min(c1, w)
-        if r0 < r1 and c0 < c1:
-            img[r0:r1, c0:c1] = color
+    def fill(r0, r1, c0, c1):  # rows r0..r1 and columns c0..c1, inclusive
+        r0, r1 = max(r0, 0), min(r1, h - 1)
+        c0, c1 = max(c0, 0), min(c1, w - 1)
+        if r0 <= r1 and c0 <= c1:
+            img[r0:r1 + 1, c0:c1 + 1] = color
 
-    band(ya - lo, ya + hi, xa - lo, xb + hi)  # top
-    band(yb - lo, yb + hi, xa - lo, xb + hi)  # bottom
-    band(ya - lo, yb + hi, xa - lo, xa + hi)  # left
-    band(ya - lo, yb + hi, xb - lo, xb + hi)  # right
+    if thickness < 0:
+        fill(ya, yb, xa, xb)
+        return img
+    r = (thickness + 1) // 2 if thickness > 1 else 0
+    fill(ya - r, ya + r, xa, xb)  # top
+    fill(yb - r, yb + r, xa, xb)  # bottom
+    fill(ya, yb, xa - r, xa + r)  # left
+    fill(ya, yb, xb - r, xb + r)  # right
+    if r:
+        for cy, cx in ((ya, xa), (ya, xb), (yb, xa), (yb, xb)):
+            for dy, half in _disc_rows(r).items():
+                fill(cy + dy, cy + dy, cx - half, cx + half)
     return img
 
 
+@functools.lru_cache(maxsize=None)
+def _disc_rows(radius: int) -> dict:
+    """``{row offset: half-width}`` of OpenCV's filled circle (``Circle``
+    in its drawing code, the midpoint algorithm), which ``cv2.rectangle``
+    puts at each corner of a line thicker than 1 px."""
+    rows: dict = {}
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    while dx >= dy:
+        for row, half in ((dy, dx), (-dy, dx), (dx, dy), (-dx, dy)):
+            rows[row] = max(rows.get(row, -1), half)
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+    return rows
+
+
+# The label glyphs: OpenCV's FONT_HERSHEY_DUPLEX at scale 1, thickness 1, as
+# the coverage (0-255) of each character of U+0020-U+007E and U+00A0-U+00FF,
+# and FONT_HERSHEY_COMPLEX's sizes, built with cv2 by
+# scripts/make_label_glyphs.py.  Loaded at first use, with numpy alone.
+LABEL_GLYPHS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "label_glyphs.npz")
+
+
+class _Glyph(NamedTuple):
+    alpha: np.ndarray  # (h, w) uint8 coverage
+    dy: int  # the crop's top-left corner from the pen's origin
+    dx: int
+    advance: int  # DUPLEX: the pen moves this far after the character
+    complex_width: int  # COMPLEX: getTextSize's width and baseline
+    complex_baseline: int
+
+
+@functools.lru_cache(maxsize=1)
+def glyph_table() -> tuple[dict, int, str]:
+    """({character: glyph}, the COMPLEX text height, the cv2 version the
+    table was drawn with)."""
+    with np.load(LABEL_GLYPHS) as t:
+        alpha, start, shape, offset = t["alpha"], t["start"], t["shape"], t["offset"]
+        glyphs = {
+            chr(int(cp)): _Glyph(alpha[start[i]:start[i] + shape[i, 0] * shape[i, 1]].reshape(shape[i]),
+                                 int(offset[i, 0]), int(offset[i, 1]), int(t["advance"][i]),
+                                 int(t["complex_width"][i]), int(t["complex_baseline"][i]))
+            for i, cp in enumerate(t["code_points"])
+        }
+        return glyphs, int(t["complex_height"]), str(t["cv2_version"])
+
+
+def _glyphs(text: str) -> list:
+    glyphs, _, _ = glyph_table()
+    missing = [c for c in text if c not in glyphs]
+    if missing:
+        raise ValueError(f"{missing[0]!r} (U+{ord(missing[0]):04X}) of {text!r} is not in the "
+                         f"label glyph table (U+0020-U+007E, U+00A0-U+00FF)")
+    return [glyphs[c] for c in text]
+
+
+def require_drawable(class_names) -> None:
+    """Stop the run, naming the character and the class, if a class name
+    has a character the label glyph table lacks: its label could not be
+    drawn as the JAX package's OpenCV draws it."""
+    for name in class_names:
+        try:
+            _glyphs(str(name))
+        except ValueError as e:
+            raise SystemExit(f"class {name!r} cannot be labelled: {e}") from None
+
+
+def text_size(text: str) -> tuple[tuple[int, int], int]:
+    """``cv2.getTextSize(text, FONT_HERSHEY_COMPLEX, 1, 1)``: ((width,
+    height), baseline), the width the characters' widths less 1 each, plus
+    1, the baseline the largest of theirs."""
+    glyphs = _glyphs(text)
+    _, height, _ = glyph_table()
+    width = sum(g.complex_width - 1 for g in glyphs) + 1
+    return (width, height), max(g.complex_baseline for g in glyphs)
+
+
+def put_text(img: np.ndarray, text: str, org, color) -> np.ndarray:
+    """``cv2.putText(img, text, org, FONT_HERSHEY_DUPLEX, 1, color, 1)`` on
+    an ``(H, W, C)`` uint8 image, in place: in the string's order, each
+    character's coverage blends into the pixels under it (:func:`_blend`),
+    clipped to the image, and the pen moves on by the character's
+    advance."""
+    h, w = img.shape[:2]
+    color = np.asarray(color, np.int32)[: img.shape[2]]
+    x, y = int(org[0]), int(org[1])
+    for g in _glyphs(text):
+        gh, gw = g.alpha.shape
+        top, left = y + g.dy, x + g.dx
+        r0, r1 = max(top, 0), min(top + gh, h)
+        c0, c1 = max(left, 0), min(left + gw, w)
+        if r0 < r1 and c0 < c1:
+            a = g.alpha[r0 - top:r1 - top, c0 - left:c1 - left, None].astype(np.int32)
+            img[r0:r1, c0:c1] = _blend(img[r0:r1, c0:c1].astype(np.int32), a, color)
+        x += g.advance
+    return img
+
+
+def _blend(dst: np.ndarray, a: np.ndarray, color: np.ndarray) -> np.ndarray:
+    """OpenCV's blend of a glyph's coverage ``a`` (0-255) in ``color`` over
+    ``dst``, a channel, rounded to nearest (int32 in, int32 out)."""
+    return (dst * (255 - a) + color * a + 127) // 255
+
+
 def draw_detections(img: np.ndarray, detections, color=(255, 255, 255)) -> np.ndarray:
-    """Outline every detection on ``img`` in place, 8 px thick.  The
-    ``class: percent`` label of the JAX package's drawing is not drawn."""
+    """Annotate detections on a BGR ``(H, W, 3)`` image in place, as the JAX
+    package's ``draw_detections`` does with OpenCV: for each detection in
+    turn, its 8-px outline in ``color``, then a filled white box behind its
+    ``class: percent`` label, then the label in black with its baseline's
+    left end at the detection's top-left corner."""
     for d in detections:
-        draw_rectangle(img, d["x1"], d["y1"], d["x2"], d["y2"], color, 8)
+        x1, y1 = int(d["x1"]), int(d["y1"])
+        draw_rectangle(img, x1, y1, d["x2"], d["y2"], color, 8)
+        label = "{}: {}".format(d["class"], int(100 * d["prob"]))
+        (tw, th), baseline = text_size(label)
+        draw_rectangle(img, x1 - 5, y1 + baseline - 5, x1 + tw + 5, y1 - th - 5, (255, 255, 255), -1)
+        put_text(img, label, (x1, y1), (0, 0, 0))
     return img
 
 

@@ -3,8 +3,11 @@
 Reads the panel of every configured image type from a scan directory's
 layout (:func:`resolve_type_path`), predicts across them, and writes
 ``arrays/predictions.json`` and ``img/predictions/{all,boat,human,
-other}_predictions.png`` (the detections outlined on the scan's blended map,
-when it has one) under the scan directory.  ``--n-devices N
+other}_predictions.png`` (the detections drawn on the scan's blended map,
+when it has one: outlined and labelled ``class: percent`` in the first,
+outlined in the class's colour in the others) under the scan directory.  A
+class name with a character the label glyph table lacks stops the run
+before the first panel.  ``--n-devices N
 [--model-parallel M]`` predicts over a mesh of N ranks
 (radnet_torch/parallel): the tiles split over the data axis, the RoI head
 over the model axis; rank 0 writes the files.
@@ -23,7 +26,7 @@ from pathlib import Path
 
 from radnet_torch.cli.common import (add_mesh_args, add_quantize_arg, draw_detections,
                                      draw_rectangle, mesh_from_args, model_dir,
-                                     quantize_from_args, run_on_mesh)
+                                     quantize_from_args, require_drawable, run_on_mesh)
 from radnet_torch.cli.serve import detections_to_json
 from radnet_torch.data.png import read_png, write_png
 
@@ -76,6 +79,7 @@ def predict(args) -> int:
     print("\n\nMaking predictions.")
     radnet = load_radnet(model_dir(args.models_path, args.model_name), device=args.device,
                          quantize=quantize_from_args(args), mesh=mesh)
+    require_drawable(radnet.C.class_mapping)
     images = [read_png(str(resolve_type_path(args.scan_data_path, t))) for t in radnet.C.img_types]
     detections = radnet.predict(images)
     if mesh is not None and not mesh.is_main:

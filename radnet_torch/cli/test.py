@@ -1,7 +1,9 @@
 """Evaluation from the command line: test-set inference and VOC mAP.
 
 Predicts every panel of an annotation CSV, writes each panel with its
-detections outlined to ``<model>/test/``, computes per-class AP and mAP
+detections outlined and labelled ``class: percent`` to ``<model>/test/``
+(a class name with a character the label glyph table lacks stops the run
+before the first panel), computes per-class AP and mAP
 (``radnet_torch.evaluation``), draws the precision/recall curves to
 ``<model>/viz/precision_recall.svg``, and writes ``test_accuracy.json``
 (and with ``--coco-map`` also ``test_accuracy_coco.json``).  Panels are
@@ -32,8 +34,8 @@ import time
 import numpy as np
 
 from radnet_torch.cli.common import (add_mesh_args, add_quantize_arg, draw_detections,
-                                     mesh_from_args, model_dir, run_on_mesh,
-                                     quantize_from_args)
+                                     mesh_from_args, model_dir, quantize_from_args,
+                                     require_drawable, run_on_mesh)
 from radnet_torch.data.dataset import get_data, get_image
 from radnet_torch.data.png import write_png
 from radnet_torch.evaluation import evaluate_detections, evaluate_detections_multi
@@ -159,6 +161,7 @@ def evaluate(args) -> int:
     print("\n\nMaking predictions on TEST data.")
     radnet = load_radnet(model_path, device=args.device, quantize=quantize_from_args(args),
                          mesh=mesh)
+    require_drawable(radnet.C.class_mapping)
     data_test, _, _ = get_data(args.test_annot, args.test_data, radnet.C.img_types)
     if args.limit:
         data_test = data_test[: args.limit]

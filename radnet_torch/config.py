@@ -1,11 +1,10 @@
 """Configuration of the RADNet detector, as the PyTorch port reads it.
 
 A field-for-field copy of the JAX package's ``Config`` so that a model
-directory's ``config.json`` loads unchanged in either package.  Fields that
-only the JAX package acts on (mesh and compile-cache knobs, training
-switches that the port has not reached yet) are kept so the JSON
-round-trips; the port raises ``NotImplementedError`` where a value asks for
-a path it does not have.
+directory's ``config.json`` loads unchanged in either package.  Two fields
+are kept only so the JSON round-trips, and read as nothing:
+``infer_host_s2d``, a TPU layout choice (the port's host tiles always ship
+3-channel canvases), and ``verbose``, which neither package reads.
 """
 
 from __future__ import annotations

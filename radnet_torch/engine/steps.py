@@ -37,7 +37,7 @@ first call and replayed at every call after it; on the CPU it runs the K
 steps one after another.  On a mesh it runs K single steps too: two ranks
 sharing a card talk over gloo, whose collectives a graph cannot capture,
 and a capture over NCCL across cards cannot be measured on the one-card
-host (ROADMAP Queue 1).
+host (ROADMAP Held C item 1).
 """
 
 from __future__ import annotations

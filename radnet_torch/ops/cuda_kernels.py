@@ -164,11 +164,12 @@ QUANTIZE_ROWS = CudaKernel(
     [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4,
 )
 
-# The quantizer's two modes for a row split over a tensor-parallel head's model
-# axis: the same source and library, other entry points, counts of their own.
+# A row split over a tensor-parallel head's model axis: each piece's amax by
+# its own kernel, then the quantizer's given-amax mode (the same source and
+# library as QUANTIZE_ROWS, another entry point, a count of its own).
 QUANTIZE_ROWS_AMAX = CudaKernel(
-    "quantize_rows.cu",
-    "radnet_quantize_rows_amax",
+    "row_amax.cu",
+    "radnet_row_amax",
     [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4,
     name="quantize_rows_amax",
 )
@@ -198,8 +199,8 @@ KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM, ROI_POOL_BACKWARD, QUANTIZE_ROWS, INT
            QUANTIZE_ROWS_AMAX, QUANTIZE_ROWS_GIVEN, INT8_EPILOGUE]
 # The kernels the serving cascade launches; training adds the backward, the
 # int8 head (infer_quantize="int8") the quantizer and the int8 product, and
-# the int8 head split over a model axis the quantizer's two other modes and
-# the epilogue on all-reduced sums.
+# the int8 head split over a model axis the pieces' amax, the quantizer's
+# given-amax mode and the epilogue on all-reduced sums.
 SERVING_KERNELS = [NMS_FUSED, ROI_POOL, GREY_STEM]
 
 

@@ -9,7 +9,8 @@ and dense products, as ``radnet_tpu/models/quant.py`` computes them.
   sw)``, then ``+ bias`` where the layer has one.
 
 Two kernels do the work on the card: ``csrc/quantize_rows.cu`` (one scale a
-row; two more modes for a row split over a model axis, below) and
+row, or with a given amax for a row split over a model axis, below; each
+piece's amax by ``csrc/row_amax.cu``) and
 ``csrc/int8_gemm.cu`` (the int8 product on ``wgmma``, reading a 3x3 SAME
 conv's im2col implicitly, with the dequantize, the bias and what the layer
 after it does in its epilogue: the frozen batch norm in the model's type, the
@@ -114,18 +115,7 @@ def quantize_rows_cuda(x: torch.Tensor) -> Quantized:
     """Launch ``csrc/quantize_rows.cu``; same contract as
     :func:`quantize_rows_plain` for float32 or bfloat16 ``x`` whose rows
     hold a multiple of 16 values and fit :func:`quantize_plan`."""
-    if not x.is_cuda:
-        raise ValueError("quantize_rows_cuda needs a CUDA tensor")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"quantize_rows_cuda takes float32 or bfloat16, not {x.dtype}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("quantize_rows_cuda needs a contiguous, 16-byte aligned tensor")
-    rows = x.shape[0]
-    length = x.numel() // max(rows, 1)
-    if rows == 0 or length == 0 or length % 16:
-        raise ValueError(f"quantize_rows_cuda needs rows of a multiple of 16 values, not "
-                         f"{tuple(x.shape)}")
-    plan = quantize_plan(length, x.dtype)
+    rows, length, plan = _row_plan(x, "quantize_rows_cuda")
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
     cuda_kernels.QUANTIZE_ROWS.launch(cuda_kernels.ptr(x), cuda_kernels.ptr(q),
@@ -148,7 +138,8 @@ def quantize_rows(x: torch.Tensor) -> Quantized:
 # A max is exact in any order, so the result is bit-equal to
 # quantize_rows_plain on the whole row.
 def quantize_rows_amax_plain(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (R, ...) -> ``(R,)`` float32: each row's largest magnitude."""
+    """``x`` (R, ...) -> ``(R,)`` float32: each row's largest magnitude
+    (NaN where the row has a NaN)."""
     return x.float().abs().reshape(x.shape[0], -1).amax(dim=1)
 
 
@@ -162,10 +153,10 @@ def quantize_rows_given_plain(x: torch.Tensor, amax: torch.Tensor) -> Quantized:
     return Quantized(q, scale.reshape(-1))
 
 
-def _row_plan(x: torch.Tensor, what: str) -> tuple[int, int, QuantizePlan]:
-    """The checks of :func:`quantize_rows_cuda`, then (rows, length, plan)."""
-    if not x.is_cuda:
-        raise ValueError(f"{what} needs a CUDA tensor")
+def _row_checks(x: torch.Tensor, what: str) -> tuple[int, int]:
+    """The checks of the row kernels' wrappers past the device: (rows, values
+    a row) of a float32 or bfloat16, contiguous, 16-byte aligned ``x`` whose
+    rows hold a multiple of 16 values."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what} takes float32 or bfloat16, not {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -174,14 +165,76 @@ def _row_plan(x: torch.Tensor, what: str) -> tuple[int, int, QuantizePlan]:
     length = x.numel() // max(rows, 1)
     if rows == 0 or length == 0 or length % 16:
         raise ValueError(f"{what} needs rows of a multiple of 16 values, not {tuple(x.shape)}")
+    return rows, length
+
+
+def _row_plan(x: torch.Tensor, what: str) -> tuple[int, int, QuantizePlan]:
+    """The checks of :func:`quantize_rows_cuda`, then (rows, length, plan)."""
+    if not x.is_cuda:
+        raise ValueError(f"{what} needs a CUDA tensor")
+    rows, length = _row_checks(x, what)
     return rows, length, quantize_plan(length, x.dtype)
 
 
+# csrc/row_amax.cu streams each row from device memory in 16-byte loads,
+# ROW_AMAX_UNROLL in flight a thread; a group of threads owns a row, sized so
+# that each thread reads about ROW_AMAX_LOADS loads of it (8 to 1024
+# threads), and a CTA of at least 32 threads holds one or more rows, as many
+# as keep ROW_AMAX_MIN_CTAS CTAs in the grid, up to ROW_AMAX_CTA_THREADS.
+ROW_AMAX_UNROLL = 4
+ROW_AMAX_LOADS = 16
+ROW_AMAX_CTA_THREADS = 256
+ROW_AMAX_MIN_CTAS = 2 * 132  # two a streaming multiprocessor of an H100
+
+
+class RowAmaxPlan(NamedTuple):
+    """How ``csrc/row_amax.cu`` covers the rows: ``row_threads`` threads a
+    row, ``threads`` threads a CTA (``threads // row_threads`` rows), each
+    keeping ``unroll`` 16-byte loads in flight."""
+
+    row_threads: int
+    threads: int
+    unroll: int
+
+    def ctas(self, rows: int) -> int:
+        per = self.threads // self.row_threads
+        return -(-rows // per)
+
+
+def row_amax_plan(rows: int, length: int, dtype: torch.dtype) -> RowAmaxPlan:
+    """The plan for ``rows`` rows of ``length`` values of ``dtype`` (a
+    multiple of 16): the power of two of threads a row, 8 to 1024, nearest
+    by ratio to the row's 16-byte loads over ROW_AMAX_LOADS; a CTA of that
+    many threads, at least 32, doubled while the grid keeps
+    ROW_AMAX_MIN_CTAS CTAs, up to ROW_AMAX_CTA_THREADS (short rows share a
+    CTA, a warp or less a row; long rows take a CTA each).  On the card, 32
+    threads a row of 2048 float32 and 512 a row of 50 176 bf16 were the
+    fastest plans or within 1% of them (scripts/row_amax_probe.py)."""
+    if rows <= 0 or length <= 0 or length % 16:
+        raise ValueError(f"row_amax takes rows of a positive multiple of 16 values, not {rows} x {length}")
+    units = length * torch.empty((), dtype=dtype).element_size() // 16
+    if units > 2**31 - 1:
+        raise ValueError(f"row_amax takes rows of fewer than 2^31 16-byte loads, not {units}")
+    q = units / ROW_AMAX_LOADS
+    log2 = max(int(q).bit_length() - 1, 0)
+    log2 += q * q > 2 * 4**log2  # the nearer power of two, by ratio
+    row_threads = 1 << min(max(log2, 3), 10)
+    threads = max(row_threads, 32)
+    while (threads < ROW_AMAX_CTA_THREADS
+           and RowAmaxPlan(row_threads, 2 * threads, ROW_AMAX_UNROLL).ctas(rows) >= ROW_AMAX_MIN_CTAS):
+        threads *= 2
+    return RowAmaxPlan(row_threads, threads, ROW_AMAX_UNROLL)
+
+
 def quantize_rows_amax_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/quantize_rows.cu`` in its amax-only mode; same contract
-    as :func:`quantize_rows_amax_plain` for the rows :func:`quantize_rows_cuda`
-    takes."""
-    rows, length, plan = _row_plan(x, "quantize_rows_amax_cuda")
+    """Launch ``csrc/row_amax.cu``; same contract as
+    :func:`quantize_rows_amax_plain` for float32 or bfloat16 ``x``,
+    contiguous and 16-byte aligned, whose rows hold a multiple of 16
+    values."""
+    if not x.is_cuda:
+        raise ValueError("quantize_rows_amax_cuda needs a CUDA tensor")
+    rows, length = _row_checks(x, "quantize_rows_amax_cuda")
+    plan = row_amax_plan(rows, length, x.dtype)
     amax = torch.empty((rows,), dtype=torch.float32, device=x.device)
     cuda_kernels.QUANTIZE_ROWS_AMAX.launch(cuda_kernels.ptr(x), cuda_kernels.ptr(amax), rows, length,
                                            _DTYPE_CODE[x.dtype], *plan)

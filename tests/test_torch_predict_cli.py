@@ -3,7 +3,8 @@
 ``radnet_torch.cli.predict`` on a scan directory of two tiny grey panels
 must write the ``predictions.json`` that JAX ``RADNet.predict`` gives on the
 same images and weights (labels and boxes equal, confidences within 1e-5,
-as tests/test_torch_cascade.py), and the four prediction PNGs.
+as tests/test_torch_cascade.py), and the four prediction PNGs as the JAX
+package draws those detections.
 ``cv2.resize`` is patched to the port's bicubic, so both see the same
 prescaled panels.
 """
@@ -19,6 +20,7 @@ from radnet_torch.cli import predict as tpredict
 from radnet_torch.data import dataset as tdataset
 from radnet_torch.data.png import read_png, write_png
 from radnet_torch.inference import save_radnet
+from radnet_tpu.cli import common as jcommon
 from radnet_tpu.cli import predict as jpredict
 from radnet_tpu.data import dataset as jdataset
 from radnet_tpu.inference import RADNet as JaxRADNet
@@ -110,6 +112,23 @@ def test_predict_cli_matches_jax(tmp_path, monkeypatch):
     drawn = read_png(str(scan / "img" / "predictions" / "all_predictions.png"))
     d = got[0]
     assert (drawn[d["y1"], d["x1"]] == 255).all()  # outline drawn at the corner
+
+    # Every PNG as the JAX package draws the same detections on the same
+    # image: labelled in all_predictions.png, outlined in the class's colour
+    # by cv2.rectangle in the others.
+    base = read_png(str(viz))
+    dets = [{"class": d["label"], "prob": d["confidence"], **{k: d[k] for k in ("x1", "y1", "x2", "y2")}}
+            for d in got]
+    np.testing.assert_array_equal(drawn, jcommon.draw_detections(base.copy(), dets))
+    for name, color, keep in (("boat", (28, 26, 228), lambda c: c == "boat"),
+                              ("human", (184, 126, 55), lambda c: c == "human"),
+                              ("other", (0, 127, 255), lambda c: c not in ("boat", "human"))):
+        want = base.copy()
+        for d in dets:
+            if keep(d["class"]):
+                cv2.rectangle(want, (d["x1"], d["y1"]), (d["x2"], d["y2"]), color, 8)
+        out = read_png(str(scan / "img" / "predictions" / f"{name}_predictions.png"))
+        np.testing.assert_array_equal(out, want)
 
 
 @pytest.mark.parametrize("use_img_type", [False, True])

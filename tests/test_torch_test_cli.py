@@ -8,7 +8,8 @@ int8 configuration's ``infer_quantize`` kept.  Then ``radnet_tpu.cli.test.main``
 test set from that one directory: the same detections (boxes equal,
 confidences within 1e-5, as tests/test_torch_cascade.py), the same
 ``test_accuracy.json`` and ``test_accuracy_coco.json`` within 1e-9, and the
-same ``--compare`` exit codes.  ``cv2.resize`` is patched to the port's
+same ``--compare`` exit codes; the port's drawn panels equal the JAX
+package's ``draw_detections`` of the same detections.  ``cv2.resize`` is patched to the port's
 bicubic, so both see the same prescaled panels.
 """
 
@@ -32,6 +33,7 @@ from radnet_torch.config import Config as TorchConfig
 from radnet_torch.data.png import read_png, write_png
 from radnet_torch.evaluation import evaluate_detections
 from radnet_torch.inference import load_radnet
+from radnet_tpu.cli import common as jcommon
 from radnet_tpu.cli import test as jtest
 from radnet_tpu.config import Config as JaxConfig
 from radnet_tpu.engine.checkpoint import save_checkpoint
@@ -202,6 +204,14 @@ def test_test_cli_matches_jax(jax_dir, test_set, cli_nets, monkeypatch, capsys):
     j_out = capsys.readouterr().out
     shutil.rmtree(jax_dir / "test")  # the port creates the folder itself
 
+    drawn = {}  # panel image before drawing, and the detections drawn on it
+    real_draw = ttest.draw_detections
+
+    def draw_spy(img, detections):
+        drawn[len(drawn)] = (img.copy(), list(detections))
+        return real_draw(img, detections)
+
+    monkeypatch.setattr(ttest, "draw_detections", draw_spy)
     t_rc, t_seen, t_acc, t_coco = _run(
         ttest.main, ttest, jax_dir, test_set, monkeypatch, ["--device", "cpu"])
     t_out = capsys.readouterr().out
@@ -219,6 +229,11 @@ def test_test_cli_matches_jax(jax_dir, test_set, cli_nets, monkeypatch, capsys):
 
     for k in range(N_PANELS):  # one drawn panel each
         assert read_png(str(jax_dir / "test" / f"p{k}.png")).shape == PANEL_HW + (3,)
+    # each as the JAX package draws the same detections on the same panel
+    assert len(drawn) == N_PANELS and sum(len(d) for _, d in drawn.values()) == len(t_seen["dets"])
+    for k, (img, dets) in drawn.items():
+        np.testing.assert_array_equal(read_png(str(jax_dir / "test" / f"p{k}.png")),
+                                      jcommon.draw_detections(img, dets))
 
     # The curve's points ride in the SVG unrounded; legend and title as JAX's.
     svg = (jax_dir / "viz" / "precision_recall.svg").read_text()
