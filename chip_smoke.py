@@ -285,6 +285,23 @@ The mesh (radnet_torch/parallel), on the model dirs the serve phases saved:
                 mesh and on one device, and a mesh step's launches; NCCL at
                 data parallelism 2 where the host has two cards.
 
+The learning check, after the VGG16 training phases:
+  overfit_check  radnet_torch.cli.overfit_check at its defaults (VGG16 from
+                the plain seeded init, trunk trainable, 300 single joint
+                steps at batch 8 on 4 batches staged on the card, 8 panels
+                predicted at a score cut of 0.5): every kernel's launches
+                exactly overfit_check_launches' (a step one NMS, RoI pool
+                and backward; a scored panel two NMS and one RoI pool;
+                nothing else), the last logged total loss below step 0's,
+                peak memory beside the summary; the NMS, RoI pool and
+                backward on the inputs the last step gave them against
+                their plain versions, timed (overfit_check_kernels); the
+                summary well formed, and the exit code JAX's criterion on
+                it (0 exactly when there is a detection and some class AP
+                above 0). Whether the criterion held is recorded, not
+                gated: at JAX's config it holds in about half of the
+                card's runs, by chance (ROADMAP Queue 3).
+
 The last lines are the kernels JSON line (nine kernels; launches over each
 kernel's main path: the served run, cont_train for the backward, the int8
 served run for the int8 kernels; beside them the launches of the train,
@@ -295,7 +312,9 @@ under "launches_pretrained_train" those of pretrained_train's runs; each
 kernel's rows at the VGG16 shapes under "vgg16"; the mesh kernels'
 launches over the two-rank int8 serve, "launches_mesh_serve" every
 kernel's there, "launches_mesh_train" rank 0's in the two mesh training
-runs), the nvidia-smi line, and {"ok": true, "device": {...}}.
+runs, "launches_overfit_check" the learning check's; the rows on its last
+step's inputs under "vgg16" as "overfit_check_inputs"), the nvidia-smi
+line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -481,27 +500,39 @@ def device_work_per_call(fn) -> int:
     return sum(k in (0, 1, 2) for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL, MEMCPY, MEMSET
 
 
-def call_device_ms(fn, iters: int = 20) -> float:
+def call_device_ms(fn, iters: int = 20, windows: int = 4) -> float | None:
     """Device milliseconds per call of ``fn``: the mean device time of each
     kernel it launches (a library call's fills included), from
     ``torch.profiler``, summed over the kernels, each once a call.  Means by
     kernel, not the window's sum, since a profiler window on the card has
-    missed some of the kernels it ran."""
+    missed some of the kernels it ran; a window that saw no device event at
+    all is asked again, up to ``windows`` times, and None is returned if
+    none saw one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    return sum(statistics.mean(v) for v in by_name.values()) / 1e3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+        if by_name:
+            return sum(statistics.mean(v) for v in by_name.values()) / 1e3
+    return None
+
+
+def library_call_ms(fn) -> float:
+    """call_device_ms of a library call, or its CUDA-event median where no
+    profiler window saw a kernel."""
+    ms = call_device_ms(fn)
+    return ms if ms is not None else time_cuda(fn)
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -2420,9 +2451,10 @@ def training_batches(tmp: str, cfg, dev, n_batches: int, n_samples: int = 64):
     return batches, samples_per_s
 
 
-def captured_kernel_inputs(step, batch, draws):
-    """One train step with the kernels' wrappers wrapped: the NMS, RoI-pool
-    forward and backward inputs the main path gives them."""
+@contextlib.contextmanager
+def kernel_inputs_recorded():
+    """A dict that takes the NMS, RoI-pool forward and backward inputs the
+    kernels' wrappers are given inside the block (the last call's of each)."""
     from radnet_torch.ops import nms, roi_align
 
     got = {}
@@ -2442,9 +2474,16 @@ def captured_kernel_inputs(step, batch, draws):
 
     nms.nms_kept, roi_align.roi_pool_cuda, roi_align.roi_pool_backward_cuda = nms_kept, fwd, bwd
     try:
-        step(batch, draws)
+        yield got
     finally:
         nms.nms_kept, roi_align.roi_pool_cuda, roi_align.roi_pool_backward_cuda = real
+
+
+def captured_kernel_inputs(step, batch, draws):
+    """One train step with the kernels' wrappers wrapped: the NMS, RoI-pool
+    forward and backward inputs the main path gives them."""
+    with kernel_inputs_recorded() as got:
+        step(batch, draws)
     return got
 
 
@@ -2546,7 +2585,7 @@ def roi_forward_row(fmap, rois, kw, where: str) -> tuple[dict, object, object]:
            "dtype": str(fmap.dtype), "max_abs_err": err, "tolerance": tol,
            "ms": device_ms(lambda: roi_align.roi_pool_cuda(fmap, rois, **kw), "roi_pool_kernel"),
            "plain_ms": time_cuda(lambda: roi_align.roi_pool_plain(fmap, rois, **kw), iters=5),
-           "library_ms": call_device_ms(lambda: torch.nn.functional.grid_sample(
+           "library_ms": library_call_ms(lambda: torch.nn.functional.grid_sample(
                fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
            "bound_ms": bnd, "bound_by": by}
     check(ok, f"roi_pool disagrees with its plain version on {where} ({err}, {tol})")
@@ -2631,7 +2670,7 @@ def backward_train_kernel(captured_bwd, fmap_nchw, grid, err_main: float, earlie
         "call": "RoIPoolFunction.backward on grad_out contiguous in the map's type",
         "earlier_call": "zero-filled float32 map, earlier atomic kernel, cast to the map's type",
         "plain_ms": time_cuda(lambda: roi_align.roi_pool_backward_plain(g, brois, map_hw, **bkw), iters=5),
-        "library_ms": call_device_ms(library),
+        "library_ms": library_call_ms(library),
         "library": ("torch.ops.aten.grid_sampler_2d_backward (F.grid_sample's backward), same "
                     "shape; device ms of every kernel it launches"),
         "bound_ms": bnd, "bound_by": by,
@@ -4651,7 +4690,7 @@ def mesh_kernel_checks(dev, earlier: dict | None = None) -> dict:
         # In turns: the kernel, its earlier design, the library call, then
         # back in the other order.
         arms = {"amax_ms": lambda: kernel_ms(lambda: quant.quantize_rows_amax_cuda(p), "row_amax_kernel"),
-                "amax_library_ms": lambda: call_device_ms(library)}
+                "amax_library_ms": lambda: library_call_ms(library)}
         if old_amax is not None:
             arms["amax_earlier_ms"] = lambda: kernel_ms(lambda: earlier_row_amax(old_amax, p),
                                                         "quantize_rows_kernel")
@@ -5491,6 +5530,91 @@ def mesh_train_phase(tmp: str, batch: dict, dev, kind, smi, config: dict | None 
     return {run: o["launches"] for run, o in out.items()}
 
 
+# The learning check (radnet_torch.cli.overfit_check) at its defaults.
+OVERFIT_STEPS = 300
+
+
+def overfit_check_launches(steps: int, n_scored: int) -> dict:
+    """The launches of a learning check of ``steps`` steps that scores
+    ``n_scored`` panels: a step (trunk trainable) one NMS, one RoI pool and
+    one RoI-pool backward; a scored panel (one 600 px tile, one cascade
+    batch) the proposals' and the per-class NMS and one RoI pool."""
+    return {"nms_fused": steps + 2 * n_scored, "roi_pool": steps + n_scored,
+            "roi_pool_backward": steps}
+
+
+def overfit_check_phase(dev, smi, errs, earlier) -> dict:
+    """Phase overfit_check: radnet_torch.cli.overfit_check at its defaults
+    (VGG16 from the plain seeded init, trunk trainable, OVERFIT_STEPS joint
+    steps at batch 8, 8 panels predicted and scored): every kernel's
+    launches exactly overfit_check_launches' (no other kernel), the last
+    logged total loss below step 0's, the NMS, RoI pool and its backward
+    held against their plain versions on the inputs the last step gave them
+    and timed (``overfit_check_kernels``), and the exit code JAX's criterion
+    on the printed summary.  Whether the criterion held is recorded, not
+    gated: at JAX's config it holds in about half of the card's runs.
+    Returns the launches and those kernel rows."""
+    import re
+
+    import torch
+
+    from radnet_torch.cli import overfit_check
+    from radnet_torch.ops import cuda_kernels
+
+    captured = {}
+    real = overfit_check.make_train_step
+
+    def make(*args, **kwargs):
+        step, calls = real(*args, **kwargs), [0]
+
+        def recorded(batch, draws):
+            calls[0] += 1
+            if calls[0] < OVERFIT_STEPS:
+                return step(batch, draws)
+            with kernel_inputs_recorded() as got:
+                metrics = step(batch, draws)
+            captured.update(got)
+            return metrics
+        return recorded
+
+    log = Stamped(echo=sys.stderr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases still hold
+    cuda_kernels.reset_launch_counts()
+    overfit_check.make_train_step = make
+    try:
+        with contextlib.redirect_stderr(log):
+            rc, stdout, wall_s = run_cli(overfit_check.main, ["--steps", str(OVERFIT_STEPS)])
+    finally:
+        overfit_check.make_train_step = real
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    text = stdout.getvalue()
+    summary = json.loads(text[text.index("{"):])
+    logged = [float(t) for t in re.findall(r"^step \d+: total=(\S+)", log.getvalue(), re.M)]
+    want = {k.name: 0 for k in cuda_kernels.KERNELS}
+    want.update(overfit_check_launches(OVERFIT_STEPS, overfit_check.N_SCORED))
+    held = overfit_check.passed(summary)
+    emit({"phase": "overfit_check", "nvidia_smi": smi, "rc": rc, "criterion_held": held,
+          "wall_s": wall_s, **summary, "logged_total_loss": logged, "peak_mem_gb": peak_gb,
+          "mem_held_before_gb": held_gb, "peak_reserved_gb": peak_reserved_gb, "launches": launches,
+          "launches_expected": want})
+    check(launches == want, f"overfit_check launched {launches}, not {want}")
+    check(len(logged) == -(-OVERFIT_STEPS // overfit_check.LOG_EVERY) and logged[-1] < logged[0],
+          f"overfit_check: the logged total loss did not fall: {logged}")
+    check(summary["steps"] == OVERFIT_STEPS and summary["n_gt"] == 2 * overfit_check.N_SCORED
+          and math.isfinite(summary["final_total_loss"])
+          and sorted(summary["per_class"]) == ["boat", "human"],
+          f"overfit_check: a malformed summary {summary}")
+    check(rc == (0 if held else 1), f"overfit_check: exit code {rc} where the criterion "
+                                    f"{'held' if held else 'failed'} on {summary}")
+    rows = captured_kernel_rows(captured, errs, earlier, "overfit_check_kernels")
+    return {"launches": launches, "nms_fused": rows[0], "roi_pool": rows[1],
+            "roi_pool_backward": rows[2]}
+
+
 def main() -> int:
     import argparse
 
@@ -5607,6 +5731,7 @@ def main() -> int:
     train_sync_free_phase(batch, valt, dev, phase="vgg_train_sync_free")
     learning_phase(batch, valt, dev, n_steps=40, phase="vgg_learning")
     alternating_card_vs_cpu_phase(batch, vcfg, dev)
+    overfit = overfit_check_phase(dev, smi, vgg_errs, earlier)
 
     kernels_line["roi_pool_backward"] = train_k["roi_pool_backward"]
     kernels_line["nms_fused"]["train_step_shape"] = train_k["nms_fused"]
@@ -5617,6 +5742,8 @@ def main() -> int:
                                          "train_step_shape": vgg_k["roi_pool"]}
     kernels_line["roi_pool_backward"]["vgg16"] = {"train_step_shape": vgg_k["roi_pool_backward"],
                                                   "max_abs_err_random_inputs": vgg_errs["roi_pool_backward"]}
+    for name in ("nms_fused", "roi_pool", "roi_pool_backward"):
+        kernels_line[name]["vgg16"]["overfit_check_inputs"] = overfit[name]
     for k in kernels_line.values():
         name = k["name"]
         k["launches_train"] = trained["train"]["launches"][name]
@@ -5633,6 +5760,7 @@ def main() -> int:
         k["launches_int8"] = {net: {run: counts[name] for run, counts in runs.items()}
                               for net, runs in int8_launches.items()}
         k["launches_pretrained_train"] = {arm: counts[name] for arm, counts in pretrained.items()}
+        k["launches_overfit_check"] = overfit["launches"][name]
         if name in launches:  # the served run is the serving kernels' main path
             k["launches"] = launches[name]
             k["launches_per_batch"] = per_batch[name]
