@@ -302,6 +302,27 @@ The learning check, after the VGG16 training phases:
                 gated: at JAX's config it holds in about half of the
                 card's runs, by chance (ROADMAP Queue 3).
 
+The synthetic rock-art chain, last:
+  synthetic_chain  radnet_torch.cli.make_synthetic_rockart writes a set of
+                2400 x 2400 panels at reduced counts (SYNTH_SMOKE); every
+                decoded PNG must equal the panel make_panel re-makes from
+                the seed, and each CSV the boxes; the anchor report of
+                cli.test_data --analyze-anchors under the committed config
+                (radnet_torch/configs/synthetic_rockart.json); then, from
+                inside the set's root, cli.train (VGG16 from random init,
+                joint steps in bundles), cli.cont_train (trunk trainable,
+                an epoch of a bundle then 2 single steps) and cli.test:
+                the logged total loss falls over the train run, every
+                kernel's launches are exact (a step or a validation batch
+                one NMS and one RoI pool, a trainable step one backward, a
+                test batch two NMS and one RoI pool, nothing else), the
+                kernels on the last step's inputs equal their plain
+                versions (synthetic_chain_kernels), test_accuracy.json has
+                every class; mAP, s an epoch, the host's samples/s, s a
+                test panel and peak memory are recorded, not gated.
+                scripts/synthetic_chain.py runs the same chain at the
+                published depth.
+
 The last lines are the kernels JSON line (nine kernels; launches over each
 kernel's main path: the served run, cont_train for the backward, the int8
 served run for the int8 kernels; beside them the launches of the train,
@@ -313,7 +334,9 @@ kernel's rows at the VGG16 shapes under "vgg16"; the mesh kernels'
 launches over the two-rank int8 serve, "launches_mesh_serve" every
 kernel's there, "launches_mesh_train" rank 0's in the two mesh training
 runs, "launches_overfit_check" the learning check's; the rows on its last
-step's inputs under "vgg16" as "overfit_check_inputs"), the nvidia-smi
+step's inputs under "vgg16" as "overfit_check_inputs"; "launches_synthetic_chain"
+those of the synthetic chain's runs, its last step's rows under "vgg16" as
+"synthetic_chain_inputs"), the nvidia-smi
 line, and {"ok": true, "device": {...}}.
 """
 
@@ -426,8 +449,9 @@ def roi_backward_error(got, ref) -> tuple[bool, float, float, str]:
             "1 bf16 ulp of the float32 result (at least 1e-6 of the largest)")
 
 
-def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` CUDA-event pairs."""
+def time_cuda(fn, iters: int = 20, warmup: int = 3, before=None) -> float:
+    """Median milliseconds of ``fn()`` over ``iters`` CUDA-event pairs;
+    ``before()``, if given, runs ahead of each pair, untimed."""
     import torch
 
     for _ in range(warmup):
@@ -435,6 +459,8 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -468,6 +494,19 @@ def device_ms(fn, symbol: str, iters: int = 20) -> float | None:
         if count:
             return total_us / count / 1e3
     return None
+
+
+def profiled_ms(fn, symbol: str, before=None) -> tuple[float, str]:
+    """(ms, source): :func:`device_ms` of a launch, or the call's CUDA-event
+    time where no profiler window saw the kernel; ``before()``, if given,
+    runs ahead of each launch and is not counted."""
+    def launch():
+        if before is not None:
+            before()
+        fn()
+
+    ms = device_ms(launch, symbol)
+    return (ms, "profiler") if ms is not None else (time_cuda(fn, before=before), "cuda_events")
 
 
 def device_work_per_call(fn) -> int:
@@ -1052,11 +1091,9 @@ def nms_work(boxes, scores, valid, rounds) -> tuple[float, float]:
 def timed(kernel_fn, symbol, plain_fn, n_bytes, n_ops, shape, ops_per_s=F32_OPS_PER_S) -> dict:
     """A kernel's device time (profiler) and call time (CUDA events), its
     plain version's time, and its bound on this card."""
-    call_ms = time_cuda(kernel_fn)
-    dev_ms = device_ms(kernel_fn, symbol)
+    ms, source = profiled_ms(kernel_fn, symbol)
     bnd, by = bound_ms(n_bytes, n_ops, ops_per_s)
-    return {"shape": shape, "ms": dev_ms if dev_ms is not None else call_ms,
-            "call_ms": call_ms, "ms_source": "profiler" if dev_ms is not None else "cuda_events",
+    return {"shape": shape, "ms": ms, "call_ms": time_cuda(kernel_fn), "ms_source": source,
             "plain_ms": time_cuda(plain_fn, iters=5), "bound_ms": bnd, "bound_by": by}
 
 
@@ -2439,16 +2476,22 @@ def training_batches(tmp: str, cfg, dev, n_batches: int, n_samples: int = 64):
     data, class_count, _ = get_data(os.path.join(d, "train.csv"), os.path.join(d, "train"),
                                     cfg.img_types)
     gen = parallel_sample_generator(data, cfg, class_count, cfg.class_mapping, num_workers=4, seed=5)
+    samples_per_s = generator_samples_per_s(gen, n_samples)
+    batches = [upload_batch(batch_samples([next(gen) for _ in range(cfg.batch_size)]), dev)
+               for _ in range(n_batches)]
+    gen.close()
+    return batches, samples_per_s
+
+
+def generator_samples_per_s(gen, n_samples: int) -> float:
+    """Samples a second a sample generator yields once 16 have warmed its
+    tile caches."""
     for _ in range(16):
         next(gen)
     t0 = time.perf_counter()
     for _ in range(n_samples):
         next(gen)
-    samples_per_s = n_samples / (time.perf_counter() - t0)
-    batches = [upload_batch(batch_samples([next(gen) for _ in range(cfg.batch_size)]), dev)
-               for _ in range(n_batches)]
-    gen.close()
-    return batches, samples_per_s
+    return n_samples / (time.perf_counter() - t0)
 
 
 @contextlib.contextmanager
@@ -2552,11 +2595,12 @@ def nms_row(boxes, scores, valid, thr, where: str) -> dict:
     want_kept, want_rounds = nms.nms_kept_plain(boxes, scores, valid, thr)
     kept_mism = int((kept != want_kept).sum())
     bnd, by = bound_ms(*nms_work(boxes, scores, valid, rounds))
+    ms, source = profiled_ms(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel")
     row = {"shape": list(scores.shape), "thresh": thr, "valid": int(valid.sum()),
            "kept": int(kept.sum()), "rounds_max": int(rounds.max()),
            "kept_mismatches": kept_mism, "rounds_equal": bool(torch.equal(rounds, want_rounds)),
            "max_abs_err": float((kept.float() - want_kept.float()).abs().max()),
-           "ms": device_ms(lambda: nms.nms_kept_cuda(boxes, scores, valid, thr), "nms_fused_kernel"),
+           "ms": ms, "ms_source": source,
            "plain_ms": time_cuda(lambda: nms.nms_kept_plain(boxes, scores, valid, thr), iters=3),
            "bound_ms": bnd, "bound_by": by}
     check(kept_mism == 0 and row["rounds_equal"],
@@ -2579,17 +2623,51 @@ def roi_forward_row(fmap, rois, kw, where: str) -> tuple[dict, object, object]:
     r, p, elt = rois.shape[1], kw["pool_size"], fmap.element_size()
     grid = grid_sample_centres(rois, p, kw["center_stride"], hw).to(fmap.dtype)
     fmap_nchw = fmap.permute(0, 3, 1, 2)
-    bnd, by = bound_ms(b * hw * hw * c * elt + b * r * 16 + b * r * p * p * c * elt,
+    cells = roi_window_cells(fmap, rois, kw)
+    bnd, by = bound_ms(cells * c * elt + b * r * 16 + b * r * p * p * c * elt,
                        9.0 * b * r * p * p * c)
+
+    def launch():
+        return roi_align.roi_pool_cuda(fmap, rois, **kw)
+
+    ms, source = profiled_ms(launch, "roi_pool_kernel")
+    # The bound reads HBM; repeated launches find the map in L2, so the
+    # launch is timed again with L2 overwritten before it.
+    scrub = torch.empty(2 * torch.cuda.get_device_properties(fmap.device).L2_cache_size,
+                        dtype=torch.uint8, device=fmap.device)
+    cold_ms, _ = profiled_ms(launch, "roi_pool_kernel", before=lambda: scrub.fill_(1))
     row = {"shape": [b, hw, hw, c, r, p], "center_stride": kw["center_stride"],
            "dtype": str(fmap.dtype), "max_abs_err": err, "tolerance": tol,
-           "ms": device_ms(lambda: roi_align.roi_pool_cuda(fmap, rois, **kw), "roi_pool_kernel"),
+           "map_cells": b * hw * hw, "window_cells": cells,
+           "ms": ms, "ms_source": source, "ms_cold_l2": cold_ms,
            "plain_ms": time_cuda(lambda: roi_align.roi_pool_plain(fmap, rois, **kw), iters=5),
            "library_ms": library_call_ms(lambda: torch.nn.functional.grid_sample(
                fmap_nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)),
            "bound_ms": bnd, "bound_by": by}
     check(ok, f"roi_pool disagrees with its plain version on {where} ({err}, {tol})")
     return row, fmap_nchw, grid
+
+
+def roi_window_cells(fmap, rois, kw) -> int:
+    """Map cells the RoI pool must read for ``rois``: image by image, the
+    union over its RoIs of the cells a tap of non-zero weight lands on (a
+    RoI's cells are its rows times its columns)."""
+    import torch
+
+    from radnet_torch.ops import roi_align
+
+    b, h, w, _ = fmap.shape
+    (y0, y1, wy0, wy1), (x0, x1, wx0, wx1) = roi_align._tap_weights(
+        rois, h, w, kw["pool_size"], kw["center_stride"])
+
+    def read(extent, i0, i1, w0, w1):  # (B, R, extent): the rows (columns) each RoI reads
+        hits = torch.zeros(*i0.shape[:2], extent, dtype=torch.int32, device=fmap.device)
+        hits.scatter_add_(2, i0, (w0 > 0).int())
+        hits.scatter_add_(2, i1, (w1 > 0).int())
+        return hits > 0
+
+    rows, cols = read(h, y0, y1, wy0, wy1), read(w, x0, x1, wx0, wx1)
+    return int((rows[..., :, None] & cols[..., None, :]).any(1).sum())
 
 
 def captured_kernel_rows(captured, errs, earlier, phase: str):
@@ -5615,6 +5693,239 @@ def overfit_check_phase(dev, smi, errs, earlier) -> dict:
             "roi_pool_backward": rows[2]}
 
 
+# --------------------------------------------------------------------------- #
+# The synthetic rock-art set and its train -> cont_train -> test chain.
+# --------------------------------------------------------------------------- #
+SYNTH_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radnet_torch",
+                            "configs", "synthetic_rockart.json")
+# The set's counts and each run's (epoch length, epochs).  The phase's
+# cont_train epoch is a bundle then 2 single steps, so its last step runs
+# through the Python wrappers and its kernel inputs can be recorded.
+SYNTH_SMOKE = {"n_train": 4, "n_val": 1, "n_test": 2, "train": (12, 3), "cont_train": (6, 1)}
+# The JAX package's chain (BASELINE.md): the default set, train 30 epochs of
+# 40 steps, cont_train 12, then the 8 test panels.
+SYNTH_FULL = {"n_train": 24, "n_val": 6, "n_test": 8, "train": (40, 30), "cont_train": (40, 12)}
+SYNTH_LOSS_WINDOW = 4  # logged steps averaged at each end of the train run
+SYNTH_SEED = 0  # make_synthetic_rockart's --seed
+
+
+def synthetic_set_check(root: str, counts: dict) -> dict:
+    """Every panel of a set make_synthetic_rockart wrote under ``root``
+    against the one make_panel re-makes from SYNTH_SEED, decoded; each CSV's
+    rows against the re-made boxes.  Returns the panels and boxes checked."""
+    import csv
+
+    from radnet_torch.cli import make_synthetic_rockart as mk
+    from radnet_torch.data.png import read_png
+
+    rng = np.random.default_rng(SYNTH_SEED)
+    n_panels = n_boxes = 0
+    for split in ("train", "val", "test"):
+        want_rows = []
+        for i in range(counts[f"n_{split}"]):
+            img, figures = mk.make_panel(rng, counts["panel_size"], counts["figures_per_panel"])
+            path = os.path.join(root, "data", counts["img_type"], split, f"panel_{i}.png")
+            got = read_png(path)
+            check(got.shape == img.shape and np.array_equal(got, img),
+                  f"synthetic set: {path} differs from make_panel's panel "
+                  f"({int(np.any(got != img, axis=-1).sum()) if got.shape == img.shape else got.shape})")
+            want_rows += [[f"panel_{i}.png", c, str(x1), str(y1), str(x2), str(y2)]
+                          for c, x1, y1, x2, y2 in figures]
+            n_panels += 1
+        with open(os.path.join(root, f"{split}.csv"), newline="") as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == mk.CSV_COLUMNS and rows[1:] == want_rows,
+              f"synthetic set: {split}.csv differs from make_panel's boxes")
+        n_boxes += len(want_rows)
+    return {"panels": n_panels, "boxes": n_boxes}
+
+
+def epoch_seconds(stdout: Stamped) -> list:
+    """Seconds of each epoch of a training CLI's run, validation and
+    checkpoint included: from one "Epoch i/n" line to the next, the last to
+    the final line."""
+    lines = stdout.getvalue().splitlines()
+    starts = [t for t, ln in zip(stdout.stamps, lines) if ln.startswith("Epoch ")]
+    return [b - a for a, b in zip(starts, starts[1:] + stdout.stamps[-1:])]
+
+
+def host_samples_per_s(config, n_samples: int = 64) -> float:
+    """Samples a second from parallel_sample_generator alone on the set in
+    the working directory, with the training CLIs' 4 workers."""
+    from radnet_torch.data.dataset import get_data
+    from radnet_torch.data.pipeline import parallel_sample_generator
+
+    data, class_count, _ = get_data("train.csv", "data/train", config.img_types)
+    gen = parallel_sample_generator(data, config, class_count, config.class_mapping,
+                                    num_workers=4, seed=5)
+    rate = generator_samples_per_s(gen, n_samples)
+    gen.close()
+    return rate
+
+
+@contextlib.contextmanager
+def single_step_inputs():
+    """The kernels' inputs of the last single train step a CLI drives
+    (the step factory wrapped; a bundle's steps are a graph replay)."""
+    from radnet_torch.engine import steps as engine_steps
+
+    got = {}
+    real = engine_steps.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def recorded(batch, draws):
+            with kernel_inputs_recorded() as rec:
+                metrics = step(batch, draws)
+            got.clear()
+            got.update(rec)
+            return metrics
+        return recorded
+
+    engine_steps.make_train_step = make
+    try:
+        yield got
+    finally:
+        engine_steps.make_train_step = real
+
+
+def synthetic_chain_phase(root: str, dev, smi, errs=None, earlier=None, depth=None) -> dict:
+    """Phase synthetic_chain (see the docstring): the set written under
+    ``root`` at ``depth``'s counts and checked, the anchor report, then
+    cli.train, cli.cont_train and cli.test from inside ``root``, each run's
+    readings and launches emitted and gated.  With ``errs`` and ``earlier``
+    the kernels on the last single step's inputs are held against their
+    plain versions.  Returns each run's launches and those rows."""
+    import csv
+    import re
+
+    import torch
+
+    from radnet_torch.cli import cont_train, make_synthetic_rockart, test, test_data, train
+    from radnet_torch.config import Config
+    from radnet_torch.inference import RADNet
+    from radnet_torch.ops import cuda_kernels
+
+    phase, config_json = "synthetic_chain", SYNTH_CONFIG
+    depth = depth or SYNTH_SMOKE
+    t_phase = time.perf_counter()
+    counts = {k: depth[k] for k in ("n_train", "n_val", "n_test")}
+    counts.update(panel_size=2400, img_type="enhanced_topo_grey", figures_per_panel=10)
+    argv = ["--root", root, "--seed", str(SYNTH_SEED)]
+    for k, v in counts.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    rc, made, make_s = run_cli(make_synthetic_rockart.main, argv)
+    check(rc == 0, f"make_synthetic_rockart exited {rc}")
+    t0 = time.perf_counter()
+    checked = synthetic_set_check(root, counts)
+    check_s = time.perf_counter() - t0
+    config = Config.load(config_json)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        rc, an_out, an_s = run_cli(test_data.main, [
+            "--config-json", config_json, "--train-annot", "train.csv", "--train-data",
+            "data/train", "--device", str(dev), "--analyze-anchors"])
+        check(rc == 0, f"cli.test_data --analyze-anchors exited {rc}")
+        an_out = an_out.getvalue()
+        anchors = json.loads(an_out[an_out.index("{"):])
+        emit({"phase": phase + "_set", "nvidia_smi": smi, "made": made.getvalue().splitlines(),
+              "make_s": make_s, "check_s": check_s, **checked, "config": config_json,
+              "analyze_anchors": anchors})
+        samples_per_s = host_samples_per_s(config)
+
+        data_args = ["--device", str(dev), "--models-path", "models", "--train-annot", "train.csv",
+                     "--train-data", "data/train", "--val-annot", "val.csv", "--val-data", "data/val"]
+        name = "faster_rcnn_vgg16_chain"
+        (t_len, t_ep), (c_len, c_ep) = depth["train"], depth["cont_train"]
+        runs = [("train", train.main, ["--config-json", config_json, "--network", "vgg16",
+                                       "--allow-random-init", "--model-name", "chain"], t_len, t_ep),
+                ("cont_train", cont_train.main, ["--model-name", name], c_len, c_ep)]
+        k = config.train_bundle_steps
+        out, captured = {}, {}
+        for run, fn, run_argv, ep_len, n_ep in runs:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launch_counts()
+            with counting_steps() as calls, single_step_inputs() as got:
+                rc, stdout, wall_s = run_cli(fn, data_args + run_argv + [
+                    "--epoch-length", str(ep_len), "--n-epochs", str(n_ep)])
+            captured = dict(got) or captured
+            launches = launch_counts()
+            steps, val, warm = ep_len * n_ep, calls["eval_step"], warmup_steps(calls)
+            with open(os.path.join("models", name, "metrics.jsonl")) as f:
+                logged = [json.loads(line)["total_loss"] for line in f][-steps:]
+            w = SYNTH_LOSS_WINDOW
+            o = {"rc": rc, "wall_s": wall_s, "epoch_length": ep_len, "epochs": n_ep,
+                 "sec_per_epoch": epoch_seconds(stdout), "steps": steps, "val_batches": val,
+                 "warmup_steps": warm, "bundle_calls": calls["bundle_calls"],
+                 "samples_per_s_of_wall": steps * config.batch_size / wall_s,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+                 "loss_first": sum(logged[:w]) / w, "loss_last": sum(logged[-w:]) / w,
+                 "launches": launches}
+            out[run] = o
+            emit({"phase": f"{phase}_{run}", "nvidia_smi": smi, "host_samples_per_s": samples_per_s,
+                  **o})
+            check(rc == 0, f"{phase}: {run} exited {rc}")
+            check(calls["train_step"] == steps and len(logged) == steps,
+                  f"{phase}: {run} ran {calls['train_step']} steps, logged {len(logged)}, not {steps}")
+            check(calls["bundle_calls"] == (ep_len // k) * n_ep
+                  and warm == int(calls["bundle_calls"] > 0 and torch.device(dev).type == "cuda"),
+                  f"{phase}: {run}: {calls['bundle_calls']} bundle calls, {warm} warm-up steps")
+            check(val >= n_ep and val % n_ep == 0, f"{phase}: {run}: {val} validation batches")
+            want = {c.name: 0 for c in cuda_kernels.KERNELS}
+            want.update(nms_fused=steps + val + warm, roi_pool=steps + val + warm,
+                        roi_pool_backward=(steps + warm) * (run == "cont_train"))
+            check(launches == want, f"{phase}: {run} launched {launches}, not {want}")
+        check(out["train"]["loss_last"] < out["train"]["loss_first"],
+              f"{phase}: the logged total loss did not fall over the train run: "
+              f"{out['train']['loss_first']} -> {out['train']['loss_last']}")
+
+        cuda_kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with counting_calls(RADNet, "_predict_tiles_impl") as batches:
+            rc, stdout, test_s = run_cli(test.main, ["--device", str(dev), "--models-path", "models",
+                                                     "--model-name", name, "--test-annot", "test.csv",
+                                                     "--test-data", "data/test"])
+        launches = launch_counts()
+        text = stdout.getvalue()
+        seconds = {k: float(line.split(": ")[1].rstrip("s")) for line in text.splitlines()
+                   for k in ("Average prediction time",
+                             "Steady-state prediction time (excl. first panel)")
+                   if line.startswith(k + ": ")}
+        with open(os.path.join("models", name, "test_accuracy.json")) as f:
+            acc = json.load(f)
+        with open("test.csv", newline="") as f:
+            classes = {r["label"] for r in csv.DictReader(f)}
+        n_b = len(batches)
+        o = {"rc": rc, "wall_s": test_s, "panels": counts["n_test"], "sec_per_panel": seconds,
+             "batches": n_b, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "mAP": acc.get("mAP"), "per_class": {c: acc.get(c) for c in sorted(classes)},
+             "launches": launches}
+        out["test"] = o
+        emit({"phase": f"{phase}_test", "nvidia_smi": smi, **o})
+        check(rc == 0, f"{phase}: cli.test exited {rc}")
+        check(set(make_synthetic_rockart.CLASSES) == classes and classes | {"mAP"} <= set(acc),
+              f"{phase}: test_accuracy.json {sorted(acc)} lacks a class of {sorted(classes)}")
+        want = {c.name: 0 for c in cuda_kernels.KERNELS}
+        want.update(nms_fused=2 * n_b, roi_pool=n_b)
+        check(n_b > 0 and launches == want, f"{phase}: cli.test launched {launches}, want {want} "
+                                            f"for {n_b} batches")
+        check(len(seconds) == 2, f"{phase}: cli.test printed no prediction times: {seconds}")
+    finally:
+        os.chdir(cwd)
+    rows = None
+    if errs is not None:
+        check(set(captured) == {"nms", "fwd", "bwd"},
+              f"{phase}: no single trainable step's kernel inputs were recorded: {sorted(captured)}")
+        rows = captured_kernel_rows(captured, errs, earlier, phase + "_kernels")
+    emit({"phase": phase, "nvidia_smi": smi, "depth": depth, "mAP": out["test"]["mAP"],
+          "mAP_gated": False, "phase_wall_s": time.perf_counter() - t_phase})
+    return {"launches": {run: o["launches"] for run, o in out.items()}, "rows": rows}
+
+
 def main() -> int:
     import argparse
 
@@ -5732,6 +6043,8 @@ def main() -> int:
     learning_phase(batch, valt, dev, n_steps=40, phase="vgg_learning")
     alternating_card_vs_cpu_phase(batch, vcfg, dev)
     overfit = overfit_check_phase(dev, smi, vgg_errs, earlier)
+    with tempfile.TemporaryDirectory() as tmp:
+        chain = synthetic_chain_phase(tmp, dev, smi, vgg_errs, earlier)
 
     kernels_line["roi_pool_backward"] = train_k["roi_pool_backward"]
     kernels_line["nms_fused"]["train_step_shape"] = train_k["nms_fused"]
@@ -5742,8 +6055,9 @@ def main() -> int:
                                          "train_step_shape": vgg_k["roi_pool"]}
     kernels_line["roi_pool_backward"]["vgg16"] = {"train_step_shape": vgg_k["roi_pool_backward"],
                                                   "max_abs_err_random_inputs": vgg_errs["roi_pool_backward"]}
-    for name in ("nms_fused", "roi_pool", "roi_pool_backward"):
+    for name, row in zip(("nms_fused", "roi_pool", "roi_pool_backward"), chain["rows"]):
         kernels_line[name]["vgg16"]["overfit_check_inputs"] = overfit[name]
+        kernels_line[name]["vgg16"]["synthetic_chain_inputs"] = row
     for k in kernels_line.values():
         name = k["name"]
         k["launches_train"] = trained["train"]["launches"][name]
@@ -5761,6 +6075,7 @@ def main() -> int:
                               for net, runs in int8_launches.items()}
         k["launches_pretrained_train"] = {arm: counts[name] for arm, counts in pretrained.items()}
         k["launches_overfit_check"] = overfit["launches"][name]
+        k["launches_synthetic_chain"] = {run: counts[name] for run, counts in chain["launches"].items()}
         if name in launches:  # the served run is the serving kernels' main path
             k["launches"] = launches[name]
             k["launches_per_batch"] = per_batch[name]

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from radnet_torch.data.raster import disc_rows as _disc_rows
+
 
 def model_dir(models_path: str, model_name: str) -> str:
     return os.path.join(models_path, model_name)
@@ -128,26 +130,6 @@ def draw_rectangle(img: np.ndarray, x1: int, y1: int, x2: int, y2: int, color,
             for dy, half in _disc_rows(r).items():
                 fill(cy + dy, cy + dy, cx - half, cx + half)
     return img
-
-
-@functools.lru_cache(maxsize=None)
-def _disc_rows(radius: int) -> dict:
-    """``{row offset: half-width}`` of OpenCV's filled circle (``Circle``
-    in its drawing code, the midpoint algorithm), which ``cv2.rectangle``
-    puts at each corner of a line thicker than 1 px."""
-    rows: dict = {}
-    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
-    while dx >= dy:
-        for row, half in ((dy, dx), (-dy, dx), (dx, dy), (-dx, dy)):
-            rows[row] = max(rows.get(row, -1), half)
-        dy += 1
-        err += plus
-        plus += 2
-        if err > 0:
-            err -= minus
-            dx -= 1
-            minus -= 2
-    return rows
 
 
 # The label glyphs: OpenCV's FONT_HERSHEY_DUPLEX at scale 1, thickness 1, as

@@ -1,8 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise:
 no JAX, flax, OpenCV, PIL, pandas, h5py, matplotlib or radnet_tpu import in
-radnet_torch or chip_smoke.py; entry points default to CUDA and raise
-without a card; the serving protocol works in-process on the CPU when
-asked."""
+radnet_torch, chip_smoke.py or the synthetic chain's scripts; entry points
+default to CUDA and raise without a card; the serving protocol works
+in-process on the CPU when asked."""
 
 import ast
 import io
@@ -24,7 +24,9 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "radnet_tpu",
              "pandas", "h5py", "matplotlib"}
-PORT_FILES = sorted((ROOT / "radnet_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "radnet_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "synthetic_chain.py",
+    ROOT / "scripts" / "anchor_coverage.py"]
 
 
 def _imports(path):
