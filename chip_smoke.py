@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py [--log FILE]
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device     card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build      nvcc builds every kernel of radnet_torch/csrc for sm_90a;
+  2. build      the host's c++ builds the image reader's libraries
+                (csrc/png_unfilter.cpp, csrc/jpeg_decode.cpp), then nvcc
+                builds every kernel of radnet_torch/csrc for sm_90a;
   3. kernel 1   the fused NMS (relation + Jacobi rounds in one launch) vs its
                 plain version at (12, 2048), (72, 300), a ragged N = 1000, and
                 on a suppression chain of 2048, all-tied scores, all-invalid
@@ -46,6 +48,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 earlier call on the same sets; then one batch and one
                 panel's dispatch under torch.cuda.set_sync_debug_mode("error"):
                 any operation that waits for the card fails the run;
+  7b. image_formats  the port's reader on the card's host (no OpenCV): each
+                file of tests/data/images (PNGs: Paeth grey, 16-bit,
+                palette, Adam7; JPEGs: 4:2:0, 4:4:4, progressive, EXIF 6)
+                decodes to the cv2 pixels stored beside it; through one
+                cli.serve run, panel 0 written with real Paeth residuals
+                gives its filter-0 copy's detections, and the 4:2:0 JPEG
+                those of its cv2 pixels written as a PNG; decode seconds per
+                file (the 4400 x 3000 panels too) and the libraries' build;
   8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
                 3000 grey panels and a blended map (launch counts read around
                 it); the label glyph table loads with numpy alone, and every
@@ -1372,6 +1382,74 @@ def serve_phase(tmp, cfg, device, kind, smi):
     return net, panel3, small, origins, launches, recs
 
 
+IMAGE_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "images")
+
+
+def served_dets(rec: dict) -> list:
+    """A cli.serve record's detections as predict gives them."""
+    return [{"class": d["label"], "prob": d["confidence"], **{k: d[k] for k in ("x1", "y1", "x2", "y2")}}
+            for d in rec["detections"]]
+
+
+def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> None:
+    """The port's reader (radnet_torch/data/image.py) on the card's host,
+    which has no OpenCV: every fixture of tests/data/images decodes to the
+    cv2 pixels stored beside it; a 4400 x 3000 grey panel written with real
+    Paeth residuals (panel 0, which serve_phase wrote with filter 0) and the
+    4:2:0 JPEG fixture with its cv2 pixels as a filter-0 PNG go through one
+    cli.serve run on serve_phase's model: each pair gives the same
+    detections.  Decode seconds per file, and the host library's build."""
+    from radnet_torch.cli import serve
+    from radnet_torch.data.image import decode_image, read_image
+    from radnet_torch.data.png import write_png
+
+    t_phase = time.perf_counter()
+    want = np.load(os.path.join(IMAGE_FIXTURES, "cv2_pixels.npz"))
+    decode_s = {}
+    for name in sorted(f for f in want.files if f != "cv2_version"):
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        got = decode_image(data)
+        decode_s[name] = time.perf_counter() - t0
+        check(got.shape == want[name].shape and bool((got == want[name]).all()),
+              f"{name}: the port's decode is not cv2 {want['cv2_version']}'s")
+    grey = synthetic_grey_panel(SEED)
+    filter0, paeth = os.path.join(tmp, "panel0.png"), os.path.join(tmp, "panel0_paeth.png")
+    with open(paeth, "wb") as f:
+        f.write(paeth_residual_png(grey))
+    for name, path in (("panel_4400x3000_paeth.png", paeth), ("panel_4400x3000_filter0.png", filter0)):
+        t0 = time.perf_counter()
+        got = read_image(path)
+        decode_s[name] = time.perf_counter() - t0
+        check(got.shape == PANEL_HW + (3,) and bool((got == grey[..., None]).all()),
+              f"{name} does not decode to the panel written")
+    jpg = os.path.join(IMAGE_FIXTURES, "panel_420.jpg")
+    jpg_pixels = os.path.join(tmp, "panel_420_cv2_pixels.png")
+    write_png(jpg_pixels, want["panel_420.jpg"])
+    paths = [filter0, paeth, jpg, jpg_pixels]
+    out = Stamped()
+    rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
+                     "--device", str(device)], stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
+    check(rc == 0, f"serve exited {rc}")
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    check([r.get("path") for r in recs] == paths and all("detections" in r for r in recs),
+          f"serve records: {recs}")
+    dets = [served_dets(r) for r in recs]
+    check(len(dets[0]) > 0, "no detections on panel 0")
+    for a, b, what in ((0, 1, "the Paeth PNG and its filter-0 copy"),
+                       (2, 3, "the JPEG and its cv2 pixels as a PNG")):
+        check(unmatched(dets[a], dets[b], prob_tol=1e-6) == 0,
+              f"{what} give other detections: {dets[a]} vs {dets[b]}")
+    emit({"phase": "image_formats", "kind": kind, "nvidia_smi": smi,
+          "host_library_build_s": host_build_s, "decode_s": decode_s,
+          "detections": {"panel0_filter0": len(dets[0]), "panel0_paeth": len(dets[1]),
+                         "jpeg_420": len(dets[2]), "jpeg_420_as_png": len(dets[3])},
+          "detections_bit_equal": {"paeth": recs[0]["detections"] == recs[1]["detections"],
+                                   "jpeg": recs[2]["detections"] == recs[3]["detections"]},
+          "phase_s": time.perf_counter() - t_phase})
+
+
 def stages_phase(net, panel3, small, origins, kind, smi):
     """Per-stage times of one 12-tile grey batch, with the trunk split into
     the grey stem and stages 2-4; per-batch launch counts."""
@@ -1543,7 +1621,8 @@ def predict_phase(tmp, net, kind, smi):
     import torch
 
     from radnet_torch.cli import predict
-    from radnet_torch.data.png import read_png, write_png
+    from radnet_torch.data.image import read_image
+    from radnet_torch.data.png import write_png
     from radnet_torch.inference import RADNet
     from radnet_torch.ops import cuda_kernels
 
@@ -1568,7 +1647,7 @@ def predict_phase(tmp, net, kind, smi):
     for name in ("all", "boat", "human", "other"):
         out = os.path.join(scan, "img", "predictions", f"{name}_predictions.png")
         check(os.path.isfile(out), f"predict wrote no {out}")
-        img = read_png(out)
+        img = read_image(out)
         pngs[name] = list(img.shape)
         if name == "all":
             check(len(preds) > 0, "predict wrote no detections")
@@ -1898,7 +1977,7 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
     import torch
 
     from radnet_torch.cli import cont_train, train
-    from radnet_torch.data.png import read_png
+    from radnet_torch.data.image import read_image
     from radnet_torch.inference import load_radnet
     from radnet_torch.ops import cuda_kernels, nms
 
@@ -1950,7 +2029,7 @@ def train_phase(tmp: str, dev, smi, network: str = "resnet50", phase: str = "tra
                      weights_only=True)["optimizer"]
     adam_counts = {k: int(v["count"]) for k, v in opt.items()} if "rpn" in opt else None
     net = load_radnet(model_dir, device=dev)
-    panel = read_png(os.path.join(d, "val", "enhanced_topo_grey", "panel0.png"))
+    panel = read_image(os.path.join(d, "val", "enhanced_topo_grey", "panel0.png"))
     dets = net.predict([panel])
     remainder_record = None
     if "train_remainder" in out:
@@ -2335,7 +2414,7 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
     from radnet_torch.cli import test, test_data, test_rpn
     from radnet_torch.config import Config
     from radnet_torch.data.dataset import get_data, get_image
-    from radnet_torch.data.png import read_png
+    from radnet_torch.data.image import read_image
     from radnet_torch.inference import RADNet
     from radnet_torch.ops import cuda_kernels
 
@@ -2380,7 +2459,7 @@ def evaluate_phase(tmp: str, dev, smi, serve_weights: dict) -> dict:
     check(coco["AP50"] == acc["mAP"] and len(coco["per_threshold"]) == 10,
           f"test_accuracy_coco.json: AP50 {coco['AP50']} vs mAP {acc['mAP']}, "
           f"{len(coco['per_threshold'])} thresholds")
-    check(all(os.path.isfile(p) and read_png(p).ndim == 3 for p in pngs) and os.path.isfile(svg),
+    check(all(os.path.isfile(p) and read_image(p).ndim == 3 for p in pngs) and os.path.isfile(svg),
           f"cli.test did not write {pngs} and {svg}")
     check(len(seconds) == 2, f"cli.test printed no prediction times: {seconds}")
     check(n_b > 0 and batches.count(3) == n_b, f"cli.test batches {batches}: not all prescaled grey")
@@ -4942,7 +5021,7 @@ def mesh_rank(spec: dict, stdin=None, stdout=None) -> dict:
 
     from radnet_torch.cli import serve
     from radnet_torch.config import Config
-    from radnet_torch.data.png import read_png
+    from radnet_torch.data.image import read_image
     from radnet_torch.geometry import xyxy_to_xywh
     from radnet_torch.inference import RADNet, load_radnet
     from radnet_torch.models.detector import build_model
@@ -4973,7 +5052,7 @@ def mesh_rank(spec: dict, stdin=None, stdout=None) -> dict:
     out["serve"] = {"rc": rc, "seconds": time.perf_counter() - t0, "launches": launch_counts()}
 
     images = torch.from_numpy(np.load(spec["images"])).to(dev)
-    panel = read_png(spec["paths"][0])
+    panel = read_image(spec["paths"][0])
     panel = np.repeat(panel[..., None], 3, axis=-1) if panel.ndim == 2 else panel
     runs = []
     for network, model_name in (("resnet50", "smoke"), ("vgg16", "vgg")):
@@ -5485,7 +5564,7 @@ def mesh_train_phase(tmp: str, batch: dict, dev, kind, smi, config: dict | None 
     import torch
 
     from radnet_torch.cli import cont_train, train
-    from radnet_torch.data.png import read_png
+    from radnet_torch.data.image import read_image
     from radnet_torch.engine.loop import read_record
     from radnet_torch.inference import load_radnet
     from radnet_torch.ops import cuda_kernels, nms
@@ -5526,7 +5605,7 @@ def mesh_train_phase(tmp: str, batch: dict, dev, kind, smi, config: dict | None 
                        weights_only=True)
     whole_shapes = saved["model"]["head.s5a.conv2a.weight"].shape == (512, 1024, 1, 1)
     net = load_radnet(model_dir, device=dev)
-    dets = net.predict([read_png(os.path.join(tmp, "data", "val", "enhanced_topo_grey", "panel0.png"))])
+    dets = net.predict([read_image(os.path.join(tmp, "data", "val", "enhanced_topo_grey", "panel0.png"))])
     del net
     emit({"phase": "mesh_train", "run": "cli.train / cli.cont_train --n-devices 2, two ranks on one "
           "card, data 2 x model 1, ResNet50", "kind": kind, "nvidia_smi": smi, **out,
@@ -5716,7 +5795,7 @@ def synthetic_set_check(root: str, counts: dict) -> dict:
     import csv
 
     from radnet_torch.cli import make_synthetic_rockart as mk
-    from radnet_torch.data.png import read_png
+    from radnet_torch.data.image import read_image
 
     rng = np.random.default_rng(SYNTH_SEED)
     n_panels = n_boxes = 0
@@ -5725,7 +5804,7 @@ def synthetic_set_check(root: str, counts: dict) -> dict:
         for i in range(counts[f"n_{split}"]):
             img, figures = mk.make_panel(rng, counts["panel_size"], counts["figures_per_panel"])
             path = os.path.join(root, "data", counts["img_type"], split, f"panel_{i}.png")
-            got = read_png(path)
+            got = read_image(path)
             check(got.shape == img.shape and np.array_equal(got, img),
                   f"synthetic set: {path} differs from make_panel's panel "
                   f"({int(np.any(got != img, axis=-1).sum()) if got.shape == img.shape else got.shape})")
@@ -5959,11 +6038,15 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    # 2. build
+    # 2. build: the image reader's host libraries, then the kernels
+    from radnet_torch.ops import host_kernels
+
+    host_build_s = cuda_kernels.build(host_kernels.LIBRARIES)
     earlier = earlier_kernels()
     build_s = cuda_kernels.build(cuda_kernels.KERNELS + list(earlier.values()))
-    emit({"phase": "build", "seconds": build_s,
-          "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS + list(earlier.values())]})
+    emit({"phase": "build", "seconds": build_s, "host_library_seconds": host_build_s,
+          "libraries": [k.lib_path().name for k in cuda_kernels.KERNELS + list(earlier.values())
+                        + host_kernels.LIBRARIES]})
 
     # 3-6. kernels against their plain versions, then timed; then kernels 2
     # and 2b at VGG16's width (C = 512, stride 1).
@@ -5978,6 +6061,7 @@ def main() -> int:
     cfg, vcfg = Config(), vgg_config()
     with tempfile.TemporaryDirectory() as tmp:
         net, panel3, small, origins, launches, served = serve_phase(tmp, cfg, dev, kind, smi)
+        image_formats_phase(tmp, dev, kind, smi, host_build_s)
         images, per_batch = stages_phase(net, panel3, small, origins, kind, smi)
         kernels_line["nms_fused"]["main_path_inputs"] = nms_main_path(net, images, earlier)
         sync_free_phase(net, images, panel3)
@@ -6098,18 +6182,45 @@ def main() -> int:
     return 0
 
 
-def paeth_png(h: int, w: int) -> bytes:
-    """A grey PNG whose every row uses the Paeth filter (random filtered
-    bytes: any byte string is a valid filtered stream)."""
+def grey_png(raw: np.ndarray, level: int = 1) -> bytes:
+    """A grey 8-bit PNG of the filtered rows ``raw`` (h, 1 + w): a filter
+    byte, then the row's filtered bytes."""
     import struct
     import zlib
 
     from radnet_torch.data import png
 
+    h, w = raw.shape[0], raw.shape[1] - 1
+    return (png._SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(np.ascontiguousarray(raw).tobytes(), level))
+            + png._chunk(b"IEND", b""))
+
+
+def paeth_png(h: int, w: int) -> bytes:
+    """A grey PNG whose every row uses the Paeth filter (random filtered
+    bytes: any byte string is a valid filtered stream)."""
     raw = np.random.default_rng(1).integers(0, 256, (h, w + 1), dtype=np.uint8)
     raw[:, 0] = 4
-    return (png._SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-            + png._chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + png._chunk(b"IEND", b""))
+    return grey_png(raw)
+
+
+def paeth_residual_png(grey: np.ndarray, level: int = 1) -> bytes:
+    """``grey`` (h, w) uint8 written as a PNG whose every row uses the Paeth
+    filter, as encoders write it: each byte less the Paeth predictor of its
+    left, upper and upper-left neighbours (zero outside the image)."""
+    g = grey.astype(np.int16)
+    a = np.zeros_like(g)
+    a[:, 1:] = g[:, :-1]
+    b = np.zeros_like(g)
+    b[1:] = g[:-1]
+    c = np.zeros_like(g)
+    c[1:, 1:] = g[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.empty((g.shape[0], g.shape[1] + 1), np.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = (g - pred).astype(np.uint8)
+    return grey_png(raw, level)
 
 
 if __name__ == "__main__":

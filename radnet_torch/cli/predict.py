@@ -28,7 +28,8 @@ from radnet_torch.cli.common import (add_mesh_args, add_quantize_arg, draw_detec
                                      draw_rectangle, mesh_from_args, model_dir,
                                      quantize_from_args, require_drawable, run_on_mesh)
 from radnet_torch.cli.serve import detections_to_json
-from radnet_torch.data.png import read_png, write_png
+from radnet_torch.data.image import read_image
+from radnet_torch.data.png import write_png
 
 
 def resolve_type_path(scan_path: str, img_type: str) -> Path:
@@ -80,7 +81,7 @@ def predict(args) -> int:
     radnet = load_radnet(model_dir(args.models_path, args.model_name), device=args.device,
                          quantize=quantize_from_args(args), mesh=mesh)
     require_drawable(radnet.C.class_mapping)
-    images = [read_png(str(resolve_type_path(args.scan_data_path, t))) for t in radnet.C.img_types]
+    images = [read_image(str(resolve_type_path(args.scan_data_path, t))) for t in radnet.C.img_types]
     detections = radnet.predict(images)
     if mesh is not None and not mesh.is_main:
         return 0
@@ -96,7 +97,7 @@ def predict(args) -> int:
 
     def render(keep, out_name, color):
         try:
-            img = read_png(str(viz_path))
+            img = read_image(str(viz_path))
         except FileNotFoundError:
             return
         chosen = [d for d in detections if keep(d)]

@@ -12,8 +12,8 @@ Protocol (newline-delimited, stdin -> stdout):
           result, including time queued behind other panels in flight.
 
 A blank line or EOF ends the session; ``READY`` is printed to stderr once
-the model is loaded.  A reader thread decodes panel k+1 (PNG, see
-``radnet_torch/data/png.py``) while panel k runs; ``--pipeline-depth N``
+the model is loaded.  A reader thread decodes panel k+1 (PNG or JPEG, see
+``radnet_torch/data/image.py``) while panel k runs; ``--pipeline-depth N``
 keeps up to N panels dispatched before the oldest is collected.
 
 With ``--n-devices N [--model-parallel M]`` the worker spawns N ranks, one a
@@ -96,7 +96,7 @@ def _next_request(stdin) -> str | None:
 def serve(args, stdin=None, stdout=None) -> int:
     """The worker on this process (one rank of a mesh under ``--n-devices``;
     only rank 0 has ``stdin`` and ``stdout``)."""
-    from radnet_torch.data.png import read_png
+    from radnet_torch.data.image import read_image
     from radnet_torch.inference import load_radnet
     from radnet_torch.parallel.collectives import broadcast_text, host_barrier
 
@@ -132,7 +132,7 @@ def serve(args, stdin=None, stdout=None) -> int:
             path, _, out_file = line.partition("\t")
             t0 = time.time()
             try:
-                img = read_png(path)
+                img = read_image(path)
                 inbox.put((path, out_file, t0, img, None))
             except Exception as e:  # keep serving on bad inputs
                 inbox.put((path, out_file, t0, None, f"{type(e).__name__}: {e}"))

@@ -3,11 +3,12 @@ datasets, and the class-balanced sample selector of training.
 
 The annotation CSV has the columns ``img_path,label,xmin,ymin,xmax,ymax``.
 Images live under per-type directories injected as the second path segment:
-``<data_root>/<img_type>/<...>/<file>``.  Files are PNGs, read by
-``data/png.py`` as BGR ``(H, W, 3)`` uint8 (grey files come back with three
-equal channels).  Decoded panels are kept in a byte-bounded LRU cache: a
-training epoch reads every panel again, and decoding one costs a PNG's
-inflate and row filters in Python.
+``<data_root>/<img_type>/<...>/<file>``.  Files are PNG or JPEG, read by
+``data/image.py`` as ``cv2.imdecode(..., IMREAD_COLOR)`` reads them: BGR
+``(H, W, 3)`` uint8, grey files with three equal channels, EXIF orientation
+applied.  Decoded panels are kept in a byte-bounded LRU cache: a training
+epoch reads every panel again, and decoding one costs an inflate or a JPEG's
+entropy decode and IDCT on the host.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Any
 
 import numpy as np
 
-from radnet_torch.data.png import read_png
+from radnet_torch.data.image import read_image
 
 
 def choose_img_type(types: list[str], rng: np.random.Generator | None = None) -> str:
@@ -47,7 +48,7 @@ def get_image(img_path: str, types: list[str], random_type: bool = False,
     if img is None:
         if not os.path.isfile(path):
             raise FileNotFoundError(f"cannot decode image: {path}")
-        img = read_png(path)
+        img = read_image(path)
         _decoded_cache_put(key, img)
     return img.copy() if writable else img
 

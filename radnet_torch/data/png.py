@@ -1,14 +1,16 @@
 """PNG decode and encode with the standard library (``zlib``) and numpy.
 
 :func:`decode_png` is the counterpart of ``cv2.imdecode(buf,
-cv2.IMREAD_COLOR)`` for 8-bit, non-interlaced PNGs of colour type grey,
-grey + alpha, RGB and RGBA, with all five row filters.  It returns BGR
-``(H, W, 3)`` uint8: grey is replicated to three channels and alpha is
-dropped.  Any other PNG raises ``ValueError``.
-
-The Sub and Up filters are undone with numpy; Average and Paeth depend on
-the pixel to the left, so they run as a Python loop over the row and are
-slow on giga-pixel panels written with them.
+cv2.IMREAD_COLOR)`` for every PNG the standard allows: colour types grey,
+RGB, palette, grey + alpha and RGBA at each of their bit depths (1, 2, 4, 8,
+16), interlaced or not.  It returns BGR ``(H, W, 3)`` uint8 as libpng's
+transforms under OpenCV make it: grey scaled to 8 bits and replicated to
+three channels, 16-bit samples reduced to their high byte, palette indices
+looked up, alpha and ``tRNS`` dropped.  Inflate is ``zlib``; the row filters,
+Adam7 passes and sample unpacking run in ``radnet_torch/csrc/png_unfilter.cpp``
+(:mod:`radnet_torch.ops.host_kernels`).  EXIF orientation is applied by
+``radnet_torch/data/image.py``, which takes the ``eXIf`` chunk from
+:func:`decode_png_exif`.
 
 :func:`encode_png` writes grey or BGR uint8 images with filter 0 (None).
 """
@@ -20,97 +22,132 @@ import zlib
 
 import numpy as np
 
+from radnet_torch.ops.host_kernels import PNG_UNFILTER
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
+_ADAM7 = [(0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (1, 2, 0, 2),
+          (0, 1, 1, 2)]  # (x0, dx, y0, dy) of each pass
+# colour type -> the bit depths the standard allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def check_image_size(width: int, height: int) -> None:
+    """OpenCV's validateInputImageSize, which cv2.imdecode applies before it
+    decodes: at most 2^20 pixels a side and 2^30 in all."""
+    if not (0 < width <= 1 << 20 and 0 < height <= 1 << 20 and width * height <= 1 << 30):
+        raise ValueError(f"a {width} x {height} image is beyond OpenCV's size limits")
 
 
 def _chunks(data: bytes):
+    """(type, body) of each chunk up to IEND; a critical chunk whose CRC is
+    wrong raises, an ancillary one is skipped (libpng's defaults), and IEND's
+    is not read (OpenCV's reader stops there)."""
     pos = len(_SIGNATURE)
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
         ctype = data[pos + 4 : pos + 8]
-        body = data[pos + 8 : pos + 8 + length]
-        if len(body) != length:
+        end = pos + 8 + length
+        if end + 4 > len(data):
             raise ValueError("truncated PNG chunk")
+        body = data[pos + 8 : end]
+        (crc,) = struct.unpack(">I", data[end : end + 4])
+        pos = end + 4
+        if ctype != b"IEND" and zlib.crc32(body, zlib.crc32(ctype)) != crc:
+            if ctype[0] & 0x20 == 0:
+                raise ValueError(f"PNG {ctype.decode('latin-1')} chunk with a bad CRC")
+            continue
         yield ctype, body
-        pos += 12 + length
         if ctype == b"IEND":
             return
     raise ValueError("PNG without IEND")
 
 
-def _unfilter_slow(ftype: int, raw: bytearray, prev: bytes, bpp: int) -> bytearray:
-    """Average (3) and Paeth (4): each byte depends on the one to its left."""
-    out = raw
-    n = len(out)
-    if ftype == 3:
-        for i in range(n):
-            left = out[i - bpp] if i >= bpp else 0
-            out[i] = (out[i] + ((left + prev[i]) >> 1)) & 0xFF
-        return out
-    for i in range(n):
-        a = out[i - bpp] if i >= bpp else 0
-        b = prev[i]
-        c = prev[i - bpp] if i >= bpp else 0
-        p = a + b - c
-        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-        out[i] = (out[i] + pred) & 0xFF
-    return out
+def _image_bytes(width: int, height: int, depth: int, color: int, interlace: int) -> int:
+    """The length of the inflated image data: each pass's rows, a filter byte
+    and the packed samples each."""
+    bits = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color] * depth
+    passes = _ADAM7 if interlace else [(0, 1, 0, 1)]
+    total = 0
+    for x0, dx, y0, dy in passes:
+        pw, ph = max(0, -(-(width - x0) // dx)), max(0, -(-(height - y0) // dy))
+        if pw and ph:
+            total += ph * (1 + (pw * bits + 7) // 8)
+    return total
+
+
+def _inflate(stream: bytes, n: int) -> bytes:
+    """The first n bytes the zlib stream inflates to, as libpng takes them:
+    an error before they are out, or a stream that ends or runs out of IDAT
+    data before it ends, raises; an error or more data after them is only a
+    warning in libpng."""
+    d = zlib.decompressobj()
+    try:
+        raw = d.decompress(stream, n)
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from None
+    if len(raw) < n:
+        raise ValueError("PNG image data is too short")
+    try:
+        while not d.eof and d.unconsumed_tail:
+            d.decompress(d.unconsumed_tail, 1 << 20)
+    except zlib.error:
+        return raw
+    if not d.eof:
+        raise ValueError("PNG image data ends before its zlib stream does")
+    return raw
+
+
+def decode_png_exif(data: bytes) -> tuple[np.ndarray, bytes | None]:
+    """PNG bytes -> (BGR ``(H, W, 3)`` uint8, the body of its ``eXIf`` chunk
+    or None)."""
+    if not data.startswith(_SIGNATURE):
+        raise ValueError("not a PNG file")
+    header = palette = exif = None
+    idat = []
+    for ctype, body in _chunks(data):
+        if (header is None) != (ctype == b"IHDR"):
+            raise ValueError("PNG without IHDR first, or with two")
+        if ctype == b"IHDR":
+            if len(body) != 13:
+                raise ValueError("bad PNG IHDR")
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            if palette is not None or idat or len(body) % 3 or not 0 < len(body) <= 768:
+                raise ValueError("bad PNG PLTE: repeated, after IDAT or of a bad length")
+            palette = body
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"eXIf" and exif is None:
+            exif = body
+        elif ctype[0] & 0x20 == 0 and ctype != b"IEND":
+            raise ValueError(f"unknown critical PNG chunk {ctype!r}")
+    width, height, depth, color, comp, filt, interlace = header
+    if (color not in _DEPTHS or depth not in _DEPTHS[color] or comp != 0 or filt != 0
+            or interlace > 1):
+        raise ValueError(f"bad PNG header: bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace}")
+    if width > 1_000_000 or height > 1_000_000:  # libpng's default user limits
+        raise ValueError(f"a {width} x {height} PNG is beyond libpng's size limits")
+    check_image_size(width, height)
+    if color == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
+    if not idat:
+        raise ValueError("PNG without IDAT")
+    raw = _inflate(b"".join(idat), _image_bytes(width, height, depth, color, interlace))
+    table = np.zeros((256, 3), np.uint8)  # indices past PLTE read black
+    if palette is not None:
+        table[: len(palette) // 3] = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+    out = np.empty((height, width, 3), np.uint8)
+    rc = PNG_UNFILTER.fn("radnet_png_unfilter")(
+        raw, len(raw), width, height, depth, color, interlace, table.ctypes.data, out.ctypes.data)
+    if rc:
+        raise ValueError("bad PNG filter type")
+    return out, exif
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> BGR ``(H, W, 3)`` uint8."""
-    if not data.startswith(_SIGNATURE):
-        raise ValueError("not a PNG file")
-    header = None
-    idat = []
-    for ctype, body in _chunks(data):
-        if ctype == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError("PNG without IHDR")
-    width, height, depth, color, comp, filt, interlace = header
-    if depth != 8 or color not in _CHANNELS or comp != 0 or filt != 0 or interlace != 0:
-        raise ValueError(
-            f"unsupported PNG: bit depth {depth}, colour type {color}, interlace {interlace}"
-        )
-    bpp = _CHANNELS[color]
-    stride = width * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) != height * (stride + 1):
-        raise ValueError("PNG image data has the wrong length")
-    rows = np.frombuffer(raw, np.uint8).reshape(height, stride + 1)
-    ftypes = rows[:, 0]
-    pix = rows[:, 1:]
-    if not (ftypes == 0).all():
-        pix = pix.copy()
-        prev = np.zeros(stride, np.uint8)
-        for y in range(height):
-            f = int(ftypes[y])
-            row = pix[y]
-            if f == 1:
-                row[:] = np.cumsum(row.reshape(width, bpp), axis=0, dtype=np.uint8).reshape(-1)
-            elif f == 2:
-                row += prev
-            elif f in (3, 4):
-                row[:] = np.frombuffer(
-                    _unfilter_slow(f, bytearray(row.tobytes()), prev.tobytes(), bpp), np.uint8
-                )
-            elif f != 0:
-                raise ValueError(f"bad PNG filter type {f}")
-            prev = row
-    img = pix.reshape(height, width, bpp)
-    if bpp <= 2:  # grey, grey + alpha
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., 2::-1])  # RGB(A) -> BGR
-
-
-def read_png(path: str) -> np.ndarray:
-    with open(path, "rb") as f:
-        return decode_png(f.read())
+    """PNG bytes -> BGR ``(H, W, 3)`` uint8 (EXIF orientation not applied)."""
+    return decode_png_exif(data)[0]
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:

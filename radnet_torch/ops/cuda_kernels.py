@@ -94,9 +94,12 @@ class CudaKernel:
         self.launches += 1
 
 
-def build(kernels: list[CudaKernel]) -> float:
-    """Compile every kernel whose library is missing, one ``nvcc`` per
-    library, all started together.  Returns the wall seconds spent."""
+def build(kernels: list) -> float:
+    """Compile every kernel whose library is missing, one compiler per
+    library, all started together.  Returns the wall seconds spent.
+
+    Takes :class:`CudaKernel` and ``host_kernels.HostLibrary`` alike:
+    anything with ``source``, ``lib_path()`` and ``compile_command(out)``."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -107,15 +110,14 @@ def build(kernels: list[CudaKernel]) -> float:
             continue
         started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(
-            k.compile_command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((k, proc, tmp, out))
+        cmd = k.compile_command(tmp)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((k, Path(cmd[0]).name, proc, tmp, out))
     failed = []
-    for k, proc, tmp, out in jobs:
+    for k, compiler, proc, tmp, out in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{k.source}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{k.source}: {compiler} exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
     if failed:

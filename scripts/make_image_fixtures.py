@@ -1,0 +1,139 @@
+#!/usr/bin/env python
+"""Write the image fixtures with which the port's reader is held to OpenCV
+on a host that has no OpenCV or PIL (the card's).
+
+Under ``tests/data/images/`` it writes a few small files that cover the
+reader's main cases, and ``cv2_pixels.npz``: for each file, the BGR uint8
+array ``cv2.imdecode(np.fromfile(path, np.uint8), cv2.IMREAD_COLOR)`` gives,
+and the cv2 version under the key ``cv2_version``.
+
+* ``paeth_grey.png``  a grey panel with real Paeth residuals on every row;
+* ``grey16.png``      16-bit grey (cv2's writer), read as its high bytes;
+* ``palette.png``     an 8-bit palette image (PIL's adaptive palette);
+* ``adam7_rgb.png``   Adam7-interlaced RGB, the five filters taking turns by
+                      row (random filtered bytes);
+* ``panel_420.jpg``   a 640 x 480 colour panel (``chip_smoke.py``'s
+                      synthetic panel generator), cv2's default 4:2:0 at
+                      quality 95: ``chip_smoke.py`` serves it;
+* ``odd_444.jpg``     4:4:4, 123 x 157 (a size no MCU divides);
+* ``progressive.jpg`` progressive 4:2:0 with optimized tables, 123 x 157;
+* ``exif6.jpg``       PIL's, with EXIF orientation 6 (read 157 x 123).
+
+The files are written byte for byte the same on every run with the same cv2 and
+PIL; ``tests/test_torch_image_decode.py`` checks that they and the ``.npz``
+still equal what live cv2 writes and reads.  Needs cv2 and PIL, which the
+port itself never imports.
+
+Usage:
+  python scripts/make_image_fixtures.py [--out tests/data/images]
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import os
+import struct
+import sys
+import zlib
+
+import cv2
+import numpy as np
+from PIL import Image
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "tests", "data", "images")
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
+from radnet_torch.data import png  # noqa: E402
+
+ODD_HW = (123, 157)
+ADAM7 = [(0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (1, 2, 0, 2),
+         (0, 1, 1, 2)]
+
+
+def small_panel(h: int, w: int, seed: int) -> np.ndarray:
+    """A small BGR panel: textured dark rock, bright figures, a tint."""
+    rng = np.random.default_rng(seed)
+    img = np.repeat(np.repeat(rng.integers(20, 60, (-(-h // 4), -(-w // 4))), 4, 0), 4, 1)[:h, :w]
+    for _ in range(6):
+        bh, bw = rng.integers(6, h // 3), rng.integers(6, w // 3)
+        y, x = rng.integers(0, h - bh), rng.integers(0, w - bw)
+        img[y:y + bh, x:x + bw] = rng.integers(110, 250)
+    tint = np.array([-12, 0, 14])
+    return np.clip(img[..., None] + tint + rng.integers(-6, 7, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def adam7_rgb(h: int, w: int, seed: int) -> bytes:
+    """An interlaced 8-bit RGB PNG of random filtered bytes, each pass's rows
+    taking the filter types 0-4 in turn."""
+    rng = np.random.default_rng(seed)
+    raw = []
+    for x0, dx, y0, dy in ADAM7:
+        pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+        if pw and ph:
+            rows = rng.integers(0, 256, (ph, 3 * pw + 1), dtype=np.uint8)
+            rows[:, 0] = np.arange(ph) % 5
+            raw.append(rows.tobytes())
+    return (png._SIGNATURE + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1))
+            + png._chunk(b"IDAT", zlib.compress(b"".join(raw), 9)) + png._chunk(b"IEND", b""))
+
+
+def encode(ext: str, img: np.ndarray, params=()) -> bytes:
+    ok, buf = cv2.imencode(ext, img, list(params))
+    assert ok, ext
+    return buf.tobytes()
+
+
+def pil(img: np.ndarray, fmt: str, mode: str = "RGB", **kw) -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img[..., ::-1])).convert(mode).save(out, fmt, **kw)
+    return out.getvalue()
+
+
+def fixtures() -> dict[str, bytes]:
+    """File name -> bytes of every fixture."""
+    grey = small_panel(96, 128, 11)[..., 1]
+    colour = small_panel(96, 128, 12)
+    odd = small_panel(*ODD_HW, 13)
+    grey16 = grey.astype(np.uint16) * 257 + np.arange(128, dtype=np.uint16)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    return {
+        "paeth_grey.png": chip_smoke.paeth_residual_png(grey, level=9),
+        "grey16.png": encode(".png", grey16),
+        "palette.png": pil(colour, "PNG", "P"),
+        "adam7_rgb.png": adam7_rgb(37, 45, seed=14),
+        "panel_420.jpg": encode(".jpg", chip_smoke.synthetic_colour_panel(15, (480, 640))),
+        "odd_444.jpg": encode(".jpg", odd, (cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444)),
+        "progressive.jpg": encode(".jpg", odd, (cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                                cv2.IMWRITE_JPEG_OPTIMIZE, 1)),
+        "exif6.jpg": pil(odd, "JPEG", quality=90, exif=exif.tobytes()),
+    }
+
+
+def cv2_pixels(files: dict[str, bytes]) -> dict[str, np.ndarray]:
+    return {name: cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+            for name, data in files.items()}
+
+
+def write(out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    files = fixtures()
+    for name, data in files.items():
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(data)
+    np.savez_compressed(os.path.join(out, "cv2_pixels.npz"), cv2_version=np.array(cv2.__version__),
+                        **cv2_pixels(files))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--out", default=OUT)
+    write(p.parse_args(argv).out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,7 +27,8 @@ import torch
 from radnet_torch.cli import test_data as ttd
 from radnet_torch.cli import test_rpn as trpn
 from radnet_torch.config import Config as TorchConfig
-from radnet_torch.data.png import read_png, write_png
+from radnet_torch.data.image import read_image
+from radnet_torch.data.png import write_png
 from radnet_torch.inference import RADNet as TorchRADNet
 from radnet_tpu.cli import test_data as jtd
 from radnet_tpu.cli import test_rpn as jrpn
@@ -101,7 +102,7 @@ def test_test_rpn_cli_matches_jax(nets, rpn_set, monkeypatch, capsys, tmp_path):
     assert outs[0] == outs[1]
     assert "RPN recall@0.5: 2/4 = 0.500" in outs[1]
     for k in range(2):
-        drawn = read_png(str(tmp_path / "port" / "m" / "test_rpn" / f"p{k}.png"))
+        drawn = read_image(str(tmp_path / "port" / "m" / "test_rpn" / f"p{k}.png"))
         assert drawn.shape == PANEL_HW + (3,)
         assert (drawn[60, 70] == (0, 255, 0)).all()  # the far box's corner, green
 
@@ -184,7 +185,7 @@ def test_test_data_samples_match_jax_and_pngs_written(train_set, monkeypatch, ca
     assert lines[0] == lines[1]
     assert any("n_pos=0" not in ln for ln in lines[1] if ln.startswith("sample"))
     for i in range(3):
-        img = read_png(str(tmp_path / "port" / f"test_data_{i}.png"))
+        img = read_image(str(tmp_path / "port" / f"test_data_{i}.png"))
         assert img.shape == (cfg.canvas_size, cfg.canvas_size, 3)
         assert ((img == (0, 255, 0)).all(-1)).any()  # a ground-truth outline
 

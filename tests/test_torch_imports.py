@@ -1,6 +1,7 @@
 """The port stands alone and runs on the card unless asked otherwise:
 no JAX, flax, OpenCV, PIL, pandas, h5py, matplotlib or radnet_tpu import in
-radnet_torch, chip_smoke.py or the synthetic chain's scripts; entry points
+radnet_torch (its image reader included), chip_smoke.py, the synthetic
+chain's scripts or the reader's timing script; entry points
 default to CUDA and raise without a card; the serving protocol works
 in-process on the CPU when asked."""
 
@@ -26,7 +27,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "radnet_tp
              "pandas", "h5py", "matplotlib"}
 PORT_FILES = sorted((ROOT / "radnet_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "synthetic_chain.py",
-    ROOT / "scripts" / "anchor_coverage.py"]
+    ROOT / "scripts" / "anchor_coverage.py", ROOT / "scripts" / "image_reader_timing.py"]
+READER = ["radnet_torch/data/image.py", "radnet_torch/data/jpeg.py", "radnet_torch/data/png.py",
+          "radnet_torch/ops/host_kernels.py"]
 
 
 def _imports(path):
@@ -41,6 +44,11 @@ def _imports(path):
 def test_no_forbidden_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path}: imports {bad}"
+
+
+def test_reader_modules_are_checked():
+    """The image reader's modules are among the files checked above."""
+    assert set(READER) <= {str(p.relative_to(ROOT)) for p in PORT_FILES}
 
 
 def _tiny_model_dir(tmp_path):

@@ -18,7 +18,8 @@ import torch
 
 from radnet_torch.cli import predict as tpredict
 from radnet_torch.data import dataset as tdataset
-from radnet_torch.data.png import read_png, write_png
+from radnet_torch.data.image import read_image
+from radnet_torch.data.png import write_png
 from radnet_torch.inference import save_radnet
 from radnet_tpu.cli import common as jcommon
 from radnet_tpu.cli import predict as jpredict
@@ -107,16 +108,16 @@ def test_predict_cli_matches_jax(tmp_path, monkeypatch):
     np.testing.assert_allclose([d["confidence"] for d in sorted(got, key=key)],
                                [d["confidence"] for d in sorted(want, key=key)], rtol=0, atol=1e-5)
     for name in ("all", "boat", "human", "other"):
-        out = read_png(str(scan / "img" / "predictions" / f"{name}_predictions.png"))
+        out = read_image(str(scan / "img" / "predictions" / f"{name}_predictions.png"))
         assert out.shape == (130, 140, 3)
-    drawn = read_png(str(scan / "img" / "predictions" / "all_predictions.png"))
+    drawn = read_image(str(scan / "img" / "predictions" / "all_predictions.png"))
     d = got[0]
     assert (drawn[d["y1"], d["x1"]] == 255).all()  # outline drawn at the corner
 
     # Every PNG as the JAX package draws the same detections on the same
     # image: labelled in all_predictions.png, outlined in the class's colour
     # by cv2.rectangle in the others.
-    base = read_png(str(viz))
+    base = read_image(str(viz))
     dets = [{"class": d["label"], "prob": d["confidence"], **{k: d[k] for k in ("x1", "y1", "x2", "y2")}}
             for d in got]
     np.testing.assert_array_equal(drawn, jcommon.draw_detections(base.copy(), dets))
@@ -127,7 +128,7 @@ def test_predict_cli_matches_jax(tmp_path, monkeypatch):
         for d in dets:
             if keep(d["class"]):
                 cv2.rectangle(want, (d["x1"], d["y1"]), (d["x2"], d["y2"]), color, 8)
-        out = read_png(str(scan / "img" / "predictions" / f"{name}_predictions.png"))
+        out = read_image(str(scan / "img" / "predictions" / f"{name}_predictions.png"))
         np.testing.assert_array_equal(out, want)
 
 

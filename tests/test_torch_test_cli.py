@@ -30,7 +30,8 @@ import torch
 
 from radnet_torch.cli import test as ttest
 from radnet_torch.config import Config as TorchConfig
-from radnet_torch.data.png import read_png, write_png
+from radnet_torch.data.image import read_image
+from radnet_torch.data.png import write_png
 from radnet_torch.evaluation import evaluate_detections
 from radnet_torch.inference import load_radnet
 from radnet_tpu.cli import common as jcommon
@@ -228,11 +229,11 @@ def test_test_cli_matches_jax(jax_dir, test_set, cli_nets, monkeypatch, capsys):
         assert line in j_out and line in t_out
 
     for k in range(N_PANELS):  # one drawn panel each
-        assert read_png(str(jax_dir / "test" / f"p{k}.png")).shape == PANEL_HW + (3,)
+        assert read_image(str(jax_dir / "test" / f"p{k}.png")).shape == PANEL_HW + (3,)
     # each as the JAX package draws the same detections on the same panel
     assert len(drawn) == N_PANELS and sum(len(d) for _, d in drawn.values()) == len(t_seen["dets"])
     for k, (img, dets) in drawn.items():
-        np.testing.assert_array_equal(read_png(str(jax_dir / "test" / f"p{k}.png")),
+        np.testing.assert_array_equal(read_image(str(jax_dir / "test" / f"p{k}.png")),
                                       jcommon.draw_detections(img, dets))
 
     # The curve's points ride in the SVG unrounded; legend and title as JAX's.
