@@ -7,7 +7,8 @@ Run from the root of a checkout:  python3 chip_smoke.py [--log FILE]
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device     card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build      the host's c++ builds the image reader's libraries
-                (csrc/png_unfilter.cpp, csrc/jpeg_decode.cpp), then nvcc
+                (csrc/png_unfilter.cpp, csrc/jpeg_decode.cpp,
+                csrc/tiff_decode.cpp), then nvcc
                 builds every kernel of radnet_torch/csrc for sm_90a;
   3. kernel 1   the fused NMS (relation + Jacobi rounds in one launch) vs its
                 plain version at (12, 2048), (72, 300), a ragged N = 1000, and
@@ -50,12 +51,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 any operation that waits for the card fails the run;
   7b. image_formats  the port's reader on the card's host (no OpenCV): each
                 file of tests/data/images (PNGs: Paeth grey, 16-bit,
-                palette, Adam7; JPEGs: 4:2:0, 4:4:4, progressive, EXIF 6)
-                decodes to the cv2 pixels stored beside it; through one
-                cli.serve run, panel 0 written with real Paeth residuals
-                gives its filter-0 copy's detections, and the 4:2:0 JPEG
-                those of its cv2 pixels written as a PNG; decode seconds per
-                file (the 4400 x 3000 panels too) and the libraries' build;
+                palette, Adam7; JPEGs: 4:2:0, 4:4:4, progressive, EXIF 6;
+                TIFFs: LZW + Predictor 2 strips, Deflate tiles with
+                Orientation 6, 16-bit BigTIFF tiles, 4-bit palette, RGBA
+                of unassociated alpha in separate planes, CMYK) decodes to
+                the cv2 pixels stored beside it; through one cli.serve run,
+                panel 0 written with real Paeth residuals gives its filter-0
+                copy's detections, the 4:2:0 JPEG those of its cv2 pixels
+                written as a PNG, and panel 0 as a TIFF of LZW + Predictor 2
+                strips and as one of Deflate tiles of 256 (written by
+                scripts/tiff_writer.py) bit-equal detections to the
+                filter-0 PNG; decode seconds per file (the 4400 x 3000
+                panels too) and the libraries' build;
   8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
                 3000 grey panels and a blended map (launch counts read around
                 it); the label glyph table loads with numpy alone, and every
@@ -1391,17 +1398,22 @@ def served_dets(rec: dict) -> list:
             for d in rec["detections"]]
 
 
-def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> None:
+def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> str:
     """The port's reader (radnet_torch/data/image.py) on the card's host,
     which has no OpenCV: every fixture of tests/data/images decodes to the
     cv2 pixels stored beside it; a 4400 x 3000 grey panel written with real
-    Paeth residuals (panel 0, which serve_phase wrote with filter 0) and the
-    4:2:0 JPEG fixture with its cv2 pixels as a filter-0 PNG go through one
-    cli.serve run on serve_phase's model: each pair gives the same
-    detections.  Decode seconds per file, and the host library's build."""
+    Paeth residuals (panel 0, which serve_phase wrote with filter 0), the
+    4:2:0 JPEG fixture with its cv2 pixels as a filter-0 PNG, and panel 0 as
+    TIFFs of LZW + Predictor 2 strips and of Deflate tiles of 256 go through
+    one cli.serve run on serve_phase's model: each pair gives the same
+    detections, the TIFFs bit-equal to the filter-0 PNG's.  Decode seconds
+    per file, and the host library's build.  Returns the LZW TIFF's path."""
     from radnet_torch.cli import serve
     from radnet_torch.data.image import decode_image, read_image
     from radnet_torch.data.png import write_png
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from tiff_writer import write_tiff
 
     t_phase = time.perf_counter()
     want = np.load(os.path.join(IMAGE_FIXTURES, "cv2_pixels.npz"))
@@ -1418,7 +1430,15 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> None:
     filter0, paeth = os.path.join(tmp, "panel0.png"), os.path.join(tmp, "panel0_paeth.png")
     with open(paeth, "wb") as f:
         f.write(paeth_residual_png(grey))
-    for name, path in (("panel_4400x3000_paeth.png", paeth), ("panel_4400x3000_filter0.png", filter0)):
+    lzw_tif, deflate_tif = os.path.join(tmp, "panel0_lzw.tif"), os.path.join(tmp, "panel0_deflate.tif")
+    t0 = time.perf_counter()
+    write_tiff(lzw_tif, grey, compression="lzw", predictor=2, rows_per_strip=16)
+    t1 = time.perf_counter()
+    write_tiff(deflate_tif, grey, compression="deflate", tile=(256, 256))
+    write_s = {"lzw_pred_strips": t1 - t0, "deflate_tiles": time.perf_counter() - t1}
+    for name, path in (("panel_4400x3000_paeth.png", paeth), ("panel_4400x3000_filter0.png", filter0),
+                       ("panel_4400x3000_lzw_pred_strips.tif", lzw_tif),
+                       ("panel_4400x3000_deflate_tiles.tif", deflate_tif)):
         t0 = time.perf_counter()
         got = read_image(path)
         decode_s[name] = time.perf_counter() - t0
@@ -1427,7 +1447,7 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> None:
     jpg = os.path.join(IMAGE_FIXTURES, "panel_420.jpg")
     jpg_pixels = os.path.join(tmp, "panel_420_cv2_pixels.png")
     write_png(jpg_pixels, want["panel_420.jpg"])
-    paths = [filter0, paeth, jpg, jpg_pixels]
+    paths = [filter0, paeth, jpg, jpg_pixels, lzw_tif, deflate_tif]
     out = Stamped()
     rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
                      "--device", str(device)], stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
@@ -1441,20 +1461,31 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> None:
                        (2, 3, "the JPEG and its cv2 pixels as a PNG")):
         check(unmatched(dets[a], dets[b], prob_tol=1e-6) == 0,
               f"{what} give other detections: {dets[a]} vs {dets[b]}")
+    for k, what in ((4, "LZW + Predictor 2 strips"), (5, "Deflate tiles of 256")):
+        check(recs[k]["detections"] == recs[0]["detections"],
+              f"panel 0 as a TIFF of {what} gives other detections than the PNG: "
+              f"{recs[k]['detections']} vs {recs[0]['detections']}")
     emit({"phase": "image_formats", "kind": kind, "nvidia_smi": smi,
-          "host_library_build_s": host_build_s, "decode_s": decode_s,
+          "host_library_build_s": host_build_s, "decode_s": decode_s, "tiff_write_s": write_s,
           "detections": {"panel0_filter0": len(dets[0]), "panel0_paeth": len(dets[1]),
-                         "jpeg_420": len(dets[2]), "jpeg_420_as_png": len(dets[3])},
+                         "jpeg_420": len(dets[2]), "jpeg_420_as_png": len(dets[3]),
+                         "panel0_tiff_lzw": len(dets[4]), "panel0_tiff_deflate": len(dets[5])},
           "detections_bit_equal": {"paeth": recs[0]["detections"] == recs[1]["detections"],
-                                   "jpeg": recs[2]["detections"] == recs[3]["detections"]},
+                                   "jpeg": recs[2]["detections"] == recs[3]["detections"],
+                                   "tiff_lzw": recs[4]["detections"] == recs[0]["detections"],
+                                   "tiff_deflate": recs[5]["detections"] == recs[0]["detections"]},
           "phase_s": time.perf_counter() - t_phase})
+    return lzw_tif
 
 
-def stages_phase(net, panel3, small, origins, kind, smi):
+def stages_phase(net, panel3, small, origins, kind, smi, tiff_path):
     """Per-stage times of one 12-tile grey batch, with the trunk split into
-    the grey stem and stages 2-4; per-batch launch counts."""
+    the grey stem and stages 2-4; per-batch launch counts; the reader's
+    decode of a 1000 x 1000 Paeth PNG and of ``tiff_path`` (panel 0 as LZW +
+    Predictor 2 strips)."""
     import torch
 
+    from radnet_torch.data.image import read_image
     from radnet_torch.data.png import decode_png
     from radnet_torch.ops import cuda_kernels, nms
     from radnet_torch.ops.grey_stem import grey_stem, stem_geometry
@@ -1525,6 +1556,9 @@ def stages_phase(net, panel3, small, origins, kind, smi):
     t0 = time.perf_counter()
     decode_png(paeth)
     paeth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read_image(tiff_path)
+    tiff_s = time.perf_counter() - t0
     emit({"phase": "stages", "kind": kind, "nvidia_smi": smi, "batch_tiles": len(images),
           "stage_ms": stage_ms, "batch_ms": batch_ms, "batch_ms_by_stem": ab,
           "launches_per_batch": per_batch,
@@ -1536,7 +1570,7 @@ def stages_phase(net, panel3, small, origins, kind, smi):
           "panel_predict_ms": panel_wall_ms, "panel_device_busy_ms": panel_busy_ms,
           "panel_device_idle_share": 1.0 - panel_busy_ms / panel_wall_ms,
           "panel_host_ms": host_ms,
-          "png_decode_paeth_1000x1000_s": paeth_s})
+          "png_decode_paeth_1000x1000_s": paeth_s, "tiff_decode_lzw_4400x3000_s": tiff_s})
     return images, per_batch
 
 
@@ -6061,8 +6095,8 @@ def main() -> int:
     cfg, vcfg = Config(), vgg_config()
     with tempfile.TemporaryDirectory() as tmp:
         net, panel3, small, origins, launches, served = serve_phase(tmp, cfg, dev, kind, smi)
-        image_formats_phase(tmp, dev, kind, smi, host_build_s)
-        images, per_batch = stages_phase(net, panel3, small, origins, kind, smi)
+        lzw_tif = image_formats_phase(tmp, dev, kind, smi, host_build_s)
+        images, per_batch = stages_phase(net, panel3, small, origins, kind, smi, lzw_tif)
         kernels_line["nms_fused"]["main_path_inputs"] = nms_main_path(net, images, earlier)
         sync_free_phase(net, images, panel3)
         predict_phase(tmp, net, kind, smi)

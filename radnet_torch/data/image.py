@@ -2,10 +2,13 @@
 cv2.IMREAD_COLOR)`` without OpenCV.
 
 :func:`decode_image` tells the format from its first bytes, decodes PNG
-(``data/png.py``) and JPEG (``data/jpeg.py``) to BGR ``(H, W, 3)`` uint8, and
-applies the EXIF orientation (tag 0x0112 of IFD0, from a JPEG's ``Exif`` APP1
-segment or a PNG's ``eXIf`` chunk, either byte order) as OpenCV's
-``ApplyExifOrientation`` does.  A format OpenCV reads that the port does not
+(``data/png.py``), JPEG (``data/jpeg.py``) and TIFF or BigTIFF
+(``data/tiff.py``) to BGR ``(H, W, 3)`` uint8, and applies the orientation:
+for PNG and JPEG the EXIF orientation (tag 0x0112 of IFD0, from a JPEG's
+``Exif`` APP1 segment or a PNG's ``eXIf`` chunk, either byte order) as
+OpenCV's ``ApplyExifOrientation`` does; for TIFF the Orientation tag of IFD0,
+whose flips libtiff applies strip by strip or tile by tile and whose
+transpose OpenCV applies after.  A format OpenCV reads that the port does not
 read yet raises ``ValueError`` naming it; :func:`read_image` raises
 ``FileNotFoundError`` for a missing file, as the JAX package's readers do.
 """
@@ -18,10 +21,11 @@ import numpy as np
 
 from radnet_torch.data.jpeg import decode_jpeg
 from radnet_torch.data.png import decode_png_exif
+from radnet_torch.data.tiff import decode_tiff
 
+_TIFF = [b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"]  # TIFF, BigTIFF
 # First bytes of the formats OpenCV reads that the port does not read yet.
 _NOT_YET = [
-    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"),
     (b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
     (b"#?RADIANCE", "Radiance HDR"), (b"#?RGBE", "Radiance HDR"),
@@ -35,6 +39,8 @@ def _format_of(data: bytes) -> str:
         return "PNG"
     if data.startswith(b"\xff\xd8\xff"):  # OpenCV's JPEG signature
         return "JPEG"
+    if data[:4] in _TIFF:
+        return "TIFF"
     for magic, name in _NOT_YET:
         if data.startswith(magic):
             return name
@@ -78,16 +84,18 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Image file bytes -> BGR ``(H, W, 3)`` uint8, EXIF orientation applied."""
+    """Image file bytes -> BGR ``(H, W, 3)`` uint8, its orientation applied."""
     kind = _format_of(data)
     if kind == "PNG":
         img, exif = decode_png_exif(data)
     elif kind == "JPEG":
         img, exif = decode_jpeg(data)
+    elif kind == "TIFF":
+        return decode_tiff(data)  # its Orientation tag applied
     elif kind == "unknown":
         raise ValueError("not an image file the port or OpenCV reads")
     else:
-        raise ValueError(f"{kind} images are not read yet (PNG and JPEG are)")
+        raise ValueError(f"{kind} images are not read yet (PNG, JPEG and TIFF are)")
     return orient(img, exif_orientation(exif))
 
 

@@ -1,6 +1,7 @@
 """Build and load the host (CPU) libraries of ``radnet_torch/csrc``.
 
-The image reader's byte-by-byte work (``png_unfilter.cpp``, ``jpeg_decode.cpp``)
+The image reader's byte-by-byte work (``png_unfilter.cpp``, ``jpeg_decode.cpp``,
+``tiff_decode.cpp``)
 is C++ with a plain C interface that takes numpy buffers.  At first use the
 host's ``c++`` compiles it into a shared library under ``radnet_torch/_build/``,
 named by a hash of its source and flags (``cuda_kernels.build``: a temporary
@@ -76,4 +77,12 @@ JPEG_DECODE = HostLibrary("jpeg_decode.cpp", {
     "radnet_jpeg_output": (ctypes.c_int, [_p, _p, _p, _p]),
 })
 
-LIBRARIES = [PNG_UNFILTER, JPEG_DECODE]
+TIFF_DECODE = HostLibrary("tiff_decode.cpp", {
+    "radnet_tiff_lzw": (ctypes.c_int, [_p, _i64, _p, _i64]),
+    "radnet_tiff_packbits": (ctypes.c_int, [_p, _i64, _p, _i64]),
+    "radnet_tiff_postdecode": (ctypes.c_int, [_p, _i64, _i64, _i32, _i32, _i32, _i32]),
+    "radnet_tiff_put": (None, [_p, _i64, _i64, _i32, _i32, _i32, _p, _i32, _i32, _i32, _i32, _i32,
+                               _i32, _p, _i32, _i32]),
+})
+
+LIBRARIES = [PNG_UNFILTER, JPEG_DECODE, TIFF_DECODE]

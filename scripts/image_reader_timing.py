@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's image reader (radnet_torch/data/image.py) on this host.
 
-Builds the reader's host libraries (csrc/png_unfilter.cpp, csrc/jpeg_decode.cpp)
-into an empty build directory and prints their build seconds, then decodes,
+Builds the reader's host libraries (csrc/png_unfilter.cpp, csrc/jpeg_decode.cpp,
+csrc/tiff_decode.cpp) into an empty build directory and prints their build
+seconds, then decodes,
 ``--repeats`` times each in turns, and prints the median, the fastest and the
 slowest seconds of:
 
@@ -12,6 +13,11 @@ slowest seconds of:
                         Paeth residuals on every row;
 * ``filter0_4400x3000`` the same panel written by the port's writer (filter 0);
 * ``inflate_4400x3000_paeth``  zlib's share of the Paeth panel's decode;
+* ``tiff_lzw_pred_strips_4400x3000``, ``tiff_deflate_tiles_4400x3000``,
+  ``tiff_none_4400x3000``  the panel as a TIFF (scripts/tiff_writer.py) of
+                        LZW + Predictor 2 strips of 16 rows, of Deflate tiles
+                        of 256, and uncompressed in one strip (which libtiff
+                        chops into strips of about 8 KiB);
 * every file of tests/data/images (``panel_420.jpg`` is a 640 x 480 JPEG).
 
 Each decode is checked against the pixels written (or the cv2 pixels stored
@@ -45,6 +51,7 @@ import chip_smoke  # noqa: E402
 from radnet_torch.data.image import decode_image  # noqa: E402
 from radnet_torch.data.png import encode_png  # noqa: E402
 from radnet_torch.ops import cuda_kernels, host_kernels  # noqa: E402
+from tiff_writer import encode_tiff  # noqa: E402
 
 
 def cpu_model() -> str:
@@ -78,7 +85,13 @@ def main(argv=None) -> int:
         paeth_panel = chip_smoke.paeth_residual_png(grey)
         files = {"paeth_1000x1000": (chip_smoke.paeth_png(1000, 1000), None),
                  "paeth_4400x3000": (paeth_panel, chip_smoke.bgr(grey)),
-                 "filter0_4400x3000": (encode_png(grey), chip_smoke.bgr(grey))}
+                 "filter0_4400x3000": (encode_png(grey), chip_smoke.bgr(grey)),
+                 "tiff_lzw_pred_strips_4400x3000": (
+                     encode_tiff(grey, compression="lzw", predictor=2, rows_per_strip=16),
+                     chip_smoke.bgr(grey)),
+                 "tiff_deflate_tiles_4400x3000": (
+                     encode_tiff(grey, compression="deflate", tile=(256, 256)), chip_smoke.bgr(grey)),
+                 "tiff_none_4400x3000": (encode_tiff(grey), chip_smoke.bgr(grey))}
         fixtures = np.load(os.path.join(chip_smoke.IMAGE_FIXTURES, "cv2_pixels.npz"))
         for name in sorted(f for f in fixtures.files if f != "cv2_version"):
             with open(os.path.join(chip_smoke.IMAGE_FIXTURES, name), "rb") as f:

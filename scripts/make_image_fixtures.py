@@ -17,7 +17,19 @@ and the cv2 version under the key ``cv2_version``.
                       quality 95: ``chip_smoke.py`` serves it;
 * ``odd_444.jpg``     4:4:4, 123 x 157 (a size no MCU divides);
 * ``progressive.jpg`` progressive 4:2:0 with optimized tables, 123 x 157;
-* ``exif6.jpg``       PIL's, with EXIF orientation 6 (read 157 x 123).
+* ``exif6.jpg``       PIL's, with EXIF orientation 6 (read 157 x 123);
+* ``grey_lzw_pred.tif`` grey, LZW + Predictor 2, strips of 16 rows, MM;
+* ``rgb_deflate_tiles_o6.tif`` colour, Deflate tiles of 32 at 123 x 157,
+                      Orientation 6 (libtiff mirrors each tile);
+* ``grey16_bigtiff_tiles.tif`` 16-bit grey BigTIFF, Deflate + Predictor 2
+                      tiles;
+* ``palette4_packbits.tif`` a 4-bit palette (16-bit colormap), PackBits;
+* ``rgba_unassoc_planar.tif`` RGBA of unassociated alpha (premultiplied on
+                      read), separate planes, LZW;
+* ``cmyk.tif``        uncompressed CMYK, its IFD before its data.
+
+The TIFFs are written by ``scripts/tiff_writer.py``, which needs neither cv2
+nor PIL.
 
 The files are written byte for byte the same on every run with the same cv2 and
 PIL; ``tests/test_torch_image_decode.py`` checks that they and the ``.npz``
@@ -46,6 +58,7 @@ OUT = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 from radnet_torch.data import png  # noqa: E402
+from tiff_writer import encode_tiff  # noqa: E402
 
 ODD_HW = (123, 157)
 ADAM7 = [(0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (1, 2, 0, 2),
@@ -110,6 +123,20 @@ def fixtures() -> dict[str, bytes]:
         "progressive.jpg": encode(".jpg", odd, (cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
                                                 cv2.IMWRITE_JPEG_OPTIMIZE, 1)),
         "exif6.jpg": pil(odd, "JPEG", quality=90, exif=exif.tobytes()),
+        "grey_lzw_pred.tif": encode_tiff(grey, compression="lzw", predictor=2, rows_per_strip=16,
+                                         order=">"),
+        "rgb_deflate_tiles_o6.tif": encode_tiff(odd[..., ::-1], compression="deflate",
+                                                tile=(32, 32), tags={274: (3, 6)}),
+        "grey16_bigtiff_tiles.tif": encode_tiff(grey16, bits=16, compression="deflate",
+                                                predictor=2, tile=(32, 32), bigtiff=True),
+        "palette4_packbits.tif": encode_tiff(
+            grey >> 4, bits=4, photometric=3, compression="packbits", rows_per_strip=8,
+            tags={320: (3, np.random.default_rng(16).integers(0, 65536, 48))}),
+        "rgba_unassoc_planar.tif": encode_tiff(
+            np.concatenate([colour[..., ::-1], grey[..., None]], -1), compression="lzw", planar=2,
+            rows_per_strip=32, tags={338: (3, [2])}),
+        "cmyk.tif": encode_tiff(np.concatenate([255 - colour[..., ::-1], grey[..., None] // 4], -1),
+                                photometric=5, ifd_first=True),
     }
 
 

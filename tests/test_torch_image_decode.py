@@ -8,7 +8,8 @@ included, with 0 differing pixels: every PNG bit depth and colour type,
 interlaced or not, each filter on its own rows, tRNS, several IDATs and
 PIL's output; cv2's JPEGs at four qualities and five samplings, sequential
 and progressive, with optimized tables and restart intervals, at sizes no
-MCU divides, and PIL's; EXIF orientations 1-8 in PNG and JPEG.  Where cv2
+MCU divides, and PIL's; EXIF orientations 1-8 in PNG and JPEG (TIFF has
+its own tests, ``test_torch_tiff.py``, and a case here).  Where cv2
 returns no image (a truncated file, a corrupt one), the port raises
 ``ValueError``; a format cv2 reads that the port does not yet read raises
 ``ValueError`` naming it.  Seeded corruptions of both formats hold the port
@@ -18,7 +19,7 @@ The references are cv2 5.0.0 built with libjpeg-turbo 3.1.2 (its AVX2 code
 on an x86 host: the port keeps that IDCT's 16-bit lanes, which only corrupt
 files reach) and libpng 1.6.58; ``test_reference_versions`` fails, naming
 both, under others.  Then the port's ``get_image`` and ``cli.serve`` are held
-against the JAX package's on JPEG, Paeth PNG and EXIF-rotated PNG files with
+against the JAX package's on JPEG, Paeth PNG, EXIF-rotated PNG and TIFF files with
 the same weights, and the host library is built and used from several
 threads at once.  The fixtures of ``tests/data/images`` (the card's host has
 no cv2) must still be what ``scripts/make_image_fixtures.py`` writes and
@@ -458,7 +459,7 @@ def test_exif_orientation_in_png_after_idat_and_bad_values():
 
 
 # ext -> the name the port gives; each is a format cv2.imencode writes and
-# cv2.imdecode reads back.
+# cv2.imdecode reads back.  TIFF is read now: its case holds the port to cv2.
 NOT_YET = {".tif": "TIFF", ".bmp": "BMP", ".webp": "WebP", ".jp2": "JPEG 2000", ".ppm": "PNM",
            ".pgm": "PNM", ".pbm": "PNM", ".pam": "PAM", ".pfm": "PFM", ".hdr": "Radiance HDR",
            ".ras": "Sun raster", ".avif": "AVIF", ".gif": "GIF"}
@@ -473,6 +474,9 @@ def test_formats_not_read_yet_raise_naming_them(ext):
         img = img[..., 0]
     ok, buf = cv2.imencode(ext, img)
     assert ok and cv2_decode(buf.tobytes()) is not None
+    if ext == ".tif":
+        assert assert_as_cv2(buf.tobytes()) == "same"
+        return
     with pytest.raises(ValueError, match=NOT_YET[ext]):
         timage.decode_image(buf.tobytes())
 
@@ -563,11 +567,13 @@ def test_host_library_build_failure_raises(tmp_path, monkeypatch):
 
 
 def test_reader_loads_no_codec_module():
-    """Importing and running the reader loads no OpenCV, PIL or JAX."""
+    """Importing and running the reader (JPEG, PNG, TIFF) loads no OpenCV,
+    PIL or JAX."""
     code = ("import sys; from radnet_torch.data.image import read_image; "
             f"read_image({os.path.join(FIXTURES, 'panel_420.jpg')!r}); "
             f"read_image({os.path.join(FIXTURES, 'paeth_grey.png')!r}); "
-            "bad = [m for m in ('cv2', 'PIL', 'jax', 'radnet_tpu') if m in sys.modules]; "
+            f"read_image({os.path.join(FIXTURES, 'grey_lzw_pred.tif')!r}); "
+            "bad = [m for m in ('cv2', 'PIL', 'tifffile', 'jax', 'radnet_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)
 
@@ -613,21 +619,23 @@ def jax_dir(tmp_path_factory):
 
 def test_serve_matches_jax_on_jpeg_and_exif_png(jax_dir, tmp_path, monkeypatch, capsys):
     """``cli.serve`` of both packages on one model directory: a JPEG panel,
-    the same panel as a PNG with EXIF orientation 6, a TIFF (an error record
-    from the port, detections from JAX's cv2) and a missing file; the port
-    keeps serving after both."""
+    the same panel as a PNG with EXIF orientation 6, as a TIFF (cv2's LZW),
+    a BMP (a format the port does not read yet: an error record from the
+    port, detections from JAX's cv2) and a missing file; the port keeps
+    serving after both errors."""
     monkeypatch.setattr(cv2, "resize", port_cv2_resize)
     monkeypatch.setenv("RADNET_COMPILE_CACHE", str(tmp_path / "jax_cache"))
     panel = _grey_panel(21)
     tint = panel.astype(np.int16) + np.array([-10, 0, 12], np.int16)
     colour = np.clip(tint, 0, 255).astype(np.uint8)
-    paths = {name: str(tmp_path / name) for name in ("p.jpg", "p.png", "p.tif")}
+    paths = {name: str(tmp_path / name) for name in ("p.jpg", "p.png", "p.tif", "p.bmp")}
     Image.fromarray(colour[..., ::-1]).save(paths["p.jpg"], "JPEG", quality=92)
     Image.fromarray(panel[..., ::-1]).save(paths["p.png"], "PNG",
                                              exif=b"Exif\0\0" + exif_tiff(6, "II"))
     assert cv2.imwrite(paths["p.tif"], panel)
-    lines = [paths["p.jpg"], paths["p.png"], paths["p.tif"], str(tmp_path / "missing.png"),
-             paths["p.jpg"]]
+    assert cv2.imwrite(paths["p.bmp"], panel)
+    lines = [paths["p.jpg"], paths["p.png"], paths["p.tif"], paths["p.bmp"],
+             str(tmp_path / "missing.png"), paths["p.jpg"]]
     argv = ["--models-path", str(jax_dir.parent), "--model-name", jax_dir.name]
     monkeypatch.setattr(sys, "stdin", io.StringIO("\n".join(lines) + "\n"))
     assert jserve.main(argv) == 0
@@ -637,9 +645,9 @@ def test_serve_matches_jax_on_jpeg_and_exif_png(jax_dir, tmp_path, monkeypatch, 
                        stdout=out) == 0
     got = [json.loads(line) for line in out.getvalue().splitlines()]
     assert [r["path"] for r in got] == [r["path"] for r in want] == lines
-    assert "TIFF" in got[2]["error"] and "detections" in want[2]
-    assert "error" in got[3] and "error" in want[3]
-    for k in (0, 1, 4):
+    assert "BMP" in got[3]["error"] and "detections" in want[3]
+    assert "error" in got[4] and "error" in want[4]
+    for k in (0, 1, 2, 5):
         assert len(want[k]["detections"]) > 0
         dets = [[{"class": d["label"], "prob": d["confidence"],
                   **{c: d[c] for c in ("x1", "y1", "x2", "y2")}} for d in r[k]["detections"]]
