@@ -61,8 +61,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 written as a PNG, and panel 0 as a TIFF of LZW + Predictor 2
                 strips and as one of Deflate tiles of 256 (written by
                 scripts/tiff_writer.py) bit-equal detections to the
-                filter-0 PNG; decode seconds per file (the 4400 x 3000
-                panels too) and the libraries' build;
+                filter-0 PNG; JPEG-TIFFs (YCbCr 4:2:0 tiles with
+                Orientation 6, cv2's RGB strips, grey strips, progressive)
+                among the fixtures; panel 0 as a JPEG-compressed TIFF of
+                256 x 256 tiles (scripts/jpeg_writer.py), read tile by tile
+                as decode_jpeg reads each tile's stream, detections
+                bit-equal to its pixels as a PNG, and the YCbCr fixture's
+                those of its cv2 pixels; decode seconds per file (the
+                4400 x 3000 panels too), the writes' and the libraries'
+                build;
   8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
                 3000 grey panels and a blended map (launch counts read around
                 it); the label glyph table loads with numpy alone, and every
@@ -1398,22 +1405,29 @@ def served_dets(rec: dict) -> list:
             for d in rec["detections"]]
 
 
-def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> str:
+def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> tuple[str, str]:
     """The port's reader (radnet_torch/data/image.py) on the card's host,
     which has no OpenCV: every fixture of tests/data/images decodes to the
     cv2 pixels stored beside it; a 4400 x 3000 grey panel written with real
     Paeth residuals (panel 0, which serve_phase wrote with filter 0), the
-    4:2:0 JPEG fixture with its cv2 pixels as a filter-0 PNG, and panel 0 as
-    TIFFs of LZW + Predictor 2 strips and of Deflate tiles of 256 go through
-    one cli.serve run on serve_phase's model: each pair gives the same
-    detections, the TIFFs bit-equal to the filter-0 PNG's.  Decode seconds
-    per file, and the host library's build.  Returns the LZW TIFF's path."""
+    4:2:0 JPEG fixture with its cv2 pixels as a filter-0 PNG, panel 0 as
+    TIFFs of LZW + Predictor 2 strips and of Deflate tiles of 256, panel 0
+    as a JPEG-compressed TIFF of 256 x 256 tiles (scripts/jpeg_writer.py)
+    with its decoded pixels as a filter-0 PNG, and the YCbCr 4:2:0 JPEG-TIFF
+    fixture with its cv2 pixels as a PNG go through one cli.serve run on
+    serve_phase's model: each pair gives the same detections, the lossless
+    TIFFs and the JPEG-TIFF panel bit-equal to their PNGs'.  The JPEG-TIFF
+    panel's read is held, tile by tile, to decode_jpeg of its tables joined
+    to that tile's stream.  Decode seconds per file, the writes' seconds,
+    and the host library's build.  Returns the LZW and JPEG TIFFs' paths."""
     from radnet_torch.cli import serve
     from radnet_torch.data.image import decode_image, read_image
+    from radnet_torch.data.jpeg import decode_jpeg
     from radnet_torch.data.png import write_png
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
-    from tiff_writer import write_tiff
+    from jpeg_writer import encode_tiles, join_tables
+    from tiff_writer import encode_tiff, write_tiff
 
     t_phase = time.perf_counter()
     want = np.load(os.path.join(IMAGE_FIXTURES, "cv2_pixels.npz"))
@@ -1444,10 +1458,37 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> str:
         decode_s[name] = time.perf_counter() - t0
         check(got.shape == PANEL_HW + (3,) and bool((got == grey[..., None]).all()),
               f"{name} does not decode to the panel written")
+    # Panel 0 as a JPEG-compressed TIFF of 256 x 256 tiles, its tables in
+    # JPEGTables; its read held to decode_jpeg (the JPEG file reader, held
+    # to cv2 in the tests) of each tile's stream, cropped.
+    jpeg_tif = os.path.join(tmp, "panel0_jpeg_tiles.tif")
+    t0 = time.perf_counter()
+    tables, streams = encode_tiles(grey, (256, 256), quality=90)
+    with open(jpeg_tif, "wb") as f:
+        f.write(encode_tiff(grey, compression="jpeg", tile=(256, 256), streams=streams,
+                            jpeg_tables=tables))
+    jpeg_tiff_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jpeg_panel = read_image(jpeg_tif)
+    decode_s["panel_4400x3000_jpeg_tiles.tif"] = time.perf_counter() - t0
+    check(jpeg_panel.shape == PANEL_HW + (3,), f"JPEG-TIFF panel read as {jpeg_panel.shape}")
+    across = -(-PANEL_HW[1] // 256)
+    bad = [k for k, stream in enumerate(streams)
+           if not (jpeg_panel[k // across * 256:][:256, k % across * 256:][:, :256]
+                   == decode_jpeg(join_tables(tables, stream))[0][
+                       :min(256, PANEL_HW[0] - k // across * 256),
+                       :min(256, PANEL_HW[1] - k % across * 256)]).all()]
+    check(not bad, f"JPEG-TIFF panel tiles {bad[:10]} differ from decode_jpeg of their streams")
+    jpeg_tif_pixels = os.path.join(tmp, "panel0_jpeg_tiles_pixels.png")
+    write_png(jpeg_tif_pixels, jpeg_panel)
     jpg = os.path.join(IMAGE_FIXTURES, "panel_420.jpg")
     jpg_pixels = os.path.join(tmp, "panel_420_cv2_pixels.png")
     write_png(jpg_pixels, want["panel_420.jpg"])
-    paths = [filter0, paeth, jpg, jpg_pixels, lzw_tif, deflate_tif]
+    ycc_tif = os.path.join(IMAGE_FIXTURES, "ycbcr420_tiles_o6.tif")
+    ycc_pixels = os.path.join(tmp, "ycbcr420_tiles_o6_cv2_pixels.png")
+    write_png(ycc_pixels, want["ycbcr420_tiles_o6.tif"])
+    paths = [filter0, paeth, jpg, jpg_pixels, lzw_tif, deflate_tif, jpeg_tif, jpeg_tif_pixels,
+             ycc_tif, ycc_pixels]
     out = Stamped()
     rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
                      "--device", str(device)], stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
@@ -1457,32 +1498,41 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> str:
           f"serve records: {recs}")
     dets = [served_dets(r) for r in recs]
     check(len(dets[0]) > 0, "no detections on panel 0")
+    check(len(dets[6]) > 0, "no detections on panel 0 as a JPEG-TIFF")
     for a, b, what in ((0, 1, "the Paeth PNG and its filter-0 copy"),
-                       (2, 3, "the JPEG and its cv2 pixels as a PNG")):
+                       (2, 3, "the JPEG and its cv2 pixels as a PNG"),
+                       (8, 9, "the YCbCr JPEG-TIFF fixture and its cv2 pixels as a PNG")):
         check(unmatched(dets[a], dets[b], prob_tol=1e-6) == 0,
               f"{what} give other detections: {dets[a]} vs {dets[b]}")
-    for k, what in ((4, "LZW + Predictor 2 strips"), (5, "Deflate tiles of 256")):
-        check(recs[k]["detections"] == recs[0]["detections"],
-              f"panel 0 as a TIFF of {what} gives other detections than the PNG: "
-              f"{recs[k]['detections']} vs {recs[0]['detections']}")
+    for k, ref, what in ((4, 0, "panel 0 as a TIFF of LZW + Predictor 2 strips"),
+                         (5, 0, "panel 0 as a TIFF of Deflate tiles of 256"),
+                         (6, 7, "panel 0 as a JPEG-TIFF of tiles of 256")):
+        check(recs[k]["detections"] == recs[ref]["detections"],
+              f"{what} gives other detections than its PNG: "
+              f"{recs[k]['detections']} vs {recs[ref]['detections']}")
+    names = ["panel0_filter0", "panel0_paeth", "jpeg_420", "jpeg_420_as_png", "panel0_tiff_lzw",
+             "panel0_tiff_deflate", "panel0_jpeg_tiff", "panel0_jpeg_tiff_as_png",
+             "ycbcr420_jpeg_tiff", "ycbcr420_jpeg_tiff_as_png"]
     emit({"phase": "image_formats", "kind": kind, "nvidia_smi": smi,
           "host_library_build_s": host_build_s, "decode_s": decode_s, "tiff_write_s": write_s,
-          "detections": {"panel0_filter0": len(dets[0]), "panel0_paeth": len(dets[1]),
-                         "jpeg_420": len(dets[2]), "jpeg_420_as_png": len(dets[3]),
-                         "panel0_tiff_lzw": len(dets[4]), "panel0_tiff_deflate": len(dets[5])},
+          "jpeg_tiff_write_s": jpeg_tiff_write_s,
+          "detections": {n: len(d) for n, d in zip(names, dets)},
           "detections_bit_equal": {"paeth": recs[0]["detections"] == recs[1]["detections"],
                                    "jpeg": recs[2]["detections"] == recs[3]["detections"],
                                    "tiff_lzw": recs[4]["detections"] == recs[0]["detections"],
-                                   "tiff_deflate": recs[5]["detections"] == recs[0]["detections"]},
+                                   "tiff_deflate": recs[5]["detections"] == recs[0]["detections"],
+                                   "jpeg_tiff": recs[6]["detections"] == recs[7]["detections"],
+                                   "ycbcr_jpeg_tiff": recs[8]["detections"] == recs[9]["detections"]},
           "phase_s": time.perf_counter() - t_phase})
-    return lzw_tif
+    return lzw_tif, jpeg_tif
 
 
-def stages_phase(net, panel3, small, origins, kind, smi, tiff_path):
+def stages_phase(net, panel3, small, origins, kind, smi, tiff_path, jpeg_tiff_path):
     """Per-stage times of one 12-tile grey batch, with the trunk split into
     the grey stem and stages 2-4; per-batch launch counts; the reader's
-    decode of a 1000 x 1000 Paeth PNG and of ``tiff_path`` (panel 0 as LZW +
-    Predictor 2 strips)."""
+    decode of a 1000 x 1000 Paeth PNG, of ``tiff_path`` (panel 0 as LZW +
+    Predictor 2 strips) and of ``jpeg_tiff_path`` (panel 0 as a JPEG-TIFF of
+    256 x 256 tiles)."""
     import torch
 
     from radnet_torch.data.image import read_image
@@ -1559,6 +1609,9 @@ def stages_phase(net, panel3, small, origins, kind, smi, tiff_path):
     t0 = time.perf_counter()
     read_image(tiff_path)
     tiff_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read_image(jpeg_tiff_path)
+    jpeg_tiff_s = time.perf_counter() - t0
     emit({"phase": "stages", "kind": kind, "nvidia_smi": smi, "batch_tiles": len(images),
           "stage_ms": stage_ms, "batch_ms": batch_ms, "batch_ms_by_stem": ab,
           "launches_per_batch": per_batch,
@@ -1570,7 +1623,8 @@ def stages_phase(net, panel3, small, origins, kind, smi, tiff_path):
           "panel_predict_ms": panel_wall_ms, "panel_device_busy_ms": panel_busy_ms,
           "panel_device_idle_share": 1.0 - panel_busy_ms / panel_wall_ms,
           "panel_host_ms": host_ms,
-          "png_decode_paeth_1000x1000_s": paeth_s, "tiff_decode_lzw_4400x3000_s": tiff_s})
+          "png_decode_paeth_1000x1000_s": paeth_s, "tiff_decode_lzw_4400x3000_s": tiff_s,
+          "tiff_decode_jpeg_4400x3000_s": jpeg_tiff_s})
     return images, per_batch
 
 
@@ -6095,8 +6149,8 @@ def main() -> int:
     cfg, vcfg = Config(), vgg_config()
     with tempfile.TemporaryDirectory() as tmp:
         net, panel3, small, origins, launches, served = serve_phase(tmp, cfg, dev, kind, smi)
-        lzw_tif = image_formats_phase(tmp, dev, kind, smi, host_build_s)
-        images, per_batch = stages_phase(net, panel3, small, origins, kind, smi, lzw_tif)
+        lzw_tif, jpeg_tif = image_formats_phase(tmp, dev, kind, smi, host_build_s)
+        images, per_batch = stages_phase(net, panel3, small, origins, kind, smi, lzw_tif, jpeg_tif)
         kernels_line["nms_fused"]["main_path_inputs"] = nms_main_path(net, images, earlier)
         sync_free_phase(net, images, panel3)
         predict_phase(tmp, net, kind, smi)

@@ -2,7 +2,9 @@
 //
 // Replaces: the JPEG half of cv2.imdecode(buf, cv2.IMREAD_COLOR), which the
 // JAX package calls at radnet_tpu/data/dataset.py:74, cli/serve.py:154 and
-// cli/predict.py:52 (libjpeg-turbo 3.1.2 under OpenCV; no TPU kernel).  The
+// cli/predict.py:52 (libjpeg-turbo 3.1.2 under OpenCV; no TPU kernel), for
+// JPEG files and for the strips and tiles of JPEG-compressed TIFFs, which
+// OpenCV's libtiff 4.7.1 decodes through the same libjpeg-turbo.  The
 // markers, tables and scan headers are parsed in Python
 // (radnet_torch/data/jpeg.py); this file does what runs bit by bit or pixel
 // by pixel, written to give libjpeg-turbo's output bit for bit:
@@ -16,12 +18,14 @@
 //    bit past the end was used, the rest of that restart segment is left as
 //    it was (jdhuff.c / jdphuff.c "insufficient_data").
 //  * radnet_jpeg_output dequantizes and runs jidctint.c's ISLOW IDCT (in the
-//    16- and 32-bit lanes of its AVX2 version), upsamples as jdsample.c does by default
+//    16- and 32-bit lanes of its AVX2 version), upsamples as jdsample.c does
+//    by default
 //    (fancy h2v1, h1v2 and h2v2 with their alternating rounding, context rows
 //    clamped at the image's edges; box h2v1/h2v2 when a component is at most
 //    2 samples wide; replication for other integral factors such as 4:1:1),
 //    and converts with jdcolor.c's fixed-point YCbCr tables to BGR (grey:
-//    three equal channels).
+//    three equal channels), or for libtiff to R, G, B, or writes the
+//    components as they are (its JCS_UNKNOWN), into rows of a given stride.
 //
 // No codec library is linked.  Plain C interface, called through ctypes.
 
@@ -41,7 +45,9 @@ const int kNatural[64 + 16] = {
 
 // The data ended where libjpeg-turbo's reader wanted another byte.  OpenCV's
 // memory source then suspends the decoder (its fill_input_buffer returns
-// FALSE), and cv2.imdecode returns None.
+// FALSE), and cv2.imdecode returns None.  libtiff's source (tif_jpeg.c
+// std_fill_input_buffer) instead hands over a fake EOI marker, FF D9, each
+// time: with fake_eoi the bytes past the end read FF D9 FF D9 ...
 struct Suspend {};
 
 // A Huffman table as jdhuff.c derives it (jpeg_make_d_derived_tbl), with its
@@ -102,13 +108,17 @@ void make_huff(const uint8_t* spec, Huff* h) {
 struct Reader {
   const uint8_t* d;
   int64_t len, pos;
+  bool fake_eoi;
   uint64_t buf = 0;
   int bits = 0;
   int marker = 0;  // libjpeg's unread_marker
   bool insufficient = false;
 
   int input_byte() {
-    if (pos >= len) throw Suspend();
+    if (pos >= len) {
+      if (!fake_eoi) throw Suspend();
+      return ((pos++ - len) & 1) ? 0xD9 : 0xFF;
+    }
     return d[pos++];
   }
   void fill(int nbits) {
@@ -276,25 +286,28 @@ extern "C" {
 
 // One scan from data[pos] (just after its SOS header).
 //   p: [ncomp, Ss, Se, Ah, Al, progressive, restart_interval, mcus_x, mcus_y,
-//       then for each scan component: h, v, stride, bw, bh, dc table, ac table
+//       fake_eoi (1: past the end the data reads as fake EOI markers, as
+//       under libtiff, instead of ending the decode), then for each scan
+//       component: h, v, stride, bw, bh, dc table, ac table
 //       (-1 where the scan reads none; the tables it reads were checked), 0]
 //   tables: 8 Huffman specs of 273 bytes (DC 0-3, then AC 0-3): 16 counts, a
 //       defined flag, 256 symbols;
 //   coefs: a pointer a scan component to its int16 (blocks, 64) array, natural
 //       order, blocks row-major with `stride` blocks a row.
 // Returns where libjpeg-turbo's reader goes on after the scan (the FF of the
-// marker it stopped at, or the next byte it has not read), or -1 when the
-// data ended where it wanted another byte.
+// marker it stopped at, or the next byte it has not read; past len under
+// fake_eoi), or -1 when the data ended where it wanted another byte.
 int64_t radnet_jpeg_scan(const uint8_t* data, int64_t len, int64_t pos, const int32_t* p,
                          const uint8_t* tables, int16_t** coefs) {
   const int ncomp = p[0], Ss = p[1], Se = p[2], Ah = p[3], Al = p[4], progressive = p[5];
   const int restart_interval = p[6], mcus_x = p[7], mcus_y = p[8];
+  const bool fake_eoi = p[9] != 0;
   Huff huffs[8];
   bool built[8] = {false};
   ScanComp comps[4];
   int blocks_in_mcu = 0;
   for (int i = 0; i < ncomp; ++i) {
-    const int32_t* c = p + 9 + 8 * i;
+    const int32_t* c = p + 10 + 8 * i;
     const int t[2] = {c[5], c[6] < 0 ? -1 : 4 + c[6]};  // -1: the scan reads no such table
     for (int j = 0; j < 2; ++j)
       if (t[j] >= 0 && !built[t[j]]) {
@@ -305,7 +318,7 @@ int64_t radnet_jpeg_scan(const uint8_t* data, int64_t len, int64_t pos, const in
                 t[1] < 0 ? nullptr : &huffs[t[1]], coefs[i]};
     blocks_in_mcu += ncomp == 1 ? 1 : c[0] * c[1];
   }
-  Reader r{data, len, pos};
+  Reader r{data, len, pos, fake_eoi};
   int last_dc[4] = {0, 0, 0, 0};
   int restarts_to_go = restart_interval, next_rst = 0, eobrun = 0;
   // A non-interleaved scan's MCU is one block of the component's own extent.
@@ -583,48 +596,61 @@ void upsample(const uint8_t* in, int64_t ps, int64_t cw, int64_t ch, int rh, int
 
 extern "C" {
 
-// The decoded coefficients -> BGR (H, W, 3) uint8.
-//   p: [ncomp (1 or 3), W, H, hmax, vmax, rgb (1: the three components are
-//       R, G, B, not YCbCr), then for each component: h, v, stride (blocks a
-//       row of its coefficient array), 0]
+// The decoded coefficients -> pixels, row by row.
+//   p: [ncomp, W, H, hmax, vmax, colour, stride (bytes from one output row
+//       to the next), rows (the first rows written, at most H), then for
+//       each component: h, v, stride (blocks a row of its coefficient
+//       array), 0]
+//   colour: 0 YCbCr converted and written B, G, R (grey: three equal
+//       channels); 1 the three components are R, G, B and written B, G, R;
+//       2 YCbCr converted and written R, G, B (libjpeg's JCS_RGB output, as
+//       libtiff's JPEGCOLORMODE_RGB asks it); 3 the components written as
+//       they are, interleaved (JCS_UNKNOWN's null conversion);
 //   coefs: a pointer a component to its int16 coefficients (natural order);
 //   quant: a component's 64 dequantization values (natural order, int16 as
 //       libjpeg-turbo's ISLOW_MULT_TYPE holds them), one after another.
 int radnet_jpeg_output(const int32_t* p, int16_t** coefs, const int16_t* quant, uint8_t* out) {
-  const int ncomp = p[0], hmax = p[3], vmax = p[4], rgb = p[5];
-  const int64_t W = p[1], H = p[2];
+  const int ncomp = p[0], hmax = p[3], vmax = p[4], colour = p[5];
+  const int64_t W = p[1], H = p[2], stride = p[6], rows = p[7];
   std::vector<std::vector<uint8_t>> full(ncomp);
   for (int ci = 0; ci < ncomp; ++ci) {
-    const int32_t* c = p + 6 + 4 * ci;
-    const int h = c[0], v = c[1], stride = c[2];
+    const int32_t* c = p + 8 + 4 * ci;
+    const int h = c[0], v = c[1], cstride = c[2];
     const int64_t cw = (W * h + hmax - 1) / hmax, ch = (H * v + vmax - 1) / vmax;
     const int64_t bw = (cw + 7) / 8, bh = (ch + 7) / 8;
     const int64_t ps = bw * 8;
     std::vector<uint8_t> plane(ps * bh * 8);
     for (int64_t by = 0; by < bh; ++by)
       for (int64_t bx = 0; bx < bw; ++bx)
-        idct_islow(coefs[ci] + (by * stride + bx) * 64, quant + 64 * ci,
+        idct_islow(coefs[ci] + (by * cstride + bx) * 64, quant + 64 * ci,
                    plane.data() + by * 8 * ps + bx * 8, ps);
     full[ci].resize(W * H);
     upsample(plane.data(), ps, cw, ch, hmax / h, vmax / v, W, H, full[ci].data());
   }
-  const int64_t n = W * H;
-  if (ncomp == 1) {
-    const uint8_t* y = full[0].data();
-    for (int64_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
-    return 0;
-  }
-  if (rgb) {  // jdcolor.c rgb_rgb_convert: only the order changes
-    const uint8_t *R = full[0].data(), *G = full[1].data(), *B = full[2].data();
-    for (int64_t i = 0; i < n; ++i) out[3 * i] = B[i], out[3 * i + 1] = G[i], out[3 * i + 2] = R[i];
-    return 0;
-  }
-  const uint8_t *Y = full[0].data(), *Cb = full[1].data(), *Cr = full[2].data();
-  for (int64_t i = 0; i < n; ++i) {
-    int y = Y[i], cb = Cb[i], cr = Cr[i];
-    out[3 * i + 2] = clamp255(y + kYcc.cr_r[cr]);
-    out[3 * i + 1] = clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-    out[3 * i + 0] = clamp255(y + kYcc.cb_b[cb]);
+  for (int64_t y = 0; y < rows; ++y) {
+    uint8_t* o = out + y * stride;
+    const int64_t i0 = y * W;
+    if (colour == 3) {
+      for (int ci = 0; ci < ncomp; ++ci) {
+        const uint8_t* s = full[ci].data() + i0;
+        for (int64_t x = 0; x < W; ++x) o[x * ncomp + ci] = s[x];
+      }
+    } else if (ncomp == 1) {
+      const uint8_t* Y = full[0].data() + i0;
+      for (int64_t x = 0; x < W; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = Y[x];
+    } else if (colour == 1) {  // jdcolor.c rgb_rgb_convert: only the order changes
+      const uint8_t *R = full[0].data() + i0, *G = full[1].data() + i0, *B = full[2].data() + i0;
+      for (int64_t x = 0; x < W; ++x) o[3 * x] = B[x], o[3 * x + 1] = G[x], o[3 * x + 2] = R[x];
+    } else {
+      const uint8_t *Y = full[0].data() + i0, *Cb = full[1].data() + i0, *Cr = full[2].data() + i0;
+      const int ro = colour == 2 ? 0 : 2, bo = 2 - ro;
+      for (int64_t x = 0; x < W; ++x) {
+        const int yy = Y[x], cb = Cb[x], cr = Cr[x];
+        o[3 * x + ro] = clamp255(yy + kYcc.cr_r[cr]);
+        o[3 * x + 1] = clamp255(yy + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+        o[3 * x + bo] = clamp255(yy + kYcc.cb_b[cb]);
+      }
+    }
   }
   return 0;
 }

@@ -5,13 +5,21 @@ through libtiff's RGBA interface (``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile``,
 
 The first page (IFD0) is read, classic TIFF or BigTIFF, in either byte order:
 strips or tiles (edge tiles padded past the image), planar configuration 1
-or 2, compression none, LZW, Deflate (8 and 32946) and PackBits, Predictor 2
-at 8 and 16 bits, FillOrder 2; grey (Photometric 0 and 1) at 1, 8 and 16
+or 2, compression none, LZW, Deflate (8 and 32946), PackBits and JPEG (7),
+Predictor 2 at 8 and 16 bits, FillOrder 2; grey (Photometric 0 and 1) at 1, 8 and 16
 bits, RGB at 8 and 16 bits, palette at 1, 4 and 8 bits (a colormap with no
 entry above 255 is read as 8-bit, ``checkcmap``), CMYK (Photometric 5,
 InkSet 1); an alpha sample kept when associated and premultiplied into the
 colours when not; and the Orientation tag, including libtiff's mirroring of
-each tile under a horizontal flip.  The file structure is read here as
+each tile under a horizontal flip.  A JPEG-compressed TIFF is read as
+libtiff's JPEG codec reads it (``_JpegCodec``): each strip or tile a JPEG
+stream decoded by ``data/jpeg.py`` through one decompressor whose tables
+``JPEGTables`` fills first; grey, RGB (no colour conversion) and YCbCr in
+contiguous planes (converted to RGB by libjpeg, under ``YCbCrSubsampling``
+or, without it, the first stream's sampling), palette, and grey or RGB in
+separate planes; libtiff's checks of each stream's size, component count,
+precision and sampling refuse what cv2 refuses.  The file structure is read
+here as
 libtiff's ``TIFFReadDirectory`` reads it (defaults, the tags it ignores or
 refuses, ``ChopUpSingleUncompressedStrip``, its fixes of bad byte counts),
 and OpenCV's checks are applied; the byte-by-byte work runs in
@@ -20,9 +28,9 @@ and Deflate is ``zlib``.  As under libtiff, a strip that fails to decode
 leaves what was decoded and zeros after it; a strip that cannot be read at
 all, or any file cv2 refuses, raises ``ValueError`` saying why.
 
-Raised as ``ValueError`` naming the variant ("... is not read yet"): JPEG and
-old-style JPEG compression, CCITT fax and the other libtiff codecs, YCbCr,
-CIELab, LogLuv and LogL, signed or floating-point samples, old-style
+Raised as ``ValueError`` naming the variant ("... is not read yet"): old-style
+JPEG compression, JPEG of 4 samples (CMYK), YCbCr JPEG in separate planes,
+CCITT fax and the other libtiff codecs, YCbCr other than JPEG's, CIELab, LogLuv and LogL, signed or floating-point samples, old-style
 (bit-reversed) LZW, and the few malformed directories whose libtiff fix-ups
 are not ported (``ROADMAP.md`` Queue 3).
 """
@@ -36,6 +44,7 @@ import zlib
 
 import numpy as np
 
+from radnet_torch.data import jpeg
 from radnet_torch.data.png import check_image_size
 from radnet_torch.ops.host_kernels import TIFF_DECODE
 
@@ -45,7 +54,7 @@ _WIDTH = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12
 _INT_CODES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}  # not IFD, IFD8
 # Codecs libtiff has under OpenCV that the port does not run; they name
 # the variant.  A code libtiff does not know decodes to zeros there.
-_NOT_YET = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax", 7: "JPEG",
+_NOT_YET = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
             32766: "NeXT 2-bit RLE", 32771: "CCITT RLEW", 32809: "ThunderScan",
             34676: "SGILog", 34677: "SGILog24"}
 _NOT_CONFIGURED = {6: "old-style JPEG", 34661: "JBIG", 34887: "LERC", 34925: "LZMA",
@@ -168,6 +177,9 @@ class _Dir:
         self.inkset = 1
         self.predictor = 1
         self.colormap = None
+        self.jpeg_tables = None
+        self.ycbcr_sampling = (2, 2)
+        sampling_set = False
 
         # SamplesPerPixel, then Compression, before the other tags.
         if 277 in by_tag:
@@ -266,6 +278,17 @@ class _Dir:
                 v = f.one(ent, 0xFFFF)
                 if not isinstance(v, str):
                     self.predictor = v
+            elif tag == 347 and self.compression == 7 and ent.count:  # JPEGTables
+                if ent.type in (1, 2, 7):
+                    self.jpeg_tables = f.raw(ent)
+                else:  # read as bytes where every value is one, else ignored
+                    v = f.ints(ent)
+                    if not isinstance(v, str) and max(v) <= 255:
+                        self.jpeg_tables = bytes(v)
+            elif tag == 530 and ent.count == 2:  # YCbCrSubsampling
+                v = f.ints(ent)
+                if not isinstance(v, str) and max(v) <= 0xFFFF:
+                    self.ycbcr_sampling, sampling_set = tuple(v), True
         # Strips or tiles.
         tiled = self.tile is not None
         if tiled:
@@ -307,6 +330,44 @@ class _Dir:
                 else:
                     _refuse('missing required "Colormap" field')
         self._fix_counts(tiled)
+        if (self.compression == 7 and self.photometric == 6 and self.planar == 1
+                and self.spp == 3 and not sampling_set):
+            self._fix_sampling()
+
+    def _fix_sampling(self) -> None:
+        """libtiff's JPEGFixupTagsSubsampling: with no YCbCrSubsampling tag,
+        the first strip's or tile's frame header gives it, where its first
+        component's factors are 1, 2 or 4 and the others' 1."""
+        start = self.offsets[0]
+        if start == 0:
+            return
+        block = self.f.data[start: start + self.counts[0]]
+        pos, n = 0, len(block)
+        while True:
+            while pos < n and block[pos] != 0xFF:
+                pos += 1
+            while pos < n and block[pos] == 0xFF:
+                pos += 1
+            if pos >= n:
+                return
+            m, pos = block[pos], pos + 1
+            if m == 0xD8:
+                continue
+            if pos + 2 > n:
+                return
+            (length,) = struct.unpack(">H", block[pos: pos + 2])
+            if m in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+                if length != 8 + 3 * self.spp or pos + length > n:
+                    return
+                factors = block[pos + 9: pos + length: 3]
+                hs, vs = factors[0] >> 4, factors[0] & 15
+                if any(f != 0x11 for f in factors[1:]) or hs not in (1, 2, 4) or vs not in (1, 2, 4):
+                    return
+                self.ycbcr_sampling = (hs, vs)
+                return
+            if not (0xE0 <= m <= 0xEF or m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD)) or length < 2:
+                return
+            pos += length
 
     def _fetch(self, ifd: int) -> list:
         f, data = self.f, self.f.data
@@ -474,6 +535,7 @@ class _Reader:
     def __init__(self, d: _Dir, data: bytes):
         self.d, self.data = d, data
         self.lzw_checked = False
+        self.jpeg = _JpegCodec(d) if d.compression == 7 else None
 
     def raw(self, k: int, tiled: bool, block_size: int) -> bytes:
         """Block k's bytes, or _Refused where libtiff cannot read them."""
@@ -492,7 +554,9 @@ class _Reader:
             if d.compression != 1 and block_size > 100_000_000 and 1000 * rounded < block_size:
                 raise _Refused(f"likely invalid tile byte count for tile {k}")
         raw = self.data[offset: offset + count]
-        return _REVERSED[np.frombuffer(raw, np.uint8)].tobytes() if d.fillorder == 2 else raw
+        if d.fillorder == 2 and d.compression != 7:  # the JPEG codec sets TIFF_NOBITREV
+            return _REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+        return raw
 
     def uncompressed_plane(self, k: int, out: np.ndarray) -> None:
         """TIFFReadEncodedStrip's shortcut for an uncompressed strip read
@@ -508,12 +572,17 @@ class _Reader:
             TIFF_DECODE.fn("radnet_tiff_postdecode")(out.ctypes.data, len(out), len(out), d.bits,
                                                        1, 1, int(d.swab))
 
-    def decode(self, raw: bytes, out: np.ndarray, rowsize: int) -> None:
+    def decode(self, raw: bytes, out: np.ndarray, rowsize: int, y: int = 0) -> None:
         """Decode into out (zeroed, its length the bytes wanted), then the
-        predictor and byte swap where the decode succeeded."""
+        predictor and byte swap where the decode succeeded.  y: the block's
+        first row, which the JPEG codec checks a strip's stream against;
+        where it refuses the stream, _Refused."""
         d = self.d
         occ = len(out)
         ptr = out.ctypes.data
+        if d.compression == 7:
+            self.jpeg.decode(raw, out, rowsize, y)
+            return
         if d.compression == 1:
             ok = len(raw) >= occ
             if ok:
@@ -536,6 +605,62 @@ class _Reader:
             stride = d.spp if d.planar == 1 else 1
             TIFF_DECODE.fn("radnet_tiff_postdecode")(ptr, occ, rowsize, d.bits, stride, predictor,
                                                        int(d.swab))
+
+
+class _JpegCodec:
+    """libtiff's JPEG codec (tif_jpeg.c) as TIFFReadRGBAStrip and
+    TIFFReadRGBATile drive it: one libjpeg decompressor for the file, whose
+    table slots JPEGTables fills first (JPEGSetupDecode) and each stream's
+    own tables then replace; JPEGPreDecode's checks of each strip's or
+    tile's frame; JPEGDecode's rows, YCbCr converted to R, G, B by libjpeg
+    (JPEGCOLORMODE_RGB, which TIFFRGBAImageBegin sets for contiguous YCbCr)
+    and other samples as they are."""
+
+    def __init__(self, d: _Dir):
+        self.d = d
+        self.tables = jpeg.Tables()
+        self.set_up = False
+        self.contig = d.planar == 1 or d.spp == 1
+        self.ycbcr = d.photometric == 6 and self.contig
+        # JPEGSetupDecode: YCbCr's sampling from its tag, none for the rest
+        # (separate YCbCr planes raise before this).
+        self.sampling = d.ycbcr_sampling if d.photometric == 6 else (1, 1)
+
+    def decode(self, raw: bytes, out: np.ndarray, rowsize: int, y: int) -> None:
+        d = self.d
+        try:
+            if not self.set_up:
+                if d.jpeg_tables is not None:
+                    jpeg.read_tables(self.tables, d.jpeg_tables)
+                self.set_up = True
+            if d.tile is not None:
+                seg_w, seg_h = d.tile
+            else:
+                seg_w, seg_h = d.width, min(d.rps, d.height - y)
+            last_strip = d.tile is None and y + seg_h == d.height
+            ncomp = d.spp if self.contig else 1
+
+            def check(frame) -> None:
+                w, h, n = frame.width, frame.height, len(frame.ids)
+                if (w > seg_w or h > seg_h) and not (w == seg_w and last_strip):
+                    raise jpeg.JpegError("JPEG strip/tile size exceeds expected dimensions")
+                if n != ncomp:
+                    raise jpeg.JpegError("Improper JPEG component count")
+                if d.bits != 8:
+                    raise jpeg.JpegError("Improper JPEG data precision")
+                if (frame.h[0], frame.v[0]) != self.sampling or any(
+                        (hs, vs) != (1, 1) for hs, vs in zip(frame.h[1:], frame.v[1:])):
+                    raise jpeg.JpegError("Improper JPEG sampling factors")
+                if self.ycbcr and n != 3:
+                    raise jpeg.JpegError("bogus colour space for YCbCr")
+                if n == 4:
+                    raise ValueError("4-component JPEG (a JPEG-compressed TIFF of 4 samples, such "
+                                     "as CMYK) is not read yet")
+
+            jpeg.decode_tiff_stream(self.tables, raw, check, jpeg.YCC_RGB if self.ycbcr else
+                                    jpeg.AS_IS, out, rowsize, len(out) // rowsize)
+        except jpeg.JpegError as e:
+            raise _Refused(f"JPEG strip or tile: {e}") from None
 
 
 def _inflate(raw: bytes, occ: int) -> tuple[bytes, bool]:
@@ -711,6 +836,10 @@ def _tables(d: _Dir):
     if d.extrasamples == 0 and d.spp == 4 and ph == 2:
         alpha = 1  # DEFAULT_EXTRASAMPLE_AS_ALPHA
     table = np.zeros((256, 3), np.uint8)
+    if ph == 6:  # JPEG's YCbCr, converted by libjpeg: RGB's put
+        if d.spp < 3:
+            _refuse("can not handle format")
+        return 1, 0, table
     if ph in (0, 1, 3):
         if contig and d.spp != 1 and bits < 8:
             _refuse("can not handle contiguous data with Bits/Sample below 8")
@@ -788,9 +917,12 @@ def _check(d: _Dir) -> None:
     if d.sampleformat == 3:
         _refuse("can not handle images with IEEE floating-point samples")
     ph = d.photometric
-    if ph in _PHOTOMETRIC_NOT_YET:
+    if ph == 6 and d.compression == 7:
+        if d.planar == 2 and d.spp > 1:
+            raise ValueError("YCbCr JPEG-compressed TIFF in separate planes is not read yet")
+    elif ph in _PHOTOMETRIC_NOT_YET:
         raise ValueError(f"{_PHOTOMETRIC_NOT_YET[ph]} TIFF is not read yet")
-    if ph not in (0, 1, 2, 3, 5):
+    if ph not in (0, 1, 2, 3, 5, 6):
         _refuse(f"can not handle image with Photometric {ph}")
     if 4 * tw * tl >= 1 << 30:
         _refuse("buffer_size is too large: >= 1Gb")
@@ -883,11 +1015,11 @@ def _read(d: _Dir, data: bytes, mode: int, alpha: int, table: np.ndarray) -> np.
                     continue
                 try:
                     raw = reader.raw(k + p * per_plane, tiled, block_size)
+                    reader.decode(raw, buf[:size], row_bytes, y)
                 except _Refused:
                     if p == planes_read[0]:
                         raise
                     continue  # TIFFReadEncodedStrip / TIFFReadTile fail: zeros
-                reader.decode(raw, buf[:size], row_bytes)
             if contig:
                 base = bufs[0].ctypes.data
                 for c in range(4):

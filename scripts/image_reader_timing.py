@@ -18,10 +18,15 @@ slowest seconds of:
                         LZW + Predictor 2 strips of 16 rows, of Deflate tiles
                         of 256, and uncompressed in one strip (which libtiff
                         chops into strips of about 8 KiB);
+* ``tiff_jpeg_tiles_4400x3000``  the panel as a JPEG-compressed TIFF of 256 x
+                        256 tiles at quality 90 (scripts/jpeg_writer.py), its
+                        tables in JPEGTables (chip_smoke.py's
+                        ``tiff_decode_jpeg_4400x3000_s``);
 * every file of tests/data/images (``panel_420.jpg`` is a 640 x 480 JPEG).
 
 Each decode is checked against the pixels written (or the cv2 pixels stored
-beside the fixtures).  The last lines are the host's CPU model, the card's
+beside the fixtures; the JPEG-TIFF panel, which is lossy, against its first
+decode).  The last lines are the host's CPU model, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line where there is a card, and
 one JSON object of the readings.
 
@@ -51,6 +56,7 @@ import chip_smoke  # noqa: E402
 from radnet_torch.data.image import decode_image  # noqa: E402
 from radnet_torch.data.png import encode_png  # noqa: E402
 from radnet_torch.ops import cuda_kernels, host_kernels  # noqa: E402
+from jpeg_writer import encode_tiles  # noqa: E402
 from tiff_writer import encode_tiff  # noqa: E402
 
 
@@ -92,6 +98,10 @@ def main(argv=None) -> int:
                  "tiff_deflate_tiles_4400x3000": (
                      encode_tiff(grey, compression="deflate", tile=(256, 256)), chip_smoke.bgr(grey)),
                  "tiff_none_4400x3000": (encode_tiff(grey), chip_smoke.bgr(grey))}
+        tables, streams = encode_tiles(grey, (256, 256), quality=90)
+        jpeg_tif = encode_tiff(grey, compression="jpeg", tile=(256, 256), streams=streams,
+                               jpeg_tables=tables)
+        files["tiff_jpeg_tiles_4400x3000"] = (jpeg_tif, decode_image(jpeg_tif))
         fixtures = np.load(os.path.join(chip_smoke.IMAGE_FIXTURES, "cv2_pixels.npz"))
         for name in sorted(f for f in fixtures.files if f != "cv2_version"):
             with open(os.path.join(chip_smoke.IMAGE_FIXTURES, name), "rb") as f:

@@ -26,10 +26,19 @@ and the cv2 version under the key ``cv2_version``.
 * ``palette4_packbits.tif`` a 4-bit palette (16-bit colormap), PackBits;
 * ``rgba_unassoc_planar.tif`` RGBA of unassociated alpha (premultiplied on
                       read), separate planes, LZW;
-* ``cmyk.tif``        uncompressed CMYK, its IFD before its data.
+* ``cmyk.tif``        uncompressed CMYK, its IFD before its data;
+* ``ycbcr420_tiles_o6.tif`` JPEG-compressed YCbCr 4:2:0 tiles of 32 at 123 x
+                      157 with JPEGTables and Orientation 6, encoded by
+                      ``scripts/jpeg_writer.py`` (``chip_smoke.py`` serves it);
+* ``rgb_jpeg_strips.tif`` cv2's own JPEG TIFF: Photometric 2 (RGB, no colour
+                      conversion), strips of 16 rows, JPEGTables;
+* ``grey_jpeg_strips.tif`` grey JPEG strips of 16 rows (cv2's streams, their
+                      tables moved to JPEGTables), big-endian;
+* ``progressive_jpeg.tif`` progressive 4:2:0 YCbCr strips of 32 rows (cv2's
+                      streams, tables in each).
 
 The TIFFs are written by ``scripts/tiff_writer.py``, which needs neither cv2
-nor PIL.
+nor PIL, their JPEG streams by cv2 or ``scripts/jpeg_writer.py``.
 
 The files are written byte for byte the same on every run with the same cv2 and
 PIL; ``tests/test_torch_image_decode.py`` checks that they and the ``.npz``
@@ -58,6 +67,7 @@ OUT = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 from radnet_torch.data import png  # noqa: E402
+from jpeg_writer import encode_tiles, split_tables  # noqa: E402
 from tiff_writer import encode_tiff  # noqa: E402
 
 ODD_HW = (123, 157)
@@ -104,6 +114,11 @@ def pil(img: np.ndarray, fmt: str, mode: str = "RGB", **kw) -> bytes:
     return out.getvalue()
 
 
+def jpeg_strips(img: np.ndarray, rows: int, params=()) -> list[bytes]:
+    """cv2's JPEG stream of each strip of ``rows`` rows."""
+    return [encode(".jpg", img[y:y + rows], params) for y in range(0, img.shape[0], rows)]
+
+
 def fixtures() -> dict[str, bytes]:
     """File name -> bytes of every fixture."""
     grey = small_panel(96, 128, 11)[..., 1]
@@ -112,6 +127,9 @@ def fixtures() -> dict[str, bytes]:
     grey16 = grey.astype(np.uint16) * 257 + np.arange(128, dtype=np.uint16)
     exif = Image.Exif()
     exif[0x0112] = 6
+    tables, tiles = encode_tiles(odd[..., ::-1], (32, 32), quality=90, sampling=(2, 2))
+    grey_strips = jpeg_strips(grey, 16)
+    grey_tables = split_tables(grey_strips[0])[0]
     return {
         "paeth_grey.png": chip_smoke.paeth_residual_png(grey, level=9),
         "grey16.png": encode(".png", grey16),
@@ -137,6 +155,18 @@ def fixtures() -> dict[str, bytes]:
             rows_per_strip=32, tags={338: (3, [2])}),
         "cmyk.tif": encode_tiff(np.concatenate([255 - colour[..., ::-1], grey[..., None] // 4], -1),
                                 photometric=5, ifd_first=True),
+        "ycbcr420_tiles_o6.tif": encode_tiff(odd[..., ::-1], compression="jpeg", photometric=6,
+                                             tile=(32, 32), streams=tiles, jpeg_tables=tables,
+                                             tags={274: (3, 6), 530: (3, [2, 2])}),
+        "rgb_jpeg_strips.tif": encode(".tiff", colour, (cv2.IMWRITE_TIFF_COMPRESSION, 7,
+                                                        cv2.IMWRITE_TIFF_ROWSPERSTRIP, 16)),
+        "grey_jpeg_strips.tif": encode_tiff(grey, compression="jpeg", rows_per_strip=16, order=">",
+                                            streams=[split_tables(s)[1] for s in grey_strips],
+                                            jpeg_tables=grey_tables),
+        "progressive_jpeg.tif": encode_tiff(
+            odd[..., ::-1], compression="jpeg", photometric=6, rows_per_strip=32,
+            streams=jpeg_strips(odd, 32, (cv2.IMWRITE_JPEG_PROGRESSIVE, 1)),
+            tags={530: (3, [2, 2])}),
     }
 
 

@@ -2,10 +2,12 @@
 
 :func:`encode_tiff` writes one page, or several, of integer samples as
 strips or tiles, in either byte order, classic TIFF or BigTIFF, with
-compression none (1), LZW (5), Deflate (8 or 32946) or PackBits (32773),
-Predictor 2 (horizontal differencing) at 8 and 16 bits, planar
-configuration 1 or 2, and any tag added, replaced or left out.  PIL cannot
-write tiles or BigTIFF, and the card's host has neither PIL nor OpenCV:
+compression none (1), LZW (5), Deflate (8 or 32946), PackBits (32773) or
+JPEG (7: streams encoded beforehand, one a strip or tile, and an optional
+``JPEGTables`` stream; ``scripts/jpeg_writer.py`` encodes both), Predictor
+2 (horizontal differencing) at 8 and 16 bits, planar configuration 1 or 2,
+and any tag added, replaced or left out.  PIL cannot write tiles or
+BigTIFF, and the card's host has neither PIL nor OpenCV:
 ``scripts/make_image_fixtures.py`` and ``chip_smoke.py`` write their TIFFs
 with this file, and the tests hold what it writes, decoded by cv2, equal to
 the samples written.
@@ -26,7 +28,7 @@ TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("
          7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8),
          16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 COMPRESSIONS = {"none": 1, "lzw": 5, "deflate": 8, "adobe_deflate": 8, "deflate_32946": 32946,
-                "packbits": 32773}
+                "packbits": 32773, "jpeg": 7}
 
 
 def lzw_encode(data: bytes) -> bytes:
@@ -144,7 +146,7 @@ class _Ifd:
     def set(self, tag: int, typ: int, values) -> None:
         if typ == 2:
             values = values.encode("latin-1") + b"\0" if isinstance(values, str) else values
-        elif not isinstance(values, (list, tuple, np.ndarray)):
+        elif not isinstance(values, (list, tuple, np.ndarray, bytes, bytearray)):
             values = [values]
         self.entries[tag] = (typ, values)
 
@@ -227,7 +229,7 @@ def _layout(pages: list, order: str, big: bool, ifd_first: bool) -> bytes:
 
 
 def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, tile=None,
-          rows_per_strip=None, tags=None, order="<", big=False):
+          rows_per_strip=None, tags=None, order="<", big=False, streams=None, jpeg_tables=None):
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -247,6 +249,8 @@ def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, t
         ifd.set(339, 3, [3] * spp)
     if predictor != 1:
         ifd.set(317, 3, predictor)
+    if jpeg_tables is not None:
+        ifd.set(347, 7, jpeg_tables)
     planes = [img] if planar == 1 or spp == 1 else [img[..., k:k + 1] for k in range(spp)]
     blocks = []
     if tile is not None:
@@ -256,6 +260,9 @@ def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, t
         for plane in planes:
             for y in range(0, h, tl):
                 for x in range(0, w, tw):
+                    if compression == 7:  # the streams given take the blocks' places
+                        blocks.append(None)
+                        continue
                     block = np.zeros((tl, tw, plane.shape[2]), plane.dtype)
                     part = plane[y:y + tl, x:x + tw]
                     block[:part.shape[0], :part.shape[1]] = part
@@ -266,9 +273,14 @@ def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, t
         ifd.set(278, 4, rps)
         for plane in planes:
             for y in range(0, h, rps):
-                blocks.append(compress(_rows_bytes(plane[y:y + rps], bits, predictor, order),
+                blocks.append(None if compression == 7 else
+                              compress(_rows_bytes(plane[y:y + rps], bits, predictor, order),
                                        compression))
         offsets_tag, counts_tag = 273, 279
+    if compression == 7:
+        if streams is None or len(streams) != len(blocks):
+            raise ValueError(f"JPEG compression takes {len(blocks)} encoded streams")
+        blocks = [bytes(s) for s in streams]
     for tag, value in (tags or {}).items():
         if value is None:
             ifd.entries.pop(tag, None)
@@ -285,8 +297,10 @@ def encode_tiff(img, *, order: str = "<", bigtiff: bool = False, ifd_first: bool
     ``page`` takes ``bits``, ``photometric`` (default: 1 for 1 or 2 samples,
     else 2), ``compression`` (a code or a name of ``COMPRESSIONS``),
     ``predictor``, ``planar``, ``tile=(width, length)`` or
-    ``rows_per_strip``, and ``tags``: {tag: (type, values)} to add or
-    replace, or {tag: None} to leave one out.  ``order`` is ``"<"`` (II) or
+    ``rows_per_strip``, ``streams`` (compression ``"jpeg"``: a JPEG stream a
+    strip or tile, in the file's block order) and ``jpeg_tables``, and
+    ``tags``: {tag: (type, values)} to add or replace, or {tag: None} to
+    leave one out.  ``order`` is ``"<"`` (II) or
     ``">"`` (MM); ``ifd_first`` puts each IFD before its data, as PIL does,
     instead of after it, as libtiff does."""
     made = [_page(img, order=order, big=bigtiff, **page)]

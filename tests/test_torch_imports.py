@@ -1,8 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise:
 no JAX, flax, OpenCV, PIL, tifffile, pandas, h5py, matplotlib or radnet_tpu
 import in radnet_torch (its image reader included), chip_smoke.py, the
-synthetic chain's scripts, the reader's timing script or the TIFF writer
-they use; entry points
+synthetic chain's scripts, the reader's timing script or the TIFF and JPEG
+writers they use; entry points
 default to CUDA and raise without a card; the serving protocol works
 in-process on the CPU when asked."""
 
@@ -29,10 +29,10 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "tifffile"
 PORT_FILES = sorted((ROOT / "radnet_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "synthetic_chain.py",
     ROOT / "scripts" / "anchor_coverage.py", ROOT / "scripts" / "image_reader_timing.py",
-    ROOT / "scripts" / "tiff_writer.py"]
+    ROOT / "scripts" / "tiff_writer.py", ROOT / "scripts" / "jpeg_writer.py"]
 READER = ["radnet_torch/data/image.py", "radnet_torch/data/jpeg.py", "radnet_torch/data/png.py",
           "radnet_torch/data/tiff.py", "radnet_torch/ops/host_kernels.py",
-          "scripts/tiff_writer.py"]
+          "scripts/tiff_writer.py", "scripts/jpeg_writer.py"]
 
 
 def _imports(path):
