@@ -67,9 +67,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 256 x 256 tiles (scripts/jpeg_writer.py), read tile by tile
                 as decode_jpeg reads each tile's stream, detections
                 bit-equal to its pixels as a PNG, and the YCbCr fixture's
-                those of its cv2 pixels; decode seconds per file (the
-                4400 x 3000 panels too), the writes' and the libraries'
-                build;
+                those of its cv2 pixels; the colour fixtures (PIL's CMYK
+                JPEG, a YCCK JPEG, a CMYK JPEG-TIFF, packed YCbCr 2, 2
+                LZW tiles with Orientation 6, separate YCbCr planes); panel
+                0 as a YCCK JPEG (Y and K 2 x 2, scripts/jpeg_writer.py)
+                and as packed YCbCr 2, 2 LZW strips (scripts/tiff_writer.py),
+                served with detections bit-equal to their decoded pixels as
+                a filter-0 PNG; decode seconds per file (the 4400 x 3000
+                panels too), the writes' and the libraries' build;
   8. predict    radnet_torch.cli.predict on a scan directory of two 4400 x
                 3000 grey panels and a blended map (launch counts read around
                 it); the label glyph table loads with numpy alone, and every
@@ -1418,15 +1423,20 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> tuple[st
     serve_phase's model: each pair gives the same detections, the lossless
     TIFFs and the JPEG-TIFF panel bit-equal to their PNGs'.  The JPEG-TIFF
     panel's read is held, tile by tile, to decode_jpeg of its tables joined
-    to that tile's stream.  Decode seconds per file, the writes' seconds,
-    and the host library's build.  Returns the LZW and JPEG TIFFs' paths."""
+    to that tile's stream.  Panel 0 is also written as a YCCK JPEG (its grey
+    as K, no ink in C, M, Y; Y and K sampled 2 x 2; a restart each row of
+    MCUs), which reads as three equal channels, and as packed YCbCr 2, 2
+    LZW strips (Cb = Cr = 128), which reads as the panel itself; both go
+    through the same serve run, with detections bit-equal to their pixels
+    as a filter-0 PNG.  Decode seconds per file, the writes' seconds, and
+    the host library's build.  Returns the LZW and JPEG TIFFs' paths."""
     from radnet_torch.cli import serve
     from radnet_torch.data.image import decode_image, read_image
     from radnet_torch.data.jpeg import decode_jpeg
     from radnet_torch.data.png import write_png
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
-    from jpeg_writer import encode_tiles, join_tables
+    from jpeg_writer import encode_cmyk, encode_tiles, join_tables
     from tiff_writer import encode_tiff, write_tiff
 
     t_phase = time.perf_counter()
@@ -1481,6 +1491,32 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> tuple[st
     check(not bad, f"JPEG-TIFF panel tiles {bad[:10]} differ from decode_jpeg of their streams")
     jpeg_tif_pixels = os.path.join(tmp, "panel0_jpeg_tiles_pixels.png")
     write_png(jpeg_tif_pixels, jpeg_panel)
+    # Panel 0 in colour containers: a YCCK JPEG and packed YCbCr LZW strips.
+    ycck_jpg, ycbcr_tif = os.path.join(tmp, "panel0_ycck.jpg"), os.path.join(tmp, "panel0_ycbcr.tif")
+    t0 = time.perf_counter()
+    with open(ycck_jpg, "wb") as f:
+        f.write(encode_cmyk(np.stack([np.full_like(grey, 255)] * 3 + [grey], -1), 90,
+                            ((2, 2), (1, 1), (1, 1), (2, 2)), transform=2,
+                            restart=-(-PANEL_HW[1] // 16)))
+    t1 = time.perf_counter()
+    write_tiff(ycbcr_tif, np.stack([grey, np.full_like(grey, 128), np.full_like(grey, 128)], -1),
+               photometric=6, subsampling=(2, 2), compression="lzw", rows_per_strip=16)
+    colour_write_s = {"ycck_jpeg": t1 - t0, "ycbcr_lzw_strips": time.perf_counter() - t1}
+    t0 = time.perf_counter()
+    ycck_panel = read_image(ycck_jpg)
+    decode_s["panel_4400x3000_ycck_22.jpg"] = time.perf_counter() - t0
+    check(ycck_panel.shape == PANEL_HW + (3,)
+          and bool((ycck_panel == ycck_panel[..., :1]).all()),
+          f"the YCCK panel is not three equal channels of {PANEL_HW}: {ycck_panel.shape}")
+    ycck_err = float(np.abs(ycck_panel[..., 0].astype(np.int16) - grey).mean())
+    check(ycck_err < 3, f"the YCCK panel is {ycck_err} from panel 0 on average")
+    ycck_pixels = os.path.join(tmp, "panel0_ycck_pixels.png")
+    write_png(ycck_pixels, ycck_panel)
+    t0 = time.perf_counter()
+    ycbcr_panel = read_image(ycbcr_tif)
+    decode_s["panel_4400x3000_ycbcr22_lzw_strips.tif"] = time.perf_counter() - t0
+    check(ycbcr_panel.shape == PANEL_HW + (3,) and bool((ycbcr_panel == grey[..., None]).all()),
+          "the YCbCr 2, 2 LZW panel does not read as panel 0")
     jpg = os.path.join(IMAGE_FIXTURES, "panel_420.jpg")
     jpg_pixels = os.path.join(tmp, "panel_420_cv2_pixels.png")
     write_png(jpg_pixels, want["panel_420.jpg"])
@@ -1488,7 +1524,7 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> tuple[st
     ycc_pixels = os.path.join(tmp, "ycbcr420_tiles_o6_cv2_pixels.png")
     write_png(ycc_pixels, want["ycbcr420_tiles_o6.tif"])
     paths = [filter0, paeth, jpg, jpg_pixels, lzw_tif, deflate_tif, jpeg_tif, jpeg_tif_pixels,
-             ycc_tif, ycc_pixels]
+             ycc_tif, ycc_pixels, ycck_jpg, ycck_pixels, ycbcr_tif]
     out = Stamped()
     rc = serve.main(["--models-path", os.path.join(tmp, "models"), "--model-name", "smoke",
                      "--device", str(device)], stdin=io.StringIO("\n".join(paths) + "\n"), stdout=out)
@@ -1504,25 +1540,32 @@ def image_formats_phase(tmp, device, kind, smi, host_build_s: float) -> tuple[st
                        (8, 9, "the YCbCr JPEG-TIFF fixture and its cv2 pixels as a PNG")):
         check(unmatched(dets[a], dets[b], prob_tol=1e-6) == 0,
               f"{what} give other detections: {dets[a]} vs {dets[b]}")
+    check(len(dets[10]) > 0, "no detections on panel 0 as a YCCK JPEG")
     for k, ref, what in ((4, 0, "panel 0 as a TIFF of LZW + Predictor 2 strips"),
                          (5, 0, "panel 0 as a TIFF of Deflate tiles of 256"),
-                         (6, 7, "panel 0 as a JPEG-TIFF of tiles of 256")):
+                         (6, 7, "panel 0 as a JPEG-TIFF of tiles of 256"),
+                         (10, 11, "panel 0 as a YCCK JPEG"),
+                         (12, 0, "panel 0 as packed YCbCr 2, 2 LZW strips")):
         check(recs[k]["detections"] == recs[ref]["detections"],
               f"{what} gives other detections than its PNG: "
               f"{recs[k]['detections']} vs {recs[ref]['detections']}")
     names = ["panel0_filter0", "panel0_paeth", "jpeg_420", "jpeg_420_as_png", "panel0_tiff_lzw",
              "panel0_tiff_deflate", "panel0_jpeg_tiff", "panel0_jpeg_tiff_as_png",
-             "ycbcr420_jpeg_tiff", "ycbcr420_jpeg_tiff_as_png"]
+             "ycbcr420_jpeg_tiff", "ycbcr420_jpeg_tiff_as_png", "panel0_ycck_jpeg",
+             "panel0_ycck_jpeg_as_png", "panel0_ycbcr_lzw_tiff"]
     emit({"phase": "image_formats", "kind": kind, "nvidia_smi": smi,
           "host_library_build_s": host_build_s, "decode_s": decode_s, "tiff_write_s": write_s,
-          "jpeg_tiff_write_s": jpeg_tiff_write_s,
+          "jpeg_tiff_write_s": jpeg_tiff_write_s, "colour_write_s": colour_write_s,
+          "ycck_mean_abs_from_panel0": ycck_err,
           "detections": {n: len(d) for n, d in zip(names, dets)},
           "detections_bit_equal": {"paeth": recs[0]["detections"] == recs[1]["detections"],
                                    "jpeg": recs[2]["detections"] == recs[3]["detections"],
                                    "tiff_lzw": recs[4]["detections"] == recs[0]["detections"],
                                    "tiff_deflate": recs[5]["detections"] == recs[0]["detections"],
                                    "jpeg_tiff": recs[6]["detections"] == recs[7]["detections"],
-                                   "ycbcr_jpeg_tiff": recs[8]["detections"] == recs[9]["detections"]},
+                                   "ycbcr_jpeg_tiff": recs[8]["detections"] == recs[9]["detections"],
+                                   "ycck_jpeg": recs[10]["detections"] == recs[11]["detections"],
+                                   "ycbcr_lzw_tiff": recs[12]["detections"] == recs[0]["detections"]},
           "phase_s": time.perf_counter() - t_phase})
     return lzw_tif, jpeg_tif
 

@@ -26,6 +26,9 @@
 //    and converts with jdcolor.c's fixed-point YCbCr tables to BGR (grey:
 //    three equal channels), or for libtiff to R, G, B, or writes the
 //    components as they are (its JCS_UNKNOWN), into rows of a given stride.
+//    Four components are CMYK, or YCCK that jdcolor.c's ycck_cmyk_convert
+//    turns into CMYK with the same tables; OpenCV then writes them as BGR
+//    (icvCvt_CMYK2BGR_8u_C4C3R: each of Y, M, C as K - ((255 - X) * K >> 8)).
 //
 // No codec library is linked.  Plain C interface, called through ctypes.
 
@@ -605,7 +608,9 @@ extern "C" {
 //       channels); 1 the three components are R, G, B and written B, G, R;
 //       2 YCbCr converted and written R, G, B (libjpeg's JCS_RGB output, as
 //       libtiff's JPEGCOLORMODE_RGB asks it); 3 the components written as
-//       they are, interleaved (JCS_UNKNOWN's null conversion);
+//       they are, interleaved (JCS_UNKNOWN's null conversion); 4 CMYK and
+//       5 YCCK (libjpeg's JCS_CMYK output of a JCS_CMYK or JCS_YCCK frame),
+//       written B, G, R as OpenCV converts CMYK;
 //   coefs: a pointer a component to its int16 coefficients (natural order);
 //   quant: a component's 64 dequantization values (natural order, int16 as
 //       libjpeg-turbo's ISLOW_MULT_TYPE holds them), one after another.
@@ -638,6 +643,22 @@ int radnet_jpeg_output(const int32_t* p, int16_t** coefs, const int16_t* quant, 
     } else if (ncomp == 1) {
       const uint8_t* Y = full[0].data() + i0;
       for (int64_t x = 0; x < W; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = Y[x];
+    } else if (colour == 4 || colour == 5) {
+      const uint8_t *C = full[0].data() + i0, *M = full[1].data() + i0, *Y = full[2].data() + i0,
+                    *K = full[3].data() + i0;
+      for (int64_t x = 0; x < W; ++x) {
+        int c = C[x], m = M[x], y = Y[x];
+        const int k = K[x];
+        if (colour == 5) {  // jdcolor.c ycck_cmyk_convert: C, M, Y = 255 - R, G, B of YCbCr
+          const int yy = c, cb = m, cr = y;
+          c = clamp255(255 - (yy + kYcc.cr_r[cr]));
+          m = clamp255(255 - (yy + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+          y = clamp255(255 - (yy + kYcc.cb_b[cb]));
+        }
+        o[3 * x] = (uint8_t)(k - (((255 - y) * k) >> 8));
+        o[3 * x + 1] = (uint8_t)(k - (((255 - m) * k) >> 8));
+        o[3 * x + 2] = (uint8_t)(k - (((255 - c) * k) >> 8));
+      }
     } else if (colour == 1) {  // jdcolor.c rgb_rgb_convert: only the order changes
       const uint8_t *R = full[0].data() + i0, *G = full[1].data() + i0, *B = full[2].data() + i0;
       for (int64_t x = 0; x < W; ++x) o[3 * x] = B[x], o[3 * x + 1] = G[x], o[3 * x + 2] = R[x];

@@ -30,6 +30,12 @@
 //    (a horizontal flip mirrors each tile within its width) and OpenCV's
 //    placement of the RGBA rows; the transposes of orientations 5-8 are
 //    applied in Python.
+//  * radnet_tiff_put_ycbcr: the YCbCr put routines (putcontig8bitYCbCr{11,
+//    12,21,22,41,42,44}tile on packed blocks of hs x vs luma samples and
+//    their Cb and Cr, putseparate8bitYCbCr11tile on three planes) with
+//    TIFFYCbCrtoRGB's conversion through the tables TIFFYCbCrToRGBInit
+//    builds (tif_color.c; built in Python from the file's YCbCrCoefficients
+//    and ReferenceBlackWhite), placed as radnet_tiff_put places its pixels.
 //
 // No codec library is linked.  Plain C interface, called through ctypes
 // (which releases the GIL, so threads decode at once).
@@ -282,6 +288,50 @@ void radnet_tiff_put(const uint8_t* const* planes, int64_t step, int64_t rowstri
         r = s[0], g = s[1], b = s[2];
       }
       px[0] = (uint8_t)b, px[1] = (uint8_t)g, px[2] = (uint8_t)r;
+    }
+  }
+}
+
+// Packed or separate 8-bit YCbCr of one strip or tile -> BGR rows of out.
+//
+// planes[0]: the block's first byte; contiguous (planes[1] null): blocks of
+// hs * vs luma samples (row by row) then Cb and Cr, rowstride bytes from a
+// row of blocks to the next (the put routine's own step: its blocks and its
+// fromskew), blocks hs * vs + 2 bytes apart along a row; separate (hs = vs =
+// 1): Y, Cb and Cr planes, rowstride bytes a row.  tables: libtiff's Y_tab,
+// Cr_r_tab, Cb_b_tab, Cr_g_tab and Cb_g_tab, 256 int32 each.  w, h, x0, y0,
+// hflip, vflip, out, width, height: as radnet_tiff_put.
+void radnet_tiff_put_ycbcr(const uint8_t* const* planes, int32_t hs, int32_t vs, int64_t rowstride,
+                           const int32_t* tables, int32_t w, int32_t h, int32_t x0, int32_t y0,
+                           int32_t hflip, int32_t vflip, uint8_t* out, int32_t width,
+                           int32_t height) {
+  const int32_t *y_tab = tables, *cr_r = tables + 256, *cb_b = tables + 512, *cr_g = tables + 768,
+                *cb_g = tables + 1024;
+  const bool separate = planes[1] != nullptr;
+  const int64_t bsize = hs * vs + 2;
+  const int64_t dstep = hflip ? -3 : 3;
+  for (int32_t i = 0; i < h; ++i) {
+    const int64_t y = vflip ? (int64_t)height - 1 - (y0 + i) : (int64_t)y0 + i;
+    uint8_t* px = out + (y * width + x0 + (hflip ? w - 1 : 0)) * 3;
+    const int64_t brow = (int64_t)(i / vs) * rowstride;
+    const int r = i % vs;
+    for (int32_t j = 0; j < w; ++j, px += dstep) {
+      int Y, Cb, Cr;
+      if (separate) {
+        const int64_t at = (int64_t)i * rowstride + j;
+        Y = planes[0][at], Cb = planes[1][at], Cr = planes[2][at];
+      } else {
+        const uint8_t* b = planes[0] + brow + (int64_t)(j / hs) * bsize;
+        Y = b[r * hs + j % hs], Cb = b[hs * vs], Cr = b[hs * vs + 1];
+      }
+      // TIFFYCbCrtoRGB
+      const int yv = y_tab[Y];
+      const int rr = yv + cr_r[Cr];
+      const int gg = yv + (int)((cb_g[Cb] + cr_g[Cr]) >> 16);
+      const int bb = yv + cb_b[Cb];
+      px[0] = (uint8_t)(bb < 0 ? 0 : bb > 255 ? 255 : bb);
+      px[1] = (uint8_t)(gg < 0 ? 0 : gg > 255 ? 255 : gg);
+      px[2] = (uint8_t)(rr < 0 ? 0 : rr > 255 ? 255 : rr);
     }
   }
 }

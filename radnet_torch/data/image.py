@@ -2,10 +2,13 @@
 cv2.IMREAD_COLOR)`` without OpenCV.
 
 :func:`decode_image` tells the format from its first bytes, decodes PNG
-(``data/png.py``), JPEG (``data/jpeg.py``) and TIFF or BigTIFF
-(``data/tiff.py``: uncompressed, LZW, Deflate, PackBits and JPEG-compressed,
-the last through ``data/jpeg.py``'s decoder) to BGR ``(H, W, 3)`` uint8,
-and applies the orientation:
+(``data/png.py``), JPEG (``data/jpeg.py``: grey, YCbCr, and 4-component
+CMYK or YCCK converted as OpenCV converts CMYK) and TIFF or BigTIFF
+(``data/tiff.py``: uncompressed, LZW, Deflate, PackBits and
+JPEG-compressed, the last through ``data/jpeg.py``'s decoder; grey, RGB,
+palette, CMYK and YCbCr, the last through libtiff's own conversion where
+libjpeg does not convert it) to BGR ``(H, W, 3)`` uint8, and applies the
+orientation:
 for PNG and JPEG the EXIF orientation (tag 0x0112 of IFD0, from a JPEG's
 ``Exif`` APP1 segment or a PNG's ``eXIf`` chunk, either byte order) as
 OpenCV's ``ApplyExifOrientation`` does; for TIFF the Orientation tag of IFD0,

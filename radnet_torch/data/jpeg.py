@@ -9,19 +9,21 @@ reads a JPEG file as cv2 does; :func:`read_tables` and
 :func:`decode_tiff_stream` read a JPEG-compressed TIFF's JPEGTables and its
 strips' or tiles' streams as libtiff's JPEG codec has libjpeg-turbo read
 them (``data/tiff.py``): the table slots kept from stream to stream, the
-colour taken from the TIFF (YCbCr converted to R, G, B, other samples as
-they are), and data that ends read on as libtiff's fake EOI markers.
+colour taken from the TIFF (YCbCr converted to R, G, B, other samples, 4
+included, as they are), and data that ends read on as libtiff's fake EOI markers.
 
 Read: baseline and extended sequential (SOF0, SOF1) and progressive (SOF2)
-Huffman-coded 8-bit JPEGs of 1 component (grey) or 3 (YCbCr, or RGB where
-libjpeg-turbo's rules say so), any integral sampling factors, restart
-intervals, tables anywhere before the scan that uses them, and data that ends
-early as libjpeg-turbo reads it (zero bits fed, the rest of a restart
-segment left as it was).  Raised as ``ValueError`` naming the variant: 12-bit
-or other precisions, lossless (SOF3), hierarchical (SOF5-7) and
-arithmetic-coded (SOF9-15) JPEGs, 4 components (Adobe CMYK/YCCK), and a
-progressive JPEG whose refinement scans are missing, which libjpeg-turbo
-would fill by block smoothing (not ported).
+Huffman-coded 8-bit JPEGs of 1 component (grey), 3 (YCbCr, or RGB where
+libjpeg-turbo's rules say so) or 4 (CMYK where the Adobe segment's
+transform is 0 or there is none, else YCCK, which libjpeg-turbo converts to
+CMYK; then OpenCV's CMYK to BGR), any integral sampling factors, restart
+intervals, tables anywhere before the scan that uses them, and data that
+ends early as libjpeg-turbo reads it (zero bits fed, the rest of a restart
+segment left as it was).  Raised as ``ValueError`` naming the variant:
+12-bit or other precisions, lossless (SOF3), hierarchical (SOF5-7) and
+arithmetic-coded (SOF9-15) JPEGs, and a progressive JPEG whose refinement
+scans are missing, which libjpeg-turbo would fill by block smoothing (not
+ported).
 """
 
 from __future__ import annotations
@@ -101,9 +103,7 @@ class _Frame:
                 raise JpegError("Improper JPEG data precision")
             raise ValueError(f"{precision}-bit JPEG is not read yet")
         if not tiff:
-            if n == 4:
-                raise ValueError("4-component JPEG (Adobe CMYK/YCCK) is not read yet")
-            if n not in (1, 3):
+            if n not in (1, 3, 4):
                 raise ValueError(f"JPEG with {n} components is not read")
         elif not 1 <= n <= 10:  # MAX_COMPONENTS
             raise JpegError("corrupt JPEG: bad component count")
@@ -413,8 +413,9 @@ def _read(src: _Src, tables: Tables, mode: str, on_frame=None) -> _Parsed | None
 
 # radnet_jpeg_output's colour modes: YCbCr or R, G, B components written as
 # B, G, R (cv2's image); YCbCr written as R, G, B (libtiff's buffer under
-# JPEGCOLORMODE_RGB); the components as they are, interleaved.
-YCC_BGR, RGB_BGR, YCC_RGB, AS_IS = 0, 1, 2, 3
+# JPEGCOLORMODE_RGB); the components as they are, interleaved; CMYK, and
+# YCCK converted to CMYK, written as B, G, R as OpenCV converts CMYK.
+YCC_BGR, RGB_BGR, YCC_RGB, AS_IS, CMYK_BGR, YCCK_BGR = 0, 1, 2, 3, 4, 5
 
 
 def _output(frame: _Frame, colour: int, out: np.ndarray, stride: int, rows: int) -> None:
@@ -440,7 +441,12 @@ def decode_jpeg(data: bytes) -> tuple[np.ndarray, bytes | None]:
     parsed = _read(_Src(bytes(data), fake_eoi=False), Tables(), "file")
     frame = parsed.frame
     colour = YCC_BGR
-    if len(frame.ids) == 3 and not parsed.jfif:
+    if len(frame.ids) == 4:
+        # jdapimin.c default_decompression_parms: Adobe transform 0 is CMYK,
+        # any other YCCK (libjpeg-turbo warns of codes other than 2); no
+        # Adobe marker, CMYK.  OpenCV asks for CMYK out.
+        colour = YCCK_BGR if parsed.adobe_transform not in (None, 0) else CMYK_BGR
+    elif len(frame.ids) == 3 and not parsed.jfif:
         if parsed.adobe_transform is not None:
             colour = RGB_BGR if parsed.adobe_transform == 0 else YCC_BGR
         elif frame.ids == [82, 71, 66]:  # 'R', 'G', 'B'

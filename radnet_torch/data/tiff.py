@@ -10,27 +10,34 @@ Predictor 2 at 8 and 16 bits, FillOrder 2; grey (Photometric 0 and 1) at 1, 8 an
 bits, RGB at 8 and 16 bits, palette at 1, 4 and 8 bits (a colormap with no
 entry above 255 is read as 8-bit, ``checkcmap``), CMYK (Photometric 5,
 InkSet 1); an alpha sample kept when associated and premultiplied into the
-colours when not; and the Orientation tag, including libtiff's mirroring of
-each tile under a horizontal flip.  A JPEG-compressed TIFF is read as
-libtiff's JPEG codec reads it (``_JpegCodec``): each strip or tile a JPEG
-stream decoded by ``data/jpeg.py`` through one decompressor whose tables
-``JPEGTables`` fills first; grey, RGB (no colour conversion) and YCbCr in
-contiguous planes (converted to RGB by libjpeg, under ``YCbCrSubsampling``
-or, without it, the first stream's sampling), palette, and grey or RGB in
-separate planes; libtiff's checks of each stream's size, component count,
-precision and sampling refuse what cv2 refuses.  The file structure is read
-here as
-libtiff's ``TIFFReadDirectory`` reads it (defaults, the tags it ignores or
-refuses, ``ChopUpSingleUncompressedStrip``, its fixes of bad byte counts),
-and OpenCV's checks are applied; the byte-by-byte work runs in
-``radnet_torch/csrc/tiff_decode.cpp`` (:mod:`radnet_torch.ops.host_kernels`),
-and Deflate is ``zlib``.  As under libtiff, a strip that fails to decode
-leaves what was decoded and zeros after it; a strip that cannot be read at
-all, or any file cv2 refuses, raises ``ValueError`` saying why.
+colours when not; YCbCr (Photometric 6) of 3 samples of 8 bits converted by
+libtiff's tables (``TIFFYCbCrToRGBInit`` from ``YCbCrCoefficients`` and
+``ReferenceBlackWhite``, ``_ycbcr_tables``), packed in blocks of hs x vs
+luma samples and their Cb and Cr at the subsamplings ``tif_getimage.c``
+puts (1,1, 1,2, 2,1, 2,2, 4,1, 4,2, 4,4; libtiff's sizes of packed rows),
+or in separate planes at 1,1; and the Orientation tag, including
+libtiff's mirroring of each tile under a horizontal flip.  A
+JPEG-compressed TIFF is read as libtiff's JPEG codec reads it
+(``_JpegCodec``): each strip or tile a JPEG stream decoded by
+``data/jpeg.py`` through one decompressor whose tables ``JPEGTables``
+fills first; grey, RGB and 4 samples (CMYK, RGB and an extra sample) with
+no colour conversion, YCbCr in contiguous planes converted to RGB by
+libjpeg (under ``YCbCrSubsampling`` or, without it, the first stream's
+sampling), palette, and grey, RGB or YCbCr (libtiff's tables) in separate
+planes; libtiff's checks of each stream's size, component count,
+precision and sampling refuse what cv2 refuses.  The file structure is
+read here as libtiff's ``TIFFReadDirectory`` reads it (defaults, the tags
+it ignores or refuses, ``ChopUpSingleUncompressedStrip``, its fixes of bad
+byte counts), and OpenCV's checks are applied; the byte-by-byte work runs
+in ``radnet_torch/csrc/tiff_decode.cpp``
+(:mod:`radnet_torch.ops.host_kernels`), and Deflate is ``zlib``.  As under
+libtiff, a strip that fails to decode leaves what was decoded and zeros
+after it; a strip that cannot be read at all, or any file cv2 refuses,
+raises ``ValueError`` saying why.
 
 Raised as ``ValueError`` naming the variant ("... is not read yet"): old-style
-JPEG compression, JPEG of 4 samples (CMYK), YCbCr JPEG in separate planes,
-CCITT fax and the other libtiff codecs, YCbCr other than JPEG's, CIELab, LogLuv and LogL, signed or floating-point samples, old-style
+JPEG compression, CCITT fax and the other libtiff codecs, CIELab, ICCLab,
+ITULab, LogLuv and LogL, signed or floating-point samples, old-style
 (bit-reversed) LZW, and the few malformed directories whose libtiff fix-ups
 are not ported (``ROADMAP.md`` Queue 3).
 """
@@ -59,8 +66,11 @@ _NOT_YET = {2: "CCITT RLE", 3: "CCITT Group 3 fax", 4: "CCITT Group 4 fax",
             34676: "SGILog", 34677: "SGILog24"}
 _NOT_CONFIGURED = {6: "old-style JPEG", 34661: "JBIG", 34887: "LERC", 34925: "LZMA",
                    50000: "ZSTD", 50001: "WebP"}
-_PHOTOMETRIC_NOT_YET = {6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab", 32844: "LogL",
-                        32845: "LogLuv"}
+_PHOTOMETRIC_NOT_YET = {8: "CIELab", 9: "ICCLab", 10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+_FLOAT_CODES = {**_INT_CODES, 11: "f", 12: "d"}
+_FLT_MAX = float(np.finfo(np.float32).max)
+# The contiguous YCbCr subsamplings tif_getimage.c has a put routine for.
+_YCBCR_PUTS = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
 _HOST_SWAPS = sys.byteorder != "little"
 STRIP_SIZE_DEFAULT = 8192  # libtiff's chop size for one uncompressed strip
 _MAX_COLOR = {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3, 32845: 3, 5: 4}
@@ -130,6 +140,26 @@ class _File:
             return v
         return v[0] if v[0] <= top else "range"
 
+    def floats(self, ent: _Entry) -> list | str:
+        """float32 values as TIFFReadDirEntryFloatArray gives them (a
+        rational of denominator 0 is 0, a double clamped to float's range),
+        or the error's name."""
+        if ent.type not in _FLOAT_CODES and ent.type not in (5, 10):
+            return "type"
+        if _WIDTH[ent.type] * ent.count >= 1 << 64:
+            return "io"
+        whole = self.raw(ent)
+        if whole is None:
+            return "io"
+        if ent.type in (5, 10):
+            pairs = struct.unpack(self.e + ("II" if ent.type == 5 else "iI") * ent.count, whole)
+            return [np.float32(0) if den == 0 else np.float32(num) / np.float32(den)
+                    for num, den in zip(pairs[::2], pairs[1::2])]
+        vals = struct.unpack(self.e + _FLOAT_CODES[ent.type] * ent.count, whole)
+        if ent.type == 12:
+            vals = [min(max(v, -_FLT_MAX), _FLT_MAX) if v == v else v for v in vals]
+        return [np.float32(v) for v in vals]
+
 
 class _Dir:
     """IFD0's fields after libtiff's TIFFReadDirectory."""
@@ -179,6 +209,8 @@ class _Dir:
         self.colormap = None
         self.jpeg_tables = None
         self.ycbcr_sampling = (2, 2)
+        self.ycbcr_coefficients = None  # the defaults of TIFFGetFieldDefaulted where None
+        self.reference_black_white = None
         sampling_set = False
 
         # SamplesPerPixel, then Compression, before the other tags.
@@ -289,6 +321,13 @@ class _Dir:
                 v = f.ints(ent)
                 if not isinstance(v, str) and max(v) <= 0xFFFF:
                     self.ycbcr_sampling, sampling_set = tuple(v), True
+            elif tag in (529, 532) and ent.count == (3 if tag == 529 else 6):
+                v = f.floats(ent)  # a count other than the tag's is ignored
+                if not isinstance(v, str):
+                    if tag == 529:
+                        self.ycbcr_coefficients = v
+                    else:
+                        self.reference_black_white = v
         # Strips or tiles.
         tiled = self.tile is not None
         if tiled:
@@ -447,9 +486,43 @@ class _Dir:
                 and (self.rps <= self.height or self.rps == 0xFFFFFFFF)):
             self._chop()
 
-    def _scanline(self) -> int:
+    def packed_ycbcr(self) -> bool:
+        """YCbCr stored in blocks of hs x vs luma samples and their Cb and
+        Cr, which libtiff's sizes count in blocks: three samples in
+        contiguous planes, not JPEG-compressed (the JPEG codec upsamples)."""
+        return self.planar == 1 and self.photometric == 6 and self.spp == 3 and self.compression != 7
+
+    def _block_rows(self, width: int, nrows: int) -> int:
+        """Bytes of the rows of sampling blocks that cover width x nrows
+        pixels (TIFFVStripSize64's packed YCbCr; 0 where the subsampling is
+        not 1, 2 or 4, where libtiff's size is 0)."""
+        hs, vs = self.ycbcr_sampling
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+            return 0
+        row = (-(-width // hs) * (hs * vs + 2) * self.bits + 7) // 8
+        return row * -(-nrows // vs)
+
+    def scanline(self) -> int:
+        """TIFFScanlineSize64: packed YCbCr's one row of blocks over vs."""
+        if self.packed_ycbcr():
+            return self._block_rows(self.width, 1) // self.ycbcr_sampling[1]
         spp = self.spp if self.planar == 1 else 1
         return (self.width * spp * self.bits + 7) // 8
+
+    def strip_size(self, nrows: int) -> int:
+        """TIFFVStripSize64."""
+        if self.packed_ycbcr():
+            return self._block_rows(self.width, nrows)
+        return nrows * self.scanline()
+
+    def tile_size(self, nrows: int) -> int:
+        """TIFFVTileSize64 (a tile's rows of TIFFTileRowSize64 bytes, which
+        counts 3 samples a pixel for packed YCbCr too)."""
+        tw = self.tile[0]
+        if self.packed_ycbcr():
+            return self._block_rows(tw, nrows)
+        spp = self.spp if self.planar == 1 else 1
+        return nrows * ((tw * spp * self.bits + 7) // 8)
 
     def _count_looks_bad(self) -> bool:
         count, offset = self.counts[0], self.offsets[0]
@@ -461,7 +534,7 @@ class _Dir:
             return False
         if offset <= self.filesize and count > self.filesize - offset:
             return True
-        return count < self._scanline() * self.height
+        return count < self.scanline() * self.height
 
     def _estimate(self, tiled: bool) -> None:
         """EstimateStripByteCounts."""
@@ -486,25 +559,25 @@ class _Dir:
             if last + space > self.filesize:
                 self.counts[-1] = 0 if last >= self.filesize else self.filesize - last
         elif tiled:
-            tw, tl = self.tile
-            spp = self.spp if self.planar == 1 else 1
-            self.counts = [((tw * spp * self.bits + 7) // 8) * tl] * self.nblocks
+            self.counts = [self.tile_size(self.tile[1])] * self.nblocks
         else:
             per_image = self.nblocks // (self.spp if self.planar == 2 else 1)
             rows = self.height // per_image
-            self.counts = [self._scanline() * rows] * self.nblocks
+            self.counts = [self.scanline() * rows] * self.nblocks
         if not self.rps_set:
             self.rps = self.height
 
     def _chop(self) -> None:
-        rowbytes = self._scanline()
+        # Whole rows of sampling blocks for packed YCbCr, else rows.
+        rowblock = self.ycbcr_sampling[1] if self.packed_ycbcr() else 1
+        rowbytes = self.strip_size(rowblock)
         if rowbytes == 0:
             return
         if rowbytes > STRIP_SIZE_DEFAULT:
-            stripbytes, rps = rowbytes, 1
+            stripbytes, rps = rowbytes, rowblock
         else:
-            rps = STRIP_SIZE_DEFAULT // rowbytes
-            stripbytes = rps * rowbytes
+            rps = STRIP_SIZE_DEFAULT // rowbytes * rowblock
+            stripbytes = STRIP_SIZE_DEFAULT // rowbytes * rowbytes
         if rps >= min(self.rps, 0xFFFFFFFF) or rps == 0:
             return
         nstrips = -(-self.height // rps)
@@ -622,9 +695,9 @@ class _JpegCodec:
         self.set_up = False
         self.contig = d.planar == 1 or d.spp == 1
         self.ycbcr = d.photometric == 6 and self.contig
-        # JPEGSetupDecode: YCbCr's sampling from its tag, none for the rest
-        # (separate YCbCr planes raise before this).
-        self.sampling = d.ycbcr_sampling if d.photometric == 6 else (1, 1)
+        # JPEGSetupDecode: YCbCr's sampling from its tag, none for the rest;
+        # JPEGPreDecode holds a separate plane's one component to 1, 1.
+        self.sampling = d.ycbcr_sampling if self.ycbcr else (1, 1)
 
     def decode(self, raw: bytes, out: np.ndarray, rowsize: int, y: int) -> None:
         d = self.d
@@ -653,9 +726,6 @@ class _JpegCodec:
                     raise jpeg.JpegError("Improper JPEG sampling factors")
                 if self.ycbcr and n != 3:
                     raise jpeg.JpegError("bogus colour space for YCbCr")
-                if n == 4:
-                    raise ValueError("4-component JPEG (a JPEG-compressed TIFF of 4 samples, such "
-                                     "as CMYK) is not read yet")
 
             jpeg.decode_tiff_stream(self.tables, raw, check, jpeg.YCC_RGB if self.ycbcr else
                                     jpeg.AS_IS, out, rowsize, len(out) // rowsize)
@@ -822,9 +892,48 @@ def _inflate_to_error(raw: bytes, occ: int) -> bytes:
     return bytes(out[:occ])
 
 
+def _ycbcr_tables(d: _Dir) -> np.ndarray:
+    """TIFFYCbCrToRGBInit's tables (tif_color.c), float arithmetic in
+    float32 as there, from YCbCrCoefficients and ReferenceBlackWhite or
+    their defaults: Y_tab, Cr_r_tab, Cb_b_tab, Cr_g_tab, Cb_g_tab as int32
+    (5, 256).  _Refused where initYCbCrConversion refuses the tags."""
+    f32 = np.float32
+    luma = d.ycbcr_coefficients or [f32(0.299), f32(0.587), f32(0.114)]
+    rbw = d.reference_black_white or [f32(v) for v in (0, 255, 128, 255, 128, 255)]
+    if np.isnan(luma[0]) or np.isnan(luma[1]) or luma[1] == 0 or np.isnan(luma[2]):
+        _refuse("invalid values for YCbCrCoefficients")
+    if not all(-2147483520 < v <= 2147483520 for v in rbw):  # NaN fails too
+        _refuse("invalid values for ReferenceBlackWhite")
+
+    # The C casts to int32 truncate: every value cast fits, the bounds above
+    # and the clamps below see to it.
+    def fix(f):  # FIX(CLAMP(f, 0, 2)), NaN to 0
+        f = f if f >= 0 else f32(0)
+        f = f32(2) if f > 2 else f
+        return int(np.float64(f * f32(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):  # Code2V, then CLAMPw to +-4096 and the cast to int32
+        num = (c - int(rb)).astype(np.float32) * f32(cr)
+        den = f32(rw - rb)
+        v = num / (den if den != 0 else f32(1))
+        return np.trunc(np.where(~(v >= -4096), -4096, np.where(v > 4096, 4096, v))).astype(np.int64)
+
+    with np.errstate(all="ignore"):
+        lr, lg, lb = (f32(v) for v in luma)
+        f1, f3 = f32(2) - f32(2) * lr, f32(2) - f32(2) * lb
+        d1, d2, d3, d4 = fix(f1), -fix(lr * f1 / lg), fix(f3), -fix(lb * f3 / lg)
+        x = np.arange(-128, 128, dtype=np.int64)
+        cr = code2v(x, rbw[4] - f32(128), rbw[5] - f32(128), 127)
+        cb = code2v(x, rbw[2] - f32(128), rbw[3] - f32(128), 127)
+        y_tab = code2v(x + 128, rbw[0], rbw[1], 255)
+    return np.stack([y_tab, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr,
+                     d4 * cb + 32768]).astype(np.int32)
+
+
 def _tables(d: _Dir):
     """(mode, alpha, table) of radnet_tiff_put for TIFFRGBAImageBegin's
-    choice of put routine; _Refused where it has none."""
+    choice of put routine (mode 3: radnet_tiff_put_ycbcr, table its
+    conversion tables); _Refused where it has none."""
     ph, bits, contig = d.photometric, d.bits, d.planar == 1 or d.spp == 1
     alpha = 0
     if d.extrasamples >= 1:
@@ -836,10 +945,17 @@ def _tables(d: _Dir):
     if d.extrasamples == 0 and d.spp == 4 and ph == 2:
         alpha = 1  # DEFAULT_EXTRASAMPLE_AS_ALPHA
     table = np.zeros((256, 3), np.uint8)
-    if ph == 6:  # JPEG's YCbCr, converted by libjpeg: RGB's put
+    if ph == 6 and d.compression == 7 and contig:  # converted by libjpeg: RGB's put
         if d.spp < 3:
             _refuse("can not handle format")
         return 1, 0, table
+    if ph == 6:  # PickContigCase / PickSeparateCase: 8 bits, 3 samples
+        if bits != 8 or d.spp != 3:
+            _refuse("can not handle YCbCr of other than 3 samples of 8 bits")
+        if d.ycbcr_sampling not in (_YCBCR_PUTS if contig else {(1, 1)}):
+            _refuse(f"can not handle YCbCr subsampling {d.ycbcr_sampling}"
+                    + ("" if contig else " in separate planes"))
+        return 3, 0, _ycbcr_tables(d)
     if ph in (0, 1, 3):
         if contig and d.spp != 1 and bits < 8:
             _refuse("can not handle contiguous data with Bits/Sample below 8")
@@ -917,10 +1033,7 @@ def _check(d: _Dir) -> None:
     if d.sampleformat == 3:
         _refuse("can not handle images with IEEE floating-point samples")
     ph = d.photometric
-    if ph == 6 and d.compression == 7:
-        if d.planar == 2 and d.spp > 1:
-            raise ValueError("YCbCr JPEG-compressed TIFF in separate planes is not read yet")
-    elif ph in _PHOTOMETRIC_NOT_YET:
+    if ph in _PHOTOMETRIC_NOT_YET:
         raise ValueError(f"{_PHOTOMETRIC_NOT_YET[ph]} TIFF is not read yet")
     if ph not in (0, 1, 2, 3, 5, 6):
         _refuse(f"can not handle image with Photometric {ph}")
@@ -977,15 +1090,23 @@ def _read(d: _Dir, data: bytes, mode: int, alpha: int, table: np.ndarray) -> np.
         bw, bl = w, min(d.rps, h)
         across, per_plane = 1, -(-h // bl)
     row_bytes = (bw * (spp if contig else 1) * d.bits + 7) // 8
-    block_size = row_bytes * bl
+    packed = d.packed_ycbcr()
+    if packed:  # TIFFTileSize / TIFFStripSize count rows of sampling blocks
+        hs, vs = d.ycbcr_sampling
+        block_size = d.tile_size(bl) if tiled else d.strip_size(bl)
+    else:
+        block_size = row_bytes * bl
+    # A decoded row for the predictor and the JPEG codec: TIFFTileRowSize of
+    # a tile, TIFFScanlineSize of a strip (a row of blocks over vs, packed).
+    pred_row = row_bytes if tiled else d.scanline()
     # Separate planes: the colour planes, then alpha (grey's one plane three times).
     if contig:
         planes_read = [0]
     else:
-        colour = 1 if d.photometric in (0, 1) else 3 if d.photometric == 2 else 4
+        colour = 1 if d.photometric in (0, 1) else 3 if d.photometric in (2, 6) else 4
         planes_read = list(range(colour)) + ([colour] if alpha and mode == 1 else [])
     ptrs = (ctypes.c_void_p * 4)()
-    if contig and not tiled and d.compression == 1:
+    if contig and not tiled and d.compression == 1 and not packed:
         # Uncompressed strips: each read whole or, if its count is short,
         # left zero (DumpModeDecode); then put as one block.
         parts = []
@@ -1005,7 +1126,12 @@ def _read(d: _Dir, data: bytes, mode: int, alpha: int, table: np.ndarray) -> np.
         for x in range(0, w, bw):
             ncol = min(bw, w - x)
             k = (y // bl) * across + x // bw
-            size = block_size if tiled else row_bytes * nrow
+            if tiled:
+                size = block_size
+            elif packed:  # gtStripContig reads whole sampling rows, of its scanline size
+                size = min(-(-nrow // vs) * vs * d.scanline(), d.strip_size(nrow))
+            else:
+                size = row_bytes * nrow
             bufs = []
             for p in planes_read:
                 buf = np.zeros(block_size, np.uint8)
@@ -1015,11 +1141,27 @@ def _read(d: _Dir, data: bytes, mode: int, alpha: int, table: np.ndarray) -> np.
                     continue
                 try:
                     raw = reader.raw(k + p * per_plane, tiled, block_size)
-                    reader.decode(raw, buf[:size], row_bytes, y)
+                    reader.decode(raw, buf[:size], pred_row, y)
                 except _Refused:
                     if p == planes_read[0]:
                         raise
                     continue  # TIFFReadEncodedStrip / TIFFReadTile fail: zeros
+            if mode == 3:
+                if contig:  # the put routine's step from a row of blocks to the next
+                    ptrs[0], ptrs[1] = bufs[0].ctypes.data, None
+                    bsize = hs * vs + 2
+                    # putcontig8bitYCbCr44tile skips a clipped tile's rest at
+                    # 10 bytes a block, its 4,2 sibling's size, not 18.
+                    skip = 10 if (hs, vs) == (4, 4) else bsize
+                    stride = -(-ncol // hs) * bsize + (bw - ncol) // hs * skip
+                else:
+                    for c in range(3):
+                        ptrs[c] = bufs[c].ctypes.data
+                    stride = row_bytes
+                TIFF_DECODE.fn("radnet_tiff_put_ycbcr")(
+                    ptrs, *(d.ycbcr_sampling if contig else (1, 1)), stride, table.ctypes.data,
+                    ncol, nrow, x, y, hflip, vflip, out.ctypes.data, w, h)
+                continue
             if contig:
                 base = bufs[0].ctypes.data
                 for c in range(4):

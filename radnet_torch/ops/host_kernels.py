@@ -83,6 +83,8 @@ TIFF_DECODE = HostLibrary("tiff_decode.cpp", {
     "radnet_tiff_postdecode": (ctypes.c_int, [_p, _i64, _i64, _i32, _i32, _i32, _i32]),
     "radnet_tiff_put": (None, [_p, _i64, _i64, _i32, _i32, _i32, _p, _i32, _i32, _i32, _i32, _i32,
                                _i32, _p, _i32, _i32]),
+    "radnet_tiff_put_ycbcr": (None, [_p, _i32, _i32, _i64, _p, _i32, _i32, _i32, _i32, _i32,
+                                     _i32, _p, _i32, _i32]),
 })
 
 LIBRARIES = [PNG_UNFILTER, JPEG_DECODE, TIFF_DECODE]

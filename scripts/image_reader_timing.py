@@ -22,13 +22,20 @@ slowest seconds of:
                         256 tiles at quality 90 (scripts/jpeg_writer.py), its
                         tables in JPEGTables (chip_smoke.py's
                         ``tiff_decode_jpeg_4400x3000_s``);
+* ``jpeg_ycck_22_4400x3000``  the panel as a YCCK JPEG (its grey as K, no ink
+                        in C, M, Y; Y and K sampled 2 x 2; a restart every
+                        row of MCUs; scripts/jpeg_writer.py), as
+                        chip_smoke.py writes it;
+* ``tiff_ycbcr22_lzw_strips_4400x3000``  the panel as packed YCbCr 2, 2 in LZW
+                        strips of 16 rows (Cb = Cr = 128), as chip_smoke.py
+                        writes it;
 * every file of tests/data/images (``panel_420.jpg`` is a 640 x 480 JPEG).
 
 Each decode is checked against the pixels written (or the cv2 pixels stored
-beside the fixtures; the JPEG-TIFF panel, which is lossy, against its first
-decode).  The last lines are the host's CPU model, the card's
-``nvidia-smi --query-gpu=name,power.limit`` line where there is a card, and
-one JSON object of the readings.
+beside the fixtures; the JPEG-TIFF and YCCK panels, which are lossy,
+against their first decodes).  The last lines are the host's CPU model, the
+card's ``nvidia-smi --query-gpu=name,power.limit`` line where there is a
+card, and one JSON object of the readings.
 
 Usage:
   python3 scripts/image_reader_timing.py [--repeats 7]
@@ -56,7 +63,7 @@ import chip_smoke  # noqa: E402
 from radnet_torch.data.image import decode_image  # noqa: E402
 from radnet_torch.data.png import encode_png  # noqa: E402
 from radnet_torch.ops import cuda_kernels, host_kernels  # noqa: E402
-from jpeg_writer import encode_tiles  # noqa: E402
+from jpeg_writer import encode_cmyk, encode_tiles  # noqa: E402
 from tiff_writer import encode_tiff  # noqa: E402
 
 
@@ -102,6 +109,13 @@ def main(argv=None) -> int:
         jpeg_tif = encode_tiff(grey, compression="jpeg", tile=(256, 256), streams=streams,
                                jpeg_tables=tables)
         files["tiff_jpeg_tiles_4400x3000"] = (jpeg_tif, decode_image(jpeg_tif))
+        white, mid = np.full_like(grey, 255), np.full_like(grey, 128)
+        ycck = encode_cmyk(np.stack([white] * 3 + [grey], -1), 90, ((2, 2), (1, 1), (1, 1), (2, 2)),
+                           transform=2, restart=-(-grey.shape[1] // 16))
+        files["jpeg_ycck_22_4400x3000"] = (ycck, decode_image(ycck))
+        files["tiff_ycbcr22_lzw_strips_4400x3000"] = (
+            encode_tiff(np.stack([grey, mid, mid], -1), photometric=6, subsampling=(2, 2),
+                        compression="lzw", rows_per_strip=16), chip_smoke.bgr(grey))
         fixtures = np.load(os.path.join(chip_smoke.IMAGE_FIXTURES, "cv2_pixels.npz"))
         for name in sorted(f for f in fixtures.files if f != "cv2_version"):
             with open(os.path.join(chip_smoke.IMAGE_FIXTURES, name), "rb") as f:

@@ -82,8 +82,9 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
-def _table_segments(ncomp: int, quality: int) -> bytes:
-    q = quant_tables(quality)[: 1 if ncomp == 1 else 2]
+def _table_segments(ntables: int, quality: int) -> bytes:
+    """DQT and DHT of tables 0 (luminance) to ``ntables - 1`` (chrominance)."""
+    q = quant_tables(quality)[:ntables]
     dqt = b"".join(bytes([t]) + bytes(q[t].reshape(-1)[_ZIGZAG].astype(np.uint8))
                    for t in range(len(q)))
     dht = b""
@@ -97,7 +98,7 @@ def _table_segments(ncomp: int, quality: int) -> bytes:
 def tables_stream(ncomp: int, quality: int = 90) -> bytes:
     """A tables-only stream (SOI, DQT, DHT, EOI) for :func:`encode_jpeg`'s
     abbreviated streams: a TIFF's ``JPEGTables``."""
-    return b"\xff\xd8" + _table_segments(ncomp, quality) + b"\xff\xd9"
+    return b"\xff\xd8" + _table_segments(1 if ncomp == 1 else 2, quality) + b"\xff\xd9"
 
 
 def _ycbcr(rgb: np.ndarray) -> np.ndarray:
@@ -125,11 +126,11 @@ def _bit_size(v: np.ndarray) -> np.ndarray:
     return size
 
 
-def _entropy(zz: np.ndarray, comp: np.ndarray) -> bytes:
-    """Blocks in scan order (zigzag coefficients) and each block's component
-    (0: grey or Y, 1: Cb, 2: Cr) -> the scan's entropy-coded bytes."""
+def _entropy(zz: np.ndarray, comp: np.ndarray, table: np.ndarray) -> bytes:
+    """Blocks in scan order (zigzag coefficients), each block's component
+    and its Huffman tables (0 luminance, 1 chrominance) -> the entropy-coded
+    bytes of one scan, or of one restart interval of it."""
     n = len(zz)
-    table = np.minimum(comp, 1)  # Huffman tables 0 (luminance) and 1 (chrominance)
     diff = np.zeros(n, np.int64)
     for c in np.unique(comp):  # one DC predictor a component
         idx = np.flatnonzero(comp == c)
@@ -174,33 +175,44 @@ def _entropy(zz: np.ndarray, comp: np.ndarray) -> bytes:
     return np.insert(out, np.flatnonzero(out == 0xFF) + 1, 0).tobytes()  # byte stuffing
 
 
-def _encode_planes(planes: list, hv: tuple[int, int], quality: int, tables: bool,
-                   size: tuple[int, int]) -> bytes:
-    """Components already padded to whole MCUs (the first at full size, the
-    others at 1 / (h, v) of it) -> one stream."""
-    h, v = hv
+def _encode_planes(planes: list, factors: list, table_of: list, quality: int, tables: bool,
+                   size: tuple[int, int], restart: int = 0, app: bytes = b"") -> bytes:
+    """Components already padded to whole MCUs (component c sampled
+    ``factors[c]`` = (h, v), coded with tables ``table_of[c]``) -> one
+    stream, a restart marker every ``restart`` MCUs (0: none), ``app``'s
+    segments after SOI."""
     ncomp = len(planes)
     qs = quant_tables(quality)
-    zz = [_blocks(p.astype(np.float64), qs[min(c, 1)]) for c, p in enumerate(planes)]
+    zz = [_blocks(p.astype(np.float64), qs[table_of[c]]) for c, p in enumerate(planes)]
     if ncomp == 1:
         order_zz, comp = zz[0], np.zeros(len(zz[0]), np.int64)
+        per_mcu = 1
     else:
-        by, bx = planes[1].shape[0] // 8, planes[1].shape[1] // 8  # MCU rows and columns
-        my, mx = np.meshgrid(np.arange(by), np.arange(bx), indexing="ij")
-        y0 = (my[..., None, None] * v + np.arange(v)[:, None])
-        x0 = (mx[..., None, None] * h + np.arange(h)[None, :])
-        lum = (y0 * (bx * h) + x0).reshape(by * bx, h * v)
-        parts = [zz[0][lum], zz[1][:, None], zz[2][:, None]]  # chroma: one block an MCU
+        h0, v0 = factors[0]
+        my_n, mx_n = planes[0].shape[0] // (8 * v0), planes[0].shape[1] // (8 * h0)
+        my, mx = np.meshgrid(np.arange(my_n), np.arange(mx_n), indexing="ij")
+        parts, comp = [], []
+        for c, (h, v) in enumerate(factors):
+            y0 = my[..., None, None] * v + np.arange(v)[:, None]
+            x0 = mx[..., None, None] * h + np.arange(h)[None, :]
+            parts.append(zz[c][(y0 * (mx_n * h) + x0).reshape(my_n * mx_n, h * v)])
+            comp += [c] * (h * v)
         order_zz = np.concatenate(parts, 1).reshape(-1, 64)
-        comp = np.tile(np.r_[np.zeros(h * v, np.int64), 1, 2], by * bx)
-    data = _entropy(order_zz, comp)
+        per_mcu = len(comp)
+        comp = np.tile(np.array(comp, np.int64), my_n * mx_n)
+    table = np.array(table_of, np.int64)[comp]
+    step = restart * per_mcu if restart else len(order_zz)
+    data = b"".join((b"\xff" + bytes([0xD0 + (k // step - 1) % 8]) if k else b"")
+                    + _entropy(order_zz[k: k + step], comp[k: k + step], table[k: k + step])
+                    for k in range(0, len(order_zz), step))
     width, height = size
     sof = struct.pack(">BHHB", 8, height, width, ncomp) + b"".join(
-        bytes([c + 1, (h << 4 | v) if c == 0 else 0x11, min(c, 1)]) for c in range(ncomp))
-    sos = bytes([ncomp]) + b"".join(bytes([c + 1, 0x00 if c == 0 else 0x11])
+        bytes([c + 1, h << 4 | v, table_of[c]]) for c, (h, v) in enumerate(factors))
+    sos = bytes([ncomp]) + b"".join(bytes([c + 1, table_of[c] * 0x11])
                                     for c in range(ncomp)) + b"\x00\x3f\x00"
-    return (b"\xff\xd8" + (_table_segments(ncomp, quality) if tables else b"")
-            + _segment(0xC0, sof) + _segment(0xDA, sos) + data + b"\xff\xd9")
+    dri = _segment(0xDD, struct.pack(">H", restart)) if restart else b""
+    return (b"\xff\xd8" + app + (_table_segments(max(table_of) + 1, quality) if tables else b"")
+            + _segment(0xC0, sof) + dri + _segment(0xDA, sos) + data + b"\xff\xd9")
 
 
 def _padded(plane: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -222,12 +234,48 @@ def encode_jpeg(img: np.ndarray, quality: int = 90, sampling: tuple[int, int] = 
     else:
         planes = list(np.moveaxis(_ycbcr(img), -1, 0))
         hv = tuple(sampling)
-    h, v = hv
-    mh, mw = -(-height // (8 * v)) * 8 * v, -(-width // (8 * h)) * 8 * h
-    full = [_padded(p, mh, mw).astype(np.float64) for p in planes]
-    if len(full) == 3:  # chroma averaged over each h x v group
-        full[1:] = [np.round(p.reshape(mh // v, v, mw // h, h).mean((1, 3))) for p in full[1:]]
-    return _encode_planes(full, hv, quality, tables, (width, height))
+    factors = [hv] + [(1, 1)] * (len(planes) - 1)
+    return _encode_planes(_sampled(planes, factors), factors, [0, 1, 1][: len(planes)], quality,
+                          tables, (width, height))
+
+
+def _sampled(planes: list, factors: list) -> list:
+    """Full-size planes -> each padded to whole MCUs with edge samples and
+    averaged down to its own sampling (h, v) of the largest."""
+    hmax, vmax = max(h for h, _ in factors), max(v for _, v in factors)
+    height, width = planes[0].shape
+    mh, mw = -(-height // (8 * vmax)) * 8 * vmax, -(-width // (8 * hmax)) * 8 * hmax
+    out = []
+    for p, (h, v) in zip(planes, factors):
+        p = _padded(p, mh, mw).astype(np.float64)
+        rh, rv = hmax // h, vmax // v
+        out.append(np.round(p.reshape(mh // rv, rv, mw // rh, rh).mean((1, 3))))
+    return out
+
+
+def encode_cmyk(cmyk: np.ndarray, quality: int = 90, factors=((1, 1),) * 4,
+                transform: int | None = 0, restart: int = 0) -> bytes:
+    """``(H, W, 4)`` uint8 samples, as the file is to hold them (Adobe's
+    CMYK, in which 255 is no ink) -> a baseline 4-component stream with an
+    Adobe APP14 segment of colour transform ``transform``: 0 stores C, M, Y,
+    K as they are, 2 stores YCCK (Y, Cb, Cr of 255 - C, 255 - M, 255 - Y as
+    JFIF converts R, G, B, then K), None writes no Adobe segment (readers
+    then take CMYK).  ``factors``: each component's (h, v); ``restart``: a
+    restart marker every so many MCUs.  Tables as libjpeg's: for CMYK table
+    0 for all, for YCCK 0, 1, 1, 0."""
+    cmyk = np.asarray(cmyk)
+    height, width = cmyk.shape[:2]
+    planes = list(np.moveaxis(cmyk.astype(np.float64), -1, 0))
+    table_of = [0, 0, 0, 0]
+    if transform == 2:
+        planes[:3] = list(np.moveaxis(_ycbcr(255 - cmyk[..., :3]), -1, 0))
+        table_of = [0, 1, 1, 0]
+    elif transform not in (0, None):
+        raise ValueError("the writer stores Adobe transforms 0 and 2")
+    app = b"" if transform is None else _segment(
+        0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, transform))
+    return _encode_planes(_sampled(planes, list(factors)), list(factors), table_of, quality, True,
+                          (width, height), restart, app)
 
 
 def encode_tiles(img: np.ndarray, tile: tuple[int, int], quality: int = 90,

@@ -35,7 +35,16 @@ and the cv2 version under the key ``cv2_version``.
 * ``grey_jpeg_strips.tif`` grey JPEG strips of 16 rows (cv2's streams, their
                       tables moved to JPEGTables), big-endian;
 * ``progressive_jpeg.tif`` progressive 4:2:0 YCbCr strips of 32 rows (cv2's
-                      streams, tables in each).
+                      streams, tables in each);
+* ``cmyk_pil.jpg``    PIL's CMYK JPEG (Adobe transform 0), 45 x 61;
+* ``ycck_22.jpg``     YCCK (Adobe transform 2), Y and K sampled 2 x 2, Cb and
+                      Cr 1 x 1, restart every 4 MCUs, 45 x 61, encoded by
+                      ``scripts/jpeg_writer.py``;
+* ``cmyk_jpeg.tif``   PIL's CMYK JPEG-TIFF (4 samples, no colour conversion);
+* ``ycbcr22_lzw_tiles_o6.tif`` packed YCbCr 2, 2, LZW tiles of 32 at 45 x
+                      61, Orientation 6 (libtiff's own YCbCr conversion);
+* ``ycbcr_planar.tif`` YCbCr 1, 1 in separate planes, Deflate strips of 16
+                      rows, ReferenceBlackWhite of Rec. 601's ranges.
 
 The TIFFs are written by ``scripts/tiff_writer.py``, which needs neither cv2
 nor PIL, their JPEG streams by cv2 or ``scripts/jpeg_writer.py``.
@@ -67,10 +76,11 @@ OUT = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 from radnet_torch.data import png  # noqa: E402
-from jpeg_writer import encode_tiles, split_tables  # noqa: E402
+from jpeg_writer import encode_cmyk, encode_tiles, split_tables  # noqa: E402
 from tiff_writer import encode_tiff  # noqa: E402
 
 ODD_HW = (123, 157)
+SMALL_HW = (45, 61)
 ADAM7 = [(0, 8, 0, 8), (4, 8, 0, 8), (0, 4, 4, 8), (2, 4, 0, 4), (0, 2, 2, 4), (1, 2, 0, 2),
          (0, 1, 1, 2)]
 
@@ -130,6 +140,10 @@ def fixtures() -> dict[str, bytes]:
     tables, tiles = encode_tiles(odd[..., ::-1], (32, 32), quality=90, sampling=(2, 2))
     grey_strips = jpeg_strips(grey, 16)
     grey_tables = split_tables(grey_strips[0])[0]
+    small = small_panel(*SMALL_HW, 17)
+    ycc = cv2.cvtColor(small, cv2.COLOR_BGR2YCrCb)[..., [0, 2, 1]]  # Y, Cb, Cr
+    cmyk = np.concatenate([small[..., ::-1], np.maximum(small.max(-1, keepdims=True), 60)], -1)
+    ref_bw = (5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)])
     return {
         "paeth_grey.png": chip_smoke.paeth_residual_png(grey, level=9),
         "grey16.png": encode(".png", grey16),
@@ -167,6 +181,15 @@ def fixtures() -> dict[str, bytes]:
             odd[..., ::-1], compression="jpeg", photometric=6, rows_per_strip=32,
             streams=jpeg_strips(odd, 32, (cv2.IMWRITE_JPEG_PROGRESSIVE, 1)),
             tags={530: (3, [2, 2])}),
+        "cmyk_pil.jpg": pil(small, "JPEG", "CMYK", quality=90),
+        "ycck_22.jpg": encode_cmyk(cmyk, 90, ((2, 2), (1, 1), (1, 1), (2, 2)), transform=2,
+                                   restart=4),
+        "cmyk_jpeg.tif": pil(small, "TIFF", "CMYK", compression="jpeg"),
+        "ycbcr22_lzw_tiles_o6.tif": encode_tiff(ycc, photometric=6, subsampling=(2, 2),
+                                                compression="lzw", tile=(32, 32),
+                                                tags={274: (3, 6)}),
+        "ycbcr_planar.tif": encode_tiff(ycc, photometric=6, planar=2, compression="deflate",
+                                        rows_per_strip=16, tags={530: (3, [1, 1]), 532: ref_bw}),
     }
 
 

@@ -118,6 +118,35 @@ def compress(raw: bytes, compression: int) -> bytes:
     raise ValueError(f"the writer does not compress with {compression}")
 
 
+def ycbcr_blocks(block: np.ndarray, subsampling: tuple[int, int]) -> np.ndarray:
+    """``(rows, cols, 3)`` Y, Cb, Cr samples -> the bytes of packed YCbCr
+    (TIFF 6.0 section 21): rows and columns cut into blocks of ``subsampling``
+    = (hs, vs) pixels, edge samples repeated past the edges; each block's hs
+    x vs luma samples row by row, then the means of its Cb and of its Cr."""
+    hs, vs = subsampling
+    rows, cols, _ = block.shape
+    br, bc = -(-rows // vs), -(-cols // hs)
+    full = np.pad(block, ((0, br * vs - rows), (0, bc * hs - cols), (0, 0)), mode="edge")
+    b = full.reshape(br, vs, bc, hs, 3).transpose(0, 2, 1, 3, 4).reshape(br, bc, vs * hs, 3)
+    chroma = np.round(b[..., 1:].astype(np.float64).mean(2))
+    return np.concatenate([b[..., 0], chroma], -1).astype(np.uint8).reshape(-1)
+
+
+def _packed_bytes(block: np.ndarray, subsampling: tuple[int, int], predictor: int,
+                  rowsize: int) -> bytes:
+    """Packed YCbCr bytes of a strip or tile, differenced first under
+    Predictor 2 as libtiff undoes it: in rows of ``rowsize`` bytes (its
+    scanline size of packed data, or a tile's row of 3 samples a pixel),
+    each byte less the one 3 before it."""
+    data = ycbcr_blocks(block, subsampling)
+    if predictor == 2:
+        whole = len(data) - len(data) % rowsize
+        rows = data[:whole].reshape(-1, rowsize).astype(np.int64)
+        rows[:, 3:] -= data[:whole].reshape(-1, rowsize)[:, :-3]
+        data = np.concatenate([(rows % 256).astype(np.uint8).reshape(-1), data[whole:]])
+    return data.tobytes()
+
+
 def _rows_bytes(block: np.ndarray, bits: int, predictor: int, order: str) -> bytes:
     """(rows, cols, samples) -> the rows' bytes, each row padded to a byte,
     differenced first under Predictor 2."""
@@ -229,7 +258,8 @@ def _layout(pages: list, order: str, big: bool, ifd_first: bool) -> bytes:
 
 
 def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, tile=None,
-          rows_per_strip=None, tags=None, order="<", big=False, streams=None, jpeg_tables=None):
+          rows_per_strip=None, tags=None, order="<", big=False, streams=None, jpeg_tables=None,
+          subsampling=None):
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -251,6 +281,15 @@ def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, t
         ifd.set(317, 3, predictor)
     if jpeg_tables is not None:
         ifd.set(347, 7, jpeg_tables)
+    packed = subsampling is not None and planar == 1 and compression != 7
+    if subsampling is not None:
+        ifd.set(530, 3, list(subsampling))
+
+    def encoded(block, rowsize):
+        if packed:
+            return compress(_packed_bytes(block, subsampling, predictor, rowsize), compression)
+        return compress(_rows_bytes(block, bits, predictor, order), compression)
+
     planes = [img] if planar == 1 or spp == 1 else [img[..., k:k + 1] for k in range(spp)]
     blocks = []
     if tile is not None:
@@ -266,16 +305,18 @@ def _page(img, bits=8, photometric=None, compression=1, predictor=1, planar=1, t
                     block = np.zeros((tl, tw, plane.shape[2]), plane.dtype)
                     part = plane[y:y + tl, x:x + tw]
                     block[:part.shape[0], :part.shape[1]] = part
-                    blocks.append(compress(_rows_bytes(block, bits, predictor, order), compression))
+                    blocks.append(encoded(block, 3 * tw))
         offsets_tag, counts_tag = 324, 325
     else:
         rps = rows_per_strip or h
         ifd.set(278, 4, rps)
+        if packed:  # libtiff's scanline of packed YCbCr: a row of blocks over vs
+            hs, vs = subsampling
+            scanline = -(-w // hs) * (hs * vs + 2) // vs
         for plane in planes:
             for y in range(0, h, rps):
                 blocks.append(None if compression == 7 else
-                              compress(_rows_bytes(plane[y:y + rps], bits, predictor, order),
-                                       compression))
+                              encoded(plane[y:y + rps], scanline if packed else 0))
         offsets_tag, counts_tag = 273, 279
     if compression == 7:
         if streams is None or len(streams) != len(blocks):
@@ -298,7 +339,10 @@ def encode_tiff(img, *, order: str = "<", bigtiff: bool = False, ifd_first: bool
     else 2), ``compression`` (a code or a name of ``COMPRESSIONS``),
     ``predictor``, ``planar``, ``tile=(width, length)`` or
     ``rows_per_strip``, ``streams`` (compression ``"jpeg"``: a JPEG stream a
-    strip or tile, in the file's block order) and ``jpeg_tables``, and
+    strip or tile, in the file's block order) and ``jpeg_tables``,
+    ``subsampling=(hs, vs)`` (YCbCrSubsampling; with Photometric 6 in
+    contiguous planes and another compression than JPEG, ``img``'s Y, Cb, Cr
+    samples are stored packed in blocks, :func:`ycbcr_blocks`), and
     ``tags``: {tag: (type, values)} to add or replace, or {tag: None} to
     leave one out.  ``order`` is ``"<"`` (II) or
     ``">"`` (MM); ``ifd_first`` puts each IFD before its data, as PIL does,

@@ -340,13 +340,15 @@ def test_byte_count_repairs_as_libtiff():
     ("old-style (pre-TIFF 6.0, bit-reversed) LZW", lambda: _compat_lzw()),
 ])
 def test_variants_not_read_raise_naming_them(variant, make):
-    """YCbCr, CCITT, CIELab, LogLuv, signed and floating-point samples,
-    old-style LZW: the port raises naming the variant, whether cv2 reads the
-    file or (float samples, OJPEG) refuses it too.  JPEG is read now
-    (tests/test_torch_tiff_jpeg.py): its file here, raw samples marked
-    Compression 7, is held to cv2, which refuses it as the port does."""
-    if variant == "JPEG-compressed":
-        assert assert_as_cv2(make()) == "both refuse"
+    """CCITT, CIELab, LogLuv, signed and floating-point samples, old-style
+    LZW: the port raises naming the variant, whether cv2 reads the file or
+    (float samples, OJPEG) refuses it too.  JPEG and YCbCr are read now
+    (tests/test_torch_tiff_jpeg.py, tests/test_torch_image_colour.py): their
+    files here are held to cv2, which refuses raw samples marked Compression
+    7 as the port does, and reads 3 samples a pixel marked YCbCr as packed
+    blocks of the default subsampling 2, 2."""
+    if variant in ("JPEG-compressed", "YCbCr"):
+        assert assert_as_cv2(make()) == ("both refuse" if variant == "JPEG-compressed" else "same")
         return
     with pytest.raises(ValueError, match=variant.split(" (")[0]):
         timage.decode_image(make())

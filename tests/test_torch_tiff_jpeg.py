@@ -373,20 +373,24 @@ def test_cut_streams_as_cv2(where):
 
 
 def test_variants_not_read_raise_naming_them():
-    """JPEG of 4 samples (PIL's CMYK) and YCbCr JPEG in separate planes:
-    cv2 reads them, the port raises naming them.  Uncompressed YCbCr still
-    raises naming YCbCr."""
+    """JPEG of 4 samples (PIL's CMYK), YCbCr JPEG in separate planes of
+    subsampling 1, 1 and uncompressed YCbCr are read now
+    (tests/test_torch_image_colour.py): each as cv2 reads it.  A CIELab
+    JPEG-TIFF, which cv2 reads, raises naming CIELab."""
     rgb = colour(37, 53, 8)[..., ::-1].copy()
     buf = io.BytesIO()
     Image.fromarray(rgb).convert("CMYK").save(buf, "TIFF", compression="jpeg")
     planes = [s for c in range(3) for s in strip_streams(np.ascontiguousarray(rgb[..., c]), 16)]
     separate = encode_tiff(rgb, compression="jpeg", photometric=6, planar=2, streams=planes,
                            rows_per_strip=16, tags={530: (3, [1, 1])})
-    for data, name in ((buf.getvalue(), "4-component JPEG"), (separate, "separate planes"),
-                       (encode_tiff(rgb, photometric=6), "YCbCr")):
-        assert cv2_decode(data) is not None
-        with pytest.raises(ValueError, match=name):
-            timage.decode_image(data)
+    for data in (buf.getvalue(), separate, encode_tiff(rgb, photometric=6)):
+        assert assert_as_cv2(data) == "same"
+    lab = encode_tiff(rgb, compression="jpeg", photometric=8,
+                      streams=strip_streams(rgb, 16, SF, SAMPLING["444"]),
+                      rows_per_strip=16)
+    assert cv2_decode(lab) is not None
+    with pytest.raises(ValueError, match="CIELab"):
+        timage.decode_image(lab)
     # Separate YCbCr planes that libtiff's own conversion does not read: refused by both.
     assert assert_as_cv2(encode_tiff(rgb, compression="jpeg", photometric=6, planar=2,
                                      streams=planes, rows_per_strip=16)) == "both refuse"
